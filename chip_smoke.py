@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (slamnet_tpu_torch) once on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one line each; any failure raises and the exit code is not 0:
+  1. device   — a CUDA device is required; its name and power limit;
+  2. build    — nvcc builds csrc/*.cu (K1, K2) into build/;
+  3. K1       — the match kernel against its plain version on a bootstrapped
+                400x400 pyramid: 3 hints (pose within 2e-3, equal solve
+                failures, residual within rtol 0.05), the guard config
+                (xy clamp, damping, subsample 4; pose within 3e-3), an
+                empty scan (returns the hint);
+  4. K2       — the fill kernel against its plain version on all 3 levels of
+                a bootstrapped map and of random maps: identical occupied
+                increments, at most 0.1% of cells per level differing, each
+                by |log_odds_free|; do_update=0 leaves the maps bit for bit;
+  5. slice    — the pallas_dense replay of 10 + 512 loop scans through the
+                kernels: one K1 and one K2 call per replayed scan (launch
+                counts), ATE <= JAX_REF_ATE_M + 2e-4 and max error <= 0.05 m;
+                scans/s of the kernel path beside the plain path's.
+Then one JSON line of kernel measurements, and last the result line.
+"""
+import json
+import subprocess
+import sys
+import time
+
+REPS_KERNEL = 200
+REPS_PLAIN = 20
+TIMED_REPLAYS = 3
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def _events_ms(torch, run, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def eager_ms(torch, fn, reps: int) -> float:
+    """Time per call of ``fn`` as a caller sees it: CUDA events around
+    ``reps`` eager calls after a warm-up call (host launch cost included
+    where the device waits for the host)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return _events_ms(torch, run, reps)
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, timed with CUDA events over a replay, so no host launch cost is
+    left between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _events_ms(torch, graph.replay, reps)
+
+
+def main() -> int:
+    import torch
+
+    # ---- 1. device ---------------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is False)")
+    import numpy as np
+
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.core.scan import Scan
+    from slamnet_tpu_torch.models import hector
+    from slamnet_tpu_torch.ops import _build, fill, match
+    from slamnet_tpu_torch.sim import default_field, revolution_angles
+    from slamnet_tpu_torch.sim import scan_revolution
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    say(f"[device] {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"capability {torch.cuda.get_device_capability(0)})")
+    say(f"[device] nvidia-smi: {smi}")
+
+    # ---- 2. build ----------------------------------------------------------
+    _, build_s, build_log = _build.library()
+    say(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {build_s:.1f} s "
+        f"({', '.join(p.name for p in _build.sources())})")
+    for line in build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            say(f"[build]   {line.strip()}")
+
+    cfg = replay.pallas_dense_config()
+    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    # a bootstrapped 400x400 pyramid at the start pose: 6 forced updates
+    truth = torch.tensor([20.0, 20.0, 0.0], device=dev)
+    angles = torch.as_tensor(revolution_angles(400), device=dev)
+    fld = default_field(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def sim_scan(pose):
+        r, v = scan_revolution(fld, pose, angles, 40.0, 0.02, gen)
+        return Scan(torch.stack([r * torch.cos(angles), r * torch.sin(angles)],
+                                -1).contiguous(), v, zero3)
+
+    state = hector.init(cfg, truth, dev)
+    for _ in range(6):
+        state, _ = hector.update(state, sim_scan(truth), truth, cfg, True)
+    scan = sim_scan(truth)
+    maps = state.maps
+
+    # ---- 3. K1 vs its plain version ------------------------------------------
+    k1_before = match.match.launches
+    k1_calls = 0
+    k1_err = 0.0
+    cases = [(cfg, (0.2, -0.15, 0.04), 2e-3), (cfg, (-0.1, 0.12, -0.03), 2e-3),
+             (cfg, (0.05, 0.2, 0.06), 2e-3),
+             (cfg.overlay({"xy_step_clamp_px": 10.0, "gn_damping": 0.1,
+                           "match_subsample": 4}), (0.15, 0.1, -0.03), 3e-3)]
+    for c, off, tol in cases:
+        hint = truth + torch.tensor(off, device=dev)
+        ok_ = match.match(maps, scan.points, scan.valid, hint, c)
+        k1_calls += 1
+        op = match.match_plain(maps, scan.points, scan.valid, hint, c)
+        ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
+        err = float(np.abs(ok_[:3] - op[:3]).max())
+        k1_err = max(k1_err, err)
+        check(np.isfinite(ok_).all(), f"K1 output not finite: {ok_}")
+        check(err <= tol, f"K1 pose {ok_[:3]} vs plain {op[:3]} (tol {tol})")
+        check(ok_[3] == op[3], f"K1 solve failures {ok_[3]} vs plain {op[3]}")
+        res_k, res_p = ok_[4] / max(ok_[5], 1.0), op[4] / max(op[5], 1.0)
+        check(abs(res_k - res_p) <= 0.05 * abs(res_p),
+              f"K1 residual {res_k} vs plain {res_p}")
+        check(np.linalg.norm(ok_[:2] - truth[:2].cpu().numpy()) < 0.08,
+              f"K1 did not converge to the true pose: {ok_[:3]}")
+    hint = torch.tensor([20.0, 20.0, 0.5], device=dev)
+    empty = torch.zeros(400, dtype=torch.bool, device=dev)
+    oe = match.match(maps, scan.points, empty, hint, cfg)
+    k1_calls += 1
+    check(torch.equal(oe[:3], hint), f"K1 empty scan: {oe[:3]} != hint {hint}")
+    torch.cuda.synchronize()
+    check(match.match.launches - k1_before == k1_calls,
+          f"K1 launch count rose by {match.match.launches - k1_before}, "
+          f"expected {k1_calls}")
+    hint = truth + torch.tensor((0.2, -0.15, 0.04), device=dev)
+
+    def k1():
+        return match.match(maps, scan.points, scan.valid, hint, cfg)
+
+    def k1_plain():
+        return match.match_plain(maps, scan.points, scan.valid, hint, cfg)
+
+    k1_ms = graph_ms(torch, k1, REPS_KERNEL)
+    k1_plain_ms = graph_ms(torch, k1_plain, REPS_PLAIN)
+    k1_eager = eager_ms(torch, k1, REPS_KERNEL)
+    k1_plain_eager = eager_ms(torch, k1_plain, REPS_PLAIN)
+    say(f"[K1] {len(cases)} matches + empty scan agree with the plain version: "
+        f"max |pose err| {k1_err:.3g} (tol 2e-3/3e-3), equal solve failures, "
+        f"residual within rtol 0.05; device {k1_ms:.4f} ms/match vs plain "
+        f"{k1_plain_ms:.4f} ms (CUDA graph); eager {k1_eager:.4f} ms vs plain "
+        f"{k1_plain_eager:.4f} ms")
+
+    # ---- 4. K2 vs its plain version ------------------------------------------
+    lof, loo = cfg.log_odds_free, cfg.log_odds_occupied
+    rng = np.random.default_rng(0)
+    rand_maps = torch.as_tensor(rng.uniform(-8.0, 60.0, cfg.total_cells)
+                                .astype(np.float32), device=dev)
+    k2_err = 0.0
+    k2_worst = 0.0
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    pose = truth + torch.tensor((0.37, -0.21, 0.3), device=dev)
+    k2_scan = sim_scan(pose)
+    k2_before = fill.update_maps.launches
+    for name, base in (("bootstrapped", maps), ("random", rand_maps)):
+        marks = torch.zeros(cfg.total_cells, dtype=torch.uint8, device=dev)
+        mk = base.clone()
+        fill.update_maps(mk, marks, k2_scan.points, k2_scan.valid, pose,
+                         zero3, yes, cfg)
+        mp = fill.update_maps_plain(base, k2_scan.points, k2_scan.valid, pose,
+                                    zero3, yes, cfg)
+        check(bool(torch.isfinite(mk).all()), f"K2 {name}: maps not finite")
+        check(int(marks.sum()) == 0, f"K2 {name}: marks not cleared")
+        dk, dp = mk - base, mp - base
+        for level in range(cfg.num_levels):
+            off, w = cfg.level_offsets[level], cfg.level_sizes[level]
+            sl = slice(off, off + w * w)
+            occ_k, occ_p = dk[sl] > 0, dp[sl] > 0
+            check(torch.equal(occ_k, occ_p) and torch.equal(mk[sl][occ_k],
+                                                            mp[sl][occ_p]),
+                  f"K2 {name} level {level}: occupied increments differ")
+            diff = (mk[sl] != mp[sl])
+            frac = float(diff.float().mean())
+            k2_worst = max(k2_worst, frac)
+            check(frac <= 1e-3, f"K2 {name} level {level}: {frac:.2%} of cells "
+                  "differ (limit 0.1%)")
+            if bool(diff.any()):
+                gap = (mk[sl][diff] - mp[sl][diff]).abs()
+                check(bool(((gap - abs(lof)).abs() <= 1e-4).all()),
+                      f"K2 {name} level {level}: a cell differs by other than "
+                      f"|lof|: {gap.max().item()}")
+        check(bool((dk < 0).any()), f"K2 {name}: no free cell marked")
+        k2_err = max(k2_err, float((mk - mp).abs().max()))
+        # do_update = 0: maps unchanged bit for bit, marks cleared all the same
+        mz = base.clone()
+        fill.update_maps(mz, marks, k2_scan.points, k2_scan.valid, pose, zero3,
+                         no, cfg)
+        check(torch.equal(mz, base), f"K2 {name}: do_update=0 changed the maps")
+        check(int(marks.sum()) == 0, f"K2 {name}: marks not cleared (gated)")
+    torch.cuda.synchronize()
+    check(fill.update_maps.launches - k2_before == 4, "K2 launch count")
+    marks = torch.zeros(cfg.total_cells, dtype=torch.uint8, device=dev)
+    mt = maps.clone()
+
+    def k2():
+        return fill.update_maps(mt, marks, k2_scan.points, k2_scan.valid, pose,
+                                zero3, yes, cfg)
+
+    def k2_plain():
+        return fill.update_maps_plain(mt, k2_scan.points, k2_scan.valid, pose,
+                                      zero3, yes, cfg)
+
+    k2_ms = graph_ms(torch, k2, REPS_KERNEL)
+    k2_plain_ms = graph_ms(torch, k2_plain, REPS_PLAIN)
+    k2_eager = eager_ms(torch, k2, REPS_KERNEL)
+    k2_plain_eager = eager_ms(torch, k2_plain, REPS_PLAIN)
+    say(f"[K2] 3 levels x (bootstrapped, random) agree with the plain version: "
+        f"identical occupied increments, worst level {k2_worst:.4%} cells "
+        f"differ (each by |lof|={abs(lof):.4f}), do_update=0 bit-exact; "
+        f"device {k2_ms:.4f} ms/scan vs plain {k2_plain_ms:.4f} ms (CUDA "
+        f"graph); eager {k2_eager:.4f} ms vs plain {k2_plain_eager:.4f} ms")
+
+    # ---- 5. the slice end to end -------------------------------------------
+    t0 = time.perf_counter()
+    log = replay.make_log(seed=0)
+    dlog = replay.to_device(log, dev)
+    n = dlog.points.shape[0] - log.bootstrap
+    st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog,
+                           log.bootstrap, cfg)
+    torch.cuda.synchronize()
+    say(f"[slice] log {log.radii.shape[0]} scans x {log.radii.shape[1]} beams "
+        f"+ {log.bootstrap}-scan bootstrap in {time.perf_counter() - t0:.1f} s")
+
+    match.match.launches = 0
+    fill.update_maps.launches = 0
+    stf, out = replay.replay(st0, dlog, log.bootstrap, cfg)
+    torch.cuda.synchronize()
+    launches = {"match": match.match.launches, "fill": fill.update_maps.launches}
+    check(launches == {"match": n, "fill": n},
+          f"launches in the {n}-scan replay: {launches}")
+
+    poses = out.poses.cpu().numpy()
+    check(poses.shape == (n, 3) and np.isfinite(poses).all(),
+          f"replay poses: shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    check(bool(torch.isfinite(stf.maps).all()), "replay maps not finite")
+    ate, max_err = replay.ate_of(poses, log.traj[log.bootstrap:])
+    updates = int(out.map_updated.sum())
+    fails = int(out.solve_failures.sum())
+
+    def best_replay(plain: bool) -> float:
+        replay.replay(st0, dlog, log.bootstrap, cfg, plain)   # warm-up
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(TIMED_REPLAYS):
+            t = time.perf_counter()
+            replay.replay(st0, dlog, log.bootstrap, cfg, plain)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    t_kernel = best_replay(False)
+    t_plain = best_replay(True)
+    _, out_p = replay.replay(st0, dlog, log.bootstrap, cfg, plain=True)
+    ate_p, max_p = replay.ate_of(out_p.poses.cpu().numpy(),
+                                 log.traj[log.bootstrap:])
+    say(f"[slice] pallas_dense replay of {n} scans: ATE {ate:.6f} m "
+        f"(JAX ref {replay.JAX_REF_ATE_M:.6f}, gate +2e-4), max err "
+        f"{max_err:.4f} m, map updates {updates}, solve failures {fails}, "
+        f"launches {launches}; kernels {n / t_kernel:.1f} scans/s vs plain "
+        f"{n / t_plain:.1f} scans/s (plain ATE {ate_p:.6f}, max {max_p:.4f})")
+    check(ate <= replay.JAX_REF_ATE_M + 2e-4,
+          f"ATE {ate} above JAX_REF_ATE_M + 2e-4 = {replay.JAX_REF_ATE_M + 2e-4}")
+    check(max_err <= 0.05, f"max error {max_err} m above 0.05 m")
+
+    print(json.dumps({"kernels": [
+        {"name": "match", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/match.cu",
+         "replaces": "slamnet_tpu/ops/pallas_onehot.py:500",
+         "launches": launches["match"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "fill", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/fill.cu",
+         "replaces": "slamnet_tpu/ops/pallas_fill.py:86",
+         "launches": launches["fill"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms}],
+        "replay_scans_per_s": n / t_kernel,
+        "replay_plain_scans_per_s": n / t_plain,
+        "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
+        "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

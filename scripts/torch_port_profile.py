@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Where the time of slamnet_tpu_torch's pallas_dense replay goes, on one GPU.
+
+Makes the loop log, bootstraps, runs one warm-up replay of the 512 scans, times
+one more replay without the profiler, then traces one replay with
+``torch.profiler`` (CPU + CUDA).  Prints one JSON object: wall time per scan,
+the device's busy share of the traced replay (the union of its kernels'
+intervals over the replay's span), and the device kernels by total time.
+
+    python3 scripts/torch_port_profile.py [--out DIR]   # DIR/trace.json
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from slamnet_tpu_torch import replay  # noqa: E402
+from slamnet_tpu_torch.models import hector  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="directory for the Chrome trace")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    cfg = replay.pallas_dense_config()
+    log = replay.make_log(seed=0)
+    dlog = replay.to_device(log, dev)
+    st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog,
+                           log.bootstrap, cfg)
+    n = dlog.points.shape[0] - log.bootstrap
+    replay.replay(st0, dlog, log.bootstrap, cfg)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay.replay(st0, dlog, log.bootstrap, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay.replay(st0, dlog, log.bootstrap, cfg)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:                       # union of kernel intervals
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    by_name = {}
+    for e in kernels:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "scans": n,
+        "wall_us_per_scan": wall / n * 1e6,
+        "traced_wall_us_per_scan": traced / n * 1e6,
+        "device_kernels": len(kernels),
+        "kernels_per_scan": len(kernels) / n,
+        "device_busy_us_per_scan": busy / n,
+        "device_busy_share_of_kernel_window": busy / window if window else 0.0,
+        "device_busy_share_of_traced_wall": busy / (traced * 1e6),
+        "kernels_by_total_us": [
+            {"name": k[:90], "calls": c, "total_us": t, "avg_us": t / c}
+            for k, (c, t) in top]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,103 @@
+#!/usr/bin/env python
+"""Reference ATE of the JAX package on the PyTorch port's scan log.
+
+The port (``slamnet_tpu_torch``) gates its H100 replay on
+``replay.JAX_REF_ATE_M``; this script produces that number.  It makes the
+log with ``slamnet_tpu_torch.replay.make_log(seed)`` (the port's simulator,
+on the CPU) and runs the JAX package over it with the port's flow: a 10-scan
+forced bootstrap at the true poses in the mode's own config, then 512 scans
+each hinted with the previous match pose.
+
+Modes:
+  * ``onehot_bf16_dense``: ``matcher_mode="onehot_bf16"``,
+    ``dense_free_fill=True``, fixed 7/4/4 iterations — the same bf16 table
+    selection K1 makes, and the port's dense fill.  Its ATE is
+    ``JAX_REF_ATE_M``.
+  * ``fixed``: the reference-exact gather matcher with line updates, for
+    context only.
+
+Runs on the CPU (a few minutes); prints one JSON object.
+
+    python scripts/torch_port_ref_ate.py [--seed 0]
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from slamnet_tpu.core import HectorConfig  # noqa: E402
+from slamnet_tpu.core.scan import Scan  # noqa: E402
+from slamnet_tpu.models import hector  # noqa: E402
+from slamnet_tpu_torch.replay import ate_of, make_log  # noqa: E402
+
+
+def run_mode(cfg, log):
+    angles = jnp.asarray(log.angles)
+    radii = jnp.asarray(log.radii)
+    valids = jnp.asarray(log.valid)
+    traj = jnp.asarray(log.traj)
+    b = log.bootstrap
+
+    def cloud(r, v):
+        pts = jnp.stack([r * jnp.cos(angles), r * jnp.sin(angles)], -1)
+        return Scan(pts, v, jnp.zeros(3, jnp.float32))
+
+    @jax.jit
+    def boot(state, radii, valids, poses):
+        def body(st, inp):
+            r, v, p = inp
+            st, _ = hector.update(st, cloud(r, v), p, cfg,
+                                  map_without_matching=jnp.asarray(True))
+            return st, None
+        return jax.lax.scan(body, state, (radii, valids, poses))[0]
+
+    @jax.jit
+    def replay(state, radii, valids):
+        def body(st, inp):
+            r, v = inp
+            st, info = hector.update(st, cloud(r, v), st.match_pose, cfg,
+                                     map_without_matching=jnp.asarray(False))
+            return st, (st.match_pose, info.map_updated, info.solve_failures)
+        return jax.lax.scan(body, state, (radii, valids))
+
+    state = boot(hector.init(cfg, log.traj[0]), radii[:b], valids[:b],
+                 traj[:b])
+    _, (poses, upd, fails) = replay(state, radii[b:], valids[b:])
+    ate, mx = ate_of(np.asarray(poses), log.traj[b:])
+    return {"ate_m": ate, "max_err_m": mx,
+            "map_updates": int(np.asarray(upd).sum()),
+            "solve_failures": int(np.asarray(fails).sum())}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    log = make_log(seed=args.seed)
+    base = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4))
+    out = {"seed": args.seed, "n_scans": int(log.radii.shape[0] - log.bootstrap),
+           "bootstrap": log.bootstrap, "jax": jax.__version__,
+           "device": str(jax.devices()[0])}
+    for name, cfg in (("onehot_bf16_dense",
+                       base.overlay({"matcher_mode": "onehot_bf16",
+                                     "dense_free_fill": True})),
+                      ("fixed", base)):
+        t0 = time.time()
+        out[name] = run_mode(cfg, log)
+        out[name]["seconds"] = round(time.time() - t0, 1)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

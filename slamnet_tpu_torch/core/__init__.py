@@ -1,0 +1,11 @@
+from . import config, geometry, scan
+from .config import (CoreSlamConfig, HectorConfig, ParticleConfig,
+                     PoseGraphConfig, SimConfig, SlamConfig,
+                     serving_hector_config)
+from .scan import Scan
+
+__all__ = [
+    "config", "geometry", "scan",
+    "CoreSlamConfig", "HectorConfig", "ParticleConfig", "PoseGraphConfig",
+    "SimConfig", "SlamConfig", "serving_hector_config", "Scan",
+]

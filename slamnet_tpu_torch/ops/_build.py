@@ -1,0 +1,113 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+One ``nvcc`` call compiles every ``slamnet_tpu_torch/csrc/*.cu`` into
+``build/slamnet_tpu_torch/<hash of sources and flags>/libslamnet_kernels.so``
+at the repository root, on first use.  The sources have a plain C interface
+(``extern "C"`` launchers that take the CUDA stream and return
+``cudaGetLastError()``), so nothing includes PyTorch's headers and the build
+takes seconds.  A rebuilt source gets a new hash and a new directory.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "slamnet_tpu_torch"
+LIB_NAME = "libslamnet_kernels.so"
+# no --use_fast_math: sinf/cosf/expf/atan2f/sqrtf and division stay accurate.
+# -fmad=false keeps a*b+c as two rounded operations, as the plain PyTorch
+# versions (one kernel per operator) compute them, so roundings to map cells
+# agree between the kernels and their plain versions.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).is_file():
+        raise RuntimeError(
+            "slamnet_tpu_torch kernels need nvcc (CUDA toolkit) to build; none "
+            f"on PATH or under {cuda_home}/bin")
+    return found
+
+
+def _check_device() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("slamnet_tpu_torch kernels need a CUDA device")
+    major, minor = torch.cuda.get_device_capability()
+    if major != 9:
+        raise RuntimeError(
+            "slamnet_tpu_torch kernels are built for sm_90a (Hopper); this "
+            f"device is compute capability {major}.{minor}")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless this exact build exists; returns the
+    library path and nvcc's output (``-Xptxas=-v`` register/shared-memory
+    report; empty when the library was already built)."""
+    _check_device()
+    nvcc = _nvcc()
+    srcs = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    tmp.replace(lib)        # atomic: a concurrent loader never sees half a file
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> tuple[ctypes.CDLL, float, str]:
+    """The loaded kernel library, the seconds its build took and nvcc's
+    report.  Built once per process; each op module declares the argtypes of
+    its own launcher."""
+    t0 = time.perf_counter()
+    path, log = build()
+    return ctypes.CDLL(str(path)), time.perf_counter() - t0, log
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the integer ctypes passes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_tensors(kernel: str, device: torch.device, specs) -> None:
+    """Raise ValueError unless every (name, tensor, dtype, shape) of
+    ``specs`` is a contiguous tensor of that dtype and shape on ``device``."""
+    for name, t, dtype, shape in specs:
+        if t.device != device or t.dtype != dtype \
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel} {name}: want contiguous {dtype} {tuple(shape)} on "
+                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def raise_on_error(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")

@@ -1,0 +1,85 @@
+"""Dense polar log-odds occupancy update for one pyramid level (PyTorch).
+
+Port of ``slamnet_tpu/ops/logodds.py::update_occupancy_dense`` (:76-179),
+the branch its CPU backend takes (an exact ``table[cbin]`` lookup): K2's
+plain version, applied per level by ``ops/fill.py::update_maps_plain``.
+
+The free region of one scan is star-shaped around the robot: scatter the beam
+ranges into an ``angle_bins`` polar table (per-bin minimum, empty bins 0),
+then mark every cell free whose range is under its bin's entry minus
+``free_margin_px`` (the wall-erosion guard).  Occupied endpoints are a
+B-point scatter; free cells get ``log_odds_free``, occupied cells under the
+cap ``log_odds_occupied`` (OccGridMap.cs:114-239 rules).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.geometry import dotnet_round
+
+
+def update_occupancy_dense(logodds_flat: torch.Tensor, width: int,
+                           points: torch.Tensor, valid: torch.Tensor,
+                           robot_pose_world: torch.Tensor,
+                           scan_pose: torch.Tensor, scale_to_map: float,
+                           log_odds_free: float, log_odds_occupied: float,
+                           occupied_cap: float = 50.0,
+                           angle_bins: int = 256,
+                           free_margin_px: float = 0.75) -> torch.Tensor:
+    """One scan's dense update of one level; returns a new f32[width*width]."""
+    dev = logodds_flat.device
+    theta = robot_pose_world[2]
+    c, s = torch.cos(theta), torch.sin(theta)
+    tx, ty = robot_pose_world[0], robot_pose_world[1]
+    bx = (c * scan_pose[0] - s * scan_pose[1] + tx) * scale_to_map
+    by = (s * scan_pose[0] + c * scan_pose[1] + ty) * scale_to_map
+    bxi, byi = dotnet_round(bx), dotnet_round(by)
+
+    ex = (c * points[:, 0] - s * points[:, 1] + tx) * scale_to_map
+    ey = (s * points[:, 0] + c * points[:, 1] + ty) * scale_to_map
+    exi, eyi = dotnet_round(ex), dotnet_round(ey)
+
+    def in_dims(x, y):
+        return (x >= 0) & (x < width) & (y >= 0) & (y < width)
+
+    same = (exi == bxi) & (eyi == byi)
+    beam_ok = valid & ~same & in_dims(bxi, byi) & in_dims(exi, eyi)
+
+    # polar range table: per bin the MIN valid beam range (px); empty bins 0
+    dxe = (exi - bxi).to(torch.float32)
+    dye = (eyi - byi).to(torch.float32)
+    r_beam = torch.sqrt(dxe * dxe + dye * dye)
+    bin_scale = angle_bins / (2.0 * math.pi)
+    bins = ((torch.atan2(dye, dxe) + math.pi) * bin_scale).to(torch.int32)
+    bins = bins.clamp(0, angle_bins - 1)
+    big = 1e9
+    table = torch.full((angle_bins,), big, dtype=torch.float32, device=dev)
+    table = table.scatter_reduce(
+        0, torch.where(beam_ok, bins, 0).long(),
+        torch.where(beam_ok, r_beam, torch.full_like(r_beam, big)), "amin")
+    table = torch.where(table >= big, torch.zeros_like(table), table)
+
+    # dense per-cell test
+    idx = torch.arange(width, dtype=torch.int32, device=dev)
+    dx = (idx[None, :] - bxi).to(torch.float32)          # [1, W]
+    dy = (idx[:, None] - byi).to(torch.float32)          # [W, 1]
+    r_cell = torch.sqrt(dx * dx + dy * dy)               # [W, W]
+    cbin = ((torch.atan2(dy.expand(width, width), dx.expand(width, width))
+             + math.pi) * bin_scale).to(torch.int32).clamp(0, angle_bins - 1)
+    r_lim = table[cbin.long()]
+    is_free_img = (r_cell < r_lim - free_margin_px) & (r_cell > 0.0)
+
+    # occupied endpoints: a B-point scatter
+    end_flat = torch.where(beam_ok, eyi * width + exi, 0).long()
+    occ = torch.zeros(width * width, dtype=torch.int32, device=dev)
+    occ = occ.scatter_reduce(0, end_flat, beam_ok.to(torch.int32), "amax")
+
+    is_occ = occ > 0
+    is_free = is_free_img.reshape(-1) & ~is_occ & beam_ok.any()
+    zero = torch.zeros_like(logodds_flat)
+    return (logodds_flat
+            + torch.where(is_free, log_odds_free, zero)
+            + torch.where(is_occ & (logodds_flat < occupied_cap),
+                          log_odds_occupied, zero))

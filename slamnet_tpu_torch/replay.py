@@ -1,0 +1,136 @@
+"""The slice end to end: make the loop log, bootstrap, replay, score.
+
+Port of the headline flow of ``bench.py:103-198`` for the ``pallas_dense``
+configuration:
+
+  * ``make_log``: the port's simulator on the CPU (numpy out) — the loop
+    trajectory at 0.3 m/s, 400-beam revolutions with the reference's
+    discrete uniform noise drawn from a seeded ``torch.Generator``;
+  * ``bootstrap``: the first ``bootstrap`` scans as forced map updates at the
+    true poses;
+  * ``replay``: every later scan matched with the previous ``match_pose`` as
+    its hint, maps updated behind the motion gate;
+  * ``ate_of``: RMS and max position error against the truth.
+
+One difference from ``bench.py``: the bench bootstraps every mode with its
+``fixed`` config (line updates, ``bench.py:147-172``); here the bootstrap runs
+the slice's own dense config.  ``JAX_REF_ATE_M`` is the JAX package's ATE on
+this same log and flow (``matcher_mode="onehot_bf16"`` + dense fill, the
+selection K1 makes), written by ``scripts/torch_port_ref_ate.py``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .core.config import HectorConfig, SimConfig
+from .core.scan import Scan
+from .models import hector
+from .sim import default_field, revolution_angles, scan_revolution
+from .sim.trajectory import loop_trajectory
+
+N_SCANS = 512
+BOOTSTRAP = 10
+NUM_BEAMS = 400
+
+# JAX package (onehot_bf16 + dense fill, fixed 7/4/4 iterations) on
+# make_log(seed=0), 10-scan dense bootstrap + 512 replayed scans, JAX 0.9.0 on
+# the CPU: `python scripts/torch_port_ref_ate.py` printed
+# "onehot_bf16_dense": {"ate_m": 0.0025219914969056845, "max_err_m":
+# 0.01577146165072918, "map_updates": 28, "solve_failures": 0}; its "fixed"
+# mode (context only) gave ate_m 0.002116798423230648.
+JAX_REF_ATE_M = 0.0025219914969056845
+
+
+def pallas_dense_config(**overrides) -> HectorConfig:
+    """bench.py's headline mode (``bench.py:222-224``): 3-level 400x400
+    pyramid, 7/4/4 GN iterations, K1 matcher, dense fill."""
+    return HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
+                        matcher_mode="pallas", dense_free_fill=True).overlay(
+                            overrides)
+
+
+class ScanLog(NamedTuple):
+    traj: np.ndarray     # f32[T, 3] true poses
+    angles: np.ndarray   # f32[N] beam angles (robot frame)
+    radii: np.ndarray    # f32[T, N] noisy ranges, 0 where missed
+    valid: np.ndarray    # bool[T, N]
+    bootstrap: int       # leading scans mapped at the true pose
+
+
+class DeviceLog(NamedTuple):
+    points: torch.Tensor  # f32[T, N, 2] robot-local clouds
+    valid: torch.Tensor   # bool[T, N]
+    traj: torch.Tensor    # f32[T, 3]
+
+
+def make_log(seed: int = 0) -> ScanLog:
+    """The bench's loop log (``bench.py:109-135``: BOOTSTRAP + N_SCANS poses
+    of the loop at 0.3 m/s, NUM_BEAMS-beam revolutions, SimConfig's range
+    and noise), simulated on the CPU from ``seed``."""
+    sim = SimConfig()
+    traj = loop_trajectory(speed=0.3)[:N_SCANS + BOOTSTRAP]
+    angles = revolution_angles(NUM_BEAMS)
+    fld = default_field(sim.field_scale, sim.field_offset)
+    gen = torch.Generator().manual_seed(seed)
+    radii, valid = scan_revolution(fld, torch.from_numpy(traj),
+                                   torch.from_numpy(angles),
+                                   sim.max_scan_dist, sim.measure_error, gen)
+    return ScanLog(traj, angles, radii.numpy(), valid.numpy(), BOOTSTRAP)
+
+
+def to_device(log: ScanLog, device: torch.device | str) -> DeviceLog:
+    """Every scan's cloud on ``device``, made once (MainWindow.xaml.cs:167-177)."""
+    r = torch.as_tensor(log.radii, device=device)
+    a = torch.as_tensor(log.angles, device=device)
+    pts = torch.stack([r * torch.cos(a), r * torch.sin(a)], dim=-1).contiguous()
+    return DeviceLog(pts, torch.as_tensor(log.valid, device=device),
+                     torch.as_tensor(log.traj, device=device))
+
+
+def bootstrap(state: hector.HectorState, dlog: DeviceLog, n: int,
+              cfg: HectorConfig, plain: bool = False) -> hector.HectorState:
+    """Forced map updates at the true poses for scans 0..n-1 (in place)."""
+    zero = torch.zeros(3, dtype=torch.float32, device=dlog.points.device)
+    for t in range(n):
+        state, _ = hector.update(state, Scan(dlog.points[t], dlog.valid[t], zero),
+                                 dlog.traj[t], cfg, True, plain)
+    return state
+
+
+class ReplayOut(NamedTuple):
+    poses: torch.Tensor           # f32[S, 3] match pose after each scan
+    map_updated: torch.Tensor     # bool[S]
+    residual: torch.Tensor        # f32[S]
+    solve_failures: torch.Tensor  # i32[S]
+
+
+def replay(state: hector.HectorState, dlog: DeviceLog, start: int,
+           cfg: HectorConfig, plain: bool = False
+           ) -> Tuple[hector.HectorState, ReplayOut]:
+    """Track scans start..T-1, each hinted with the previous match pose.  Runs
+    on a copy of ``state``'s maps, so the caller's state can be replayed
+    again; returns the final state and per-scan outputs on the device (the
+    host waits for nothing)."""
+    dev = dlog.points.device
+    state = state._replace(maps=state.maps.clone(), marks=state.marks.clone())
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    poses, upd, resid, fails = [], [], [], []
+    for t in range(start, dlog.points.shape[0]):
+        state, info = hector.update(state, Scan(dlog.points[t], dlog.valid[t], zero),
+                                    state.match_pose, cfg, False, plain)
+        poses.append(state.match_pose)
+        upd.append(info.map_updated)
+        resid.append(info.residual)
+        fails.append(info.solve_failures)
+    return state, ReplayOut(torch.stack(poses), torch.stack(upd),
+                            torch.stack(resid), torch.stack(fails))
+
+
+def ate_of(poses: np.ndarray, truth: np.ndarray) -> Tuple[float, float]:
+    """(RMS, max) position error in meters (``bench.py:195-198``)."""
+    pe = np.linalg.norm(np.asarray(poses)[:, :2] - np.asarray(truth)[:, :2],
+                        axis=1)
+    return float(np.sqrt((pe ** 2).mean())), float(pe.max())

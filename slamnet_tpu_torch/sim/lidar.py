@@ -1,0 +1,59 @@
+"""Simulated lidar: fixed-width noisy scans from the polygon field.
+
+Port of ``slamnet_tpu/sim/lidar.py`` (MainWindow.ScanSegments,
+Simulation/MainWindow.xaml.cs:380-407): evenly spaced angles accumulated in
+float32 as the reference does, ray-traced at the REAL pose, uniform noise on
+the grid {-1.00, -0.99, ..., 0.99} * measure_error, misses masked.  The noise
+comes from a caller-seeded ``torch.Generator``, so its numbers differ from
+``jax.random`` for the same seed; the distribution is the same.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core.scan import Scan
+from . import field as field_mod
+
+
+def revolution_angles(num_scan_points: int) -> np.ndarray:
+    """Reference angle set: f32 accumulation until >= 2*pi (MainWindow.xaml.cs:391)."""
+    step = np.float32(2.0 * math.pi) / np.float32(num_scan_points)
+    out = []
+    a = np.float32(0.0)
+    two_pi = np.float32(2.0 * math.pi)
+    while a < two_pi:
+        out.append(a)
+        a = np.float32(a + step)
+    return np.asarray(out, np.float32)
+
+
+def scan_revolution(fld: field_mod.Field, real_pose: torch.Tensor,
+                    angles: torch.Tensor, max_dist: float,
+                    measure_error: float,
+                    generator: torch.Generator) -> tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Revolutions at ``real_pose`` f32[..., 3]; returns (radii f32[..., R],
+    valid bool[..., R]).
+
+    Noise model of MainWindow.xaml.cs:397: ``hit += (rnd.Next(-100,100)/100) *
+    err``.  ``generator`` must live on the device of ``real_pose``.
+    """
+    lidar_angles = angles + real_pose[..., 2:3]
+    hit, dist = field_mod.ray_cast(fld, real_pose[..., :2], lidar_angles,
+                                   max_dist)
+    steps = torch.randint(-100, 100, dist.shape, generator=generator,
+                          device=dist.device)
+    noise = steps.to(torch.float32) / 100.0 * measure_error
+    return torch.where(hit, dist + noise, torch.zeros_like(dist)), hit
+
+
+def make_cloud(angles: torch.Tensor, radii: torch.Tensor,
+               valid: torch.Tensor) -> Scan:
+    """Robot-local cartesian cloud for Hector (MainWindow.xaml.cs:167-177)."""
+    pts = torch.stack([radii * torch.cos(angles), radii * torch.sin(angles)],
+                      dim=-1)
+    return Scan(pts, valid, torch.zeros(3, dtype=torch.float32,
+                                        device=radii.device))
