@@ -20,7 +20,24 @@ Phases, one line each; any failure raises and the exit code is not 0:
   5. slice    — the pallas_dense replay of 10 + 512 loop scans through the
                 kernels: one K1 and one K2 call per replayed scan (launch
                 counts), ATE <= JAX_REF_ATE_M + 2e-4 and max error <= 0.05 m;
-                scans/s of the kernel path beside the plain path's.
+                scans/s of the kernel path beside the plain path's;
+  6. K5       — the fleet match kernel against its plain version on a
+                bootstrapped 64-robot fleet (sub4_pallas_dense): 3 hint
+                offsets and the guard config (damping), one robot with no
+                valid beam (returns its hint); equal, bit for bit, to 64
+                separate K1 calls;
+  7. K6       — the packed fleet match (on no path of its own) equal to K5
+                bit for bit at g_pack 1, 2, 4 and 8, and within K5's
+                tolerances of the plain version;
+  8. K2 batch — the batched fill against its plain version on the fleet's
+                maps and random maps, fire masks all / none / ~1 in 18: the
+                K2 checks per instance and level, non-firing robots
+                untouched bit for bit, marks cleared;
+  9. fleet    — the sub4_pallas_dense fleet of 64 robots, 10 + 64
+                batch-scans: one K5 and one batched K2 call per batch-scan
+                (74 each, no K1 or single K2), RMS / max / median-instance
+                ATE within FLEET_JAX_REF_* + 5e-4 / 0.01 / 2e-4;
+                instance-scans/s of the kernel path beside the plain path's.
 Then one JSON line of kernel measurements, and last the result line.
 """
 import json
@@ -31,6 +48,8 @@ import time
 REPS_KERNEL = 200
 REPS_PLAIN = 20
 TIMED_REPLAYS = 3
+G_PACKS = (1, 2, 4, 8)
+K6_G_REPORTED = 4     # the g_pack of K6's entry in the kernels line
 
 
 def say(msg: str) -> None:
@@ -94,7 +113,7 @@ def main() -> int:
 
     from slamnet_tpu_torch import replay
     from slamnet_tpu_torch.core.scan import Scan
-    from slamnet_tpu_torch.models import hector
+    from slamnet_tpu_torch.models import fleet, hector
     from slamnet_tpu_torch.ops import _build, fill, match
     from slamnet_tpu_torch.sim import default_field, revolution_angles
     from slamnet_tpu_torch.sim import scan_revolution
@@ -309,6 +328,243 @@ def main() -> int:
           f"ATE {ate} above JAX_REF_ATE_M + 2e-4 = {replay.JAX_REF_ATE_M + 2e-4}")
     check(max_err <= 0.05, f"max error {max_err} m above 0.05 m")
 
+    # ---- 6. K5 vs its plain version and vs 64 K1 calls ---------------------
+    fcfg = replay.sub4_pallas_dense_config()
+    flog = replay.make_fleet_log(log)
+    fdlog = replay.to_device(flog, dev)
+    fb, boot = flog.radii.shape[1], flog.bootstrap
+    cells = fcfg.total_cells
+    t0 = time.perf_counter()
+    fst0 = replay.fleet_bootstrap(fleet.init_fleet(fcfg, flog.traj[0], dev),
+                                  fdlog, boot, fcfg)
+    torch.cuda.synchronize()
+    say(f"[K5] fleet log {fb} robots x {flog.radii.shape[0]} batch-scans "
+        f"(phase-shifted slices); {boot}-batch-scan bootstrap in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fmaps = fst0.maps
+    fpts = fdlog.points[boot]
+    fval = fdlog.valid[boot].clone()
+    empty_inst = 5
+    fval[empty_inst] = False
+    ftruth = fdlog.traj[boot]
+    k5_cases = [(fcfg, (0.2, -0.15, 0.04), 2e-3),
+                (fcfg, (-0.1, 0.12, -0.03), 2e-3),
+                (fcfg, (0.05, 0.2, 0.06), 2e-3),
+                (fcfg.overlay({"gn_damping": 0.1}), (0.15, 0.1, -0.03), 3e-3)]
+    k5_err = 0.0
+    k5_outs = []
+    for c, off, tol in k5_cases:
+        hints = (ftruth + torch.tensor(off, device=dev)).contiguous()
+        ok_ = match.match_batch(fmaps, fpts, fval, hints, c)
+        op = match.match_batch_plain(fmaps, fpts, fval, hints, c)
+        k5_outs.append((c, hints, ok_, op, tol))
+        for b in range(fb):       # each instance against a K1 call of its own
+            o1 = match.match(fmaps[b * cells:(b + 1) * cells], fpts[b],
+                             fval[b], hints[b], c)
+            check(torch.equal(o1, ok_[b]),
+                  f"K5 instance {b} {ok_[b].tolist()} != K1 {o1.tolist()}")
+        k, pl = ok_.cpu().numpy(), op.cpu().numpy()
+        check(np.isfinite(k).all(), "K5 output not finite")
+        err = float(np.abs(k[:, :3] - pl[:, :3]).max())
+        k5_err = max(k5_err, err)
+        check(err <= tol, f"K5 pose vs plain: max diff {err} (tol {tol})")
+        check((k[:, 3] == pl[:, 3]).all(),
+              f"K5 solve failures {k[:, 3]} vs plain {pl[:, 3]}")
+        res_k = k[:, 4] / np.maximum(k[:, 5], 1.0)
+        res_p = pl[:, 4] / np.maximum(pl[:, 5], 1.0)
+        check((np.abs(res_k - res_p) <= 0.05 * np.abs(res_p)).all(),
+              f"K5 residual {res_k} vs plain {res_p}")
+        check(torch.equal(ok_[empty_inst, :3], hints[empty_inst]),
+              f"K5 empty instance {ok_[empty_inst, :3]} != hint")
+        dist = np.linalg.norm(k[:, :2] - ftruth[:, :2].cpu().numpy(), axis=1)
+        check(float(np.median(dist)) < 0.05,
+              f"K5 did not converge: median distance to truth {np.median(dist)}")
+    fhints = k5_outs[0][1]
+
+    def k5():
+        return match.match_batch(fmaps, fpts, fval, fhints, fcfg)
+
+    def k5_plain():
+        return match.match_batch_plain(fmaps, fpts, fval, fhints, fcfg)
+
+    k5_ms = graph_ms(torch, k5, REPS_KERNEL)
+    k5_plain_ms = graph_ms(torch, k5_plain, REPS_PLAIN)
+    k5_eager = eager_ms(torch, k5, REPS_KERNEL)
+    k5_plain_eager = eager_ms(torch, k5_plain, REPS_PLAIN)
+    say(f"[K5] {len(k5_cases)} x {fb} matches (robot {empty_inst} with no "
+        f"valid beam returns its hint) agree with the plain version: max "
+        f"|pose err| {k5_err:.3g} (tol 2e-3/3e-3), equal solve failures, "
+        f"residual within rtol 0.05; equal bit for bit to {fb} K1 calls; "
+        f"device {k5_ms:.4f} ms/batch vs plain {k5_plain_ms:.4f} ms (CUDA "
+        f"graph; one K1 {k1_ms:.4f} ms); eager {k5_eager:.4f} ms vs plain "
+        f"{k5_plain_eager:.4f} ms")
+
+    # ---- 7. K6 vs K5 -------------------------------------------------------
+    k6_ms = {}
+    k6_err = 0.0
+    k6_before = match.match_packed.launches
+    for g in G_PACKS:
+        for c, hints, ok_, op, tol in k5_outs:
+            o6 = match.match_packed(fmaps, fpts, fval, hints, c, g)
+            check(torch.equal(o6, ok_), f"K6 g_pack={g} differs from K5")
+            err = float((o6[:, :3] - op[:, :3]).abs().max())
+            k6_err = max(k6_err, err)
+            check(err <= tol, f"K6 g_pack={g} pose vs plain: max diff {err} "
+                  f"(tol {tol})")
+            check(torch.equal(o6[:, 3], op[:, 3]),
+                  f"K6 g_pack={g} solve failures differ from the plain version")
+    torch.cuda.synchronize()
+    k6_calls = len(G_PACKS) * len(k5_outs)
+    check(match.match_packed.launches - k6_before == k6_calls,
+          f"K6 launch count rose by {match.match_packed.launches - k6_before}, "
+          f"expected {k6_calls}")
+    for g in G_PACKS:
+        k6_ms[g] = graph_ms(torch, lambda g=g: match.match_packed(
+            fmaps, fpts, fval, fhints, fcfg, g), REPS_KERNEL)
+    say(f"[K6] g_pack {G_PACKS} x {len(k5_outs)} cases equal K5 bit for bit "
+        f"({k6_calls} launches); max |pose err| vs plain {k6_err:.3g}; "
+        f"device ms/batch (CUDA graph) " + ", ".join(
+            f"g{g} {t:.4f}" for g, t in k6_ms.items())
+        + f" vs K5 {k5_ms:.4f} and plain {k5_plain_ms:.4f}")
+
+    # ---- 8. batched K2 vs its plain version --------------------------------
+    rng = np.random.default_rng(1)
+    frand = torch.as_tensor(rng.uniform(-8.0, 60.0, fb * cells)
+                            .astype(np.float32), device=dev)
+    sparse = rng.random(fb) < 1.0 / 18.0
+    sparse[0], sparse[1] = True, False
+    masks = {"all": np.ones(fb, bool), "none": np.zeros(fb, bool),
+             "1-in-18": sparse}
+    fzero = torch.zeros((fb, 3), dtype=torch.float32, device=dev)
+    fposes = ftruth + torch.tensor((0.05, -0.03, 0.02), device=dev)
+    fpts_all, fval_all = fdlog.points[boot], fdlog.valid[boot]
+    kb_err = 0.0
+    kb_worst = 0.0
+    kb_before = fill.update_maps_batch.launches
+    for name, base in (("fleet", fmaps), ("random", frand)):
+        b2 = base.view(fb, cells)
+        for mname, m in masks.items():
+            fire = torch.as_tensor(m, device=dev)
+            marks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
+            mk = base.clone()
+            fill.update_maps_batch(mk, marks, fpts_all, fval_all, fposes,
+                                   fzero, fire, fcfg)
+            mp = fill.update_maps_batch_plain(base, fpts_all, fval_all, fposes,
+                                              fzero, fire, fcfg)
+            what = f"K2 batch {name}/{mname}"
+            check(bool(torch.isfinite(mk).all()), f"{what}: maps not finite")
+            check(int(marks.sum()) == 0, f"{what}: marks not cleared")
+            mk2, mp2 = mk.view(fb, cells), mp.view(fb, cells)
+            check(torch.equal(mk2[~fire], b2[~fire]),
+                  f"{what}: a non-firing robot's maps changed")
+            for level in range(fcfg.num_levels):
+                off, w = fcfg.level_offsets[level], fcfg.level_sizes[level]
+                sl = slice(off, off + w * w)
+                k_, p_, b_ = mk2[fire, sl], mp2[fire, sl], b2[fire, sl]
+                occ_k, occ_p = k_ - b_ > 0, p_ - b_ > 0
+                check(torch.equal(occ_k, occ_p)
+                      and torch.equal(k_[occ_k], p_[occ_p]),
+                      f"{what} level {level}: occupied increments differ")
+                diff = k_ != p_
+                if diff.numel():
+                    frac = float(diff.float().mean(dim=1).max())
+                    kb_worst = max(kb_worst, frac)
+                    check(frac <= 1e-3, f"{what} level {level}: {frac:.2%} of "
+                          "an instance's cells differ (limit 0.1%)")
+                if bool(diff.any()):
+                    gap = (k_[diff] - p_[diff]).abs()
+                    check(bool(((gap - abs(lof)).abs() <= 1e-4).all()),
+                          f"{what} level {level}: a cell differs by other "
+                          f"than |lof|: {gap.max().item()}")
+                if bool(fire.any()):
+                    check(bool((k_ - b_ < 0).any(dim=1).all()),
+                          f"{what} level {level}: a firing robot marked no "
+                          "free cell")
+            kb_err = max(kb_err, float((mk - mp).abs().max()))
+    torch.cuda.synchronize()
+    check(fill.update_maps_batch.launches - kb_before == 6,
+          "batched K2 launch count")
+    fmarks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
+    fmt = fmaps.clone()
+    kb_ms = {}
+    kb_plain_ms = {}
+    for mname in ("1-in-18", "all"):
+        fire = torch.as_tensor(masks[mname], device=dev)
+        kb_ms[mname] = graph_ms(torch, lambda fire=fire: fill.update_maps_batch(
+            fmt, fmarks, fpts_all, fval_all, fposes, fzero, fire, fcfg),
+            REPS_KERNEL)
+        kb_plain_ms[mname] = graph_ms(
+            torch, lambda fire=fire: fill.update_maps_batch_plain(
+                fmt, fpts_all, fval_all, fposes, fzero, fire, fcfg), REPS_PLAIN)
+    say(f"[K2 batch] {fb} robots x 3 levels x (fleet, random) x fire masks "
+        f"{list(masks)} ({int(sparse.sum())} of {fb} fire in 1-in-18) agree "
+        f"with the plain version: identical occupied increments, worst "
+        f"instance-level {kb_worst:.4%} cells differ (each by |lof|), "
+        f"non-firing robots bit-exact, marks cleared; device ms/batch-scan "
+        f"(CUDA graph) 1-in-18 {kb_ms['1-in-18']:.4f} vs plain "
+        f"{kb_plain_ms['1-in-18']:.4f}, all {kb_ms['all']:.4f} vs plain "
+        f"{kb_plain_ms['all']:.4f} (single K2 {k2_ms:.4f} ms)")
+
+    # ---- 9. the fleet end to end -------------------------------------------
+    counted = {"match": match.match, "fill": fill.update_maps,
+               "match_batch": match.match_batch,
+               "match_packed": match.match_packed,
+               "fill_batch": fill.update_maps_batch}
+    for f in counted.values():
+        f.launches = 0
+    fst = replay.fleet_bootstrap(fleet.init_fleet(fcfg, flog.traj[0], dev),
+                                 fdlog, boot, fcfg)
+    fstf, fout = fleet.replay_fleet(fst, fdlog.points[boot:],
+                                    fdlog.valid[boot:], fcfg)
+    torch.cuda.synchronize()
+    flaunch = {k: f.launches for k, f in counted.items()}
+    nb = fdlog.points.shape[0]
+    want = {"match": 0, "fill": 0, "match_batch": nb, "match_packed": 0,
+            "fill_batch": nb}
+    check(flaunch == want, f"launches in the fleet flow: {flaunch}, want {want}")
+    fposes_np = fout.cpu().numpy()
+    nt = nb - boot
+    check(fposes_np.shape == (nt, fb, 3) and np.isfinite(fposes_np).all(),
+          f"fleet poses: shape {fposes_np.shape}, finite "
+          f"{np.isfinite(fposes_np).all()}")
+    check(bool(torch.isfinite(fstf.maps).all()), "fleet maps not finite")
+    fate, fmax, fmed = replay.fleet_ate_of(fposes_np, flog.traj[boot:])
+
+    def best_fleet(plain: bool, reps: int) -> float:
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            fleet.replay_fleet(fst, fdlog.points[boot:], fdlog.valid[boot:],
+                               fcfg, plain)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    fleet.replay_fleet(fst, fdlog.points[boot:], fdlog.valid[boot:], fcfg)
+    torch.cuda.synchronize()                                    # warm-up
+    tf_kernel = best_fleet(False, TIMED_REPLAYS)
+    tf_plain = best_fleet(True, 1)
+    _, pl_out = fleet.replay_fleet(fst, fdlog.points[boot:], fdlog.valid[boot:],
+                                   fcfg, plain=True)
+    pate, pmax, pmed = replay.fleet_ate_of(pl_out.cpu().numpy(),
+                                           flog.traj[boot:])
+    iscans = nt * fb
+    say(f"[fleet] sub4_pallas_dense, {fb} robots x ({boot} + {nt}) "
+        f"batch-scans: RMS ATE {fate:.6f} m (JAX ref "
+        f"{replay.FLEET_JAX_REF_ATE_M:.6f}, gate +5e-4), max err {fmax:.4f} m "
+        f"(ref {replay.FLEET_JAX_REF_MAX_M:.4f}, gate +0.01), median "
+        f"instance ATE {fmed:.6f} m (ref {replay.FLEET_JAX_REF_MEDIAN_M:.6f}, "
+        f"gate +2e-4); launches {flaunch}; "
+        f"kernels {iscans / tf_kernel:.1f} instance-scans/s (best of "
+        f"{TIMED_REPLAYS}) vs plain {iscans / tf_plain:.1f} (best of 1; plain "
+        f"ATE {pate:.6f}, max {pmax:.4f}, median {pmed:.6f})")
+    check(fate <= replay.FLEET_JAX_REF_ATE_M + 5e-4,
+          f"fleet ATE {fate} above FLEET_JAX_REF_ATE_M + 5e-4")
+    check(fmax <= replay.FLEET_JAX_REF_MAX_M + 0.01,
+          f"fleet max error {fmax} above FLEET_JAX_REF_MAX_M + 0.01")
+    check(fmed <= replay.FLEET_JAX_REF_MEDIAN_M + 2e-4,
+          f"fleet median instance ATE {fmed} above FLEET_JAX_REF_MEDIAN_M + 2e-4")
+
     print(json.dumps({"kernels": [
         {"name": "match", "route": "cuda",
          "source": "slamnet_tpu_torch/csrc/match.cu",
@@ -319,10 +575,31 @@ def main() -> int:
          "source": "slamnet_tpu_torch/csrc/fill.cu",
          "replaces": "slamnet_tpu/ops/pallas_fill.py:86",
          "launches": launches["fill"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms}],
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "match_batch", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/match.cu",
+         "replaces": "slamnet_tpu/ops/pallas_onehot.py:235",
+         "launches": flaunch["match_batch"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_plain_ms},
+        {"name": "match_packed", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/match.cu",
+         "replaces": "slamnet_tpu/ops/pallas_onehot.py:460",
+         "launches": flaunch["match_packed"], "max_abs_err": k6_err,
+         "ms": k6_ms[K6_G_REPORTED], "plain_ms": k5_plain_ms},
+        {"name": "fill_batch", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/fill.cu",
+         "replaces": "slamnet_tpu/ops/pallas_fill.py:86",
+         "launches": flaunch["fill_batch"], "max_abs_err": kb_err,
+         "ms": kb_ms["1-in-18"], "plain_ms": kb_plain_ms["1-in-18"]}],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
+        "fleet_instance_scans_per_s": iscans / tf_kernel,
+        "fleet_plain_instance_scans_per_s": iscans / tf_plain,
+        "fleet_ate_m": fate, "fleet_max_err_m": fmax,
+        "fleet_ate_median_m": fmed, "k6_ms_by_g_pack": k6_ms,
+        "fill_batch_all_fire_ms": kb_ms["all"],
+        "fill_batch_all_fire_plain_ms": kb_plain_ms["all"],
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of slamnet_tpu_torch's pallas_dense replay goes, on one GPU.
+"""Where the time of slamnet_tpu_torch's replays goes, on one GPU.
 
-Makes the loop log, bootstraps, runs one warm-up replay of the 512 scans, times
-one more replay without the profiler, then traces one replay with
-``torch.profiler`` (CPU + CUDA).  Prints one JSON object: wall time per scan,
-the device's busy share of the traced replay (the union of its kernels'
-intervals over the replay's span), and the device kernels by total time.
+Makes the loop log, bootstraps, runs one warm-up replay, times one more replay
+without the profiler, then traces one replay with ``torch.profiler`` (CPU +
+CUDA).  Prints one JSON object: wall time per step, the device's busy share of
+the traced replay (the union of its kernels' intervals over the replay's span),
+and the device kernels by total time.  A step is a scan of the single-robot
+``pallas_dense`` replay (512 scans), or with ``--fleet`` a batch-scan of the
+64-robot ``sub4_pallas_dense`` fleet (64 batch-scans after a 10-batch-scan
+bootstrap).
 
-    python3 scripts/torch_port_profile.py [--out DIR]   # DIR/trace.json
+    python3 scripts/torch_port_profile.py [--fleet] [--out DIR]  # DIR/trace.json
 """
 import argparse
 import json
@@ -22,32 +25,51 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from slamnet_tpu_torch import replay  # noqa: E402
-from slamnet_tpu_torch.models import hector  # noqa: E402
+from slamnet_tpu_torch.models import fleet, hector  # noqa: E402
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", help="directory for the Chrome trace")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    dev = torch.device("cuda", 0)
+def _single(dev):
     cfg = replay.pallas_dense_config()
     log = replay.make_log(seed=0)
     dlog = replay.to_device(log, dev)
     st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog,
                            log.bootstrap, cfg)
-    n = dlog.points.shape[0] - log.bootstrap
-    replay.replay(st0, dlog, log.bootstrap, cfg)          # warm-up
+    return (dlog.points.shape[0] - log.bootstrap,
+            lambda: replay.replay(st0, dlog, log.bootstrap, cfg))
+
+
+def _fleet(dev):
+    cfg = replay.sub4_pallas_dense_config()
+    flog = replay.make_fleet_log(replay.make_log(seed=0))
+    dlog = replay.to_device(flog, dev)
+    b = flog.bootstrap
+    st0 = replay.fleet_bootstrap(fleet.init_fleet(cfg, flog.traj[0], dev),
+                                 dlog, b, cfg)
+    return (dlog.points.shape[0] - b,
+            lambda: fleet.replay_fleet(st0, dlog.points[b:], dlog.valid[b:],
+                                       cfg))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="directory for the Chrome trace")
+    ap.add_argument("--fleet", action="store_true",
+                    help="the 64-robot fleet instead of the single robot")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    n, run = (_fleet if args.fleet else _single)(dev)
+    run()                                                  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    replay.replay(st0, dlog, log.bootstrap, cfg)
+    run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        replay.replay(st0, dlog, log.bootstrap, cfg)
+        run()
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -71,14 +93,16 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+        prof.export_chrome_trace(os.path.join(
+            args.out, "trace_fleet.json" if args.fleet else "trace.json"))
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "scans": n,
-        "wall_us_per_scan": wall / n * 1e6,
-        "traced_wall_us_per_scan": traced / n * 1e6,
+        "device": torch.cuda.get_device_name(0),
+        "path": "fleet" if args.fleet else "single", "steps": n,
+        "wall_us_per_step": wall / n * 1e6,
+        "traced_wall_us_per_step": traced / n * 1e6,
         "device_kernels": len(kernels),
-        "kernels_per_scan": len(kernels) / n,
-        "device_busy_us_per_scan": busy / n,
+        "kernels_per_step": len(kernels) / n,
+        "device_busy_us_per_step": busy / n,
         "device_busy_share_of_kernel_window": busy / window if window else 0.0,
         "device_busy_share_of_traced_wall": busy / (traced * 1e6),
         "kernels_by_total_us": [

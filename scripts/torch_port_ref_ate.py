@@ -8,7 +8,7 @@ on the CPU) and runs the JAX package over it with the port's flow: a 10-scan
 forced bootstrap at the true poses in the mode's own config, then 512 scans
 each hinted with the previous match pose.
 
-Modes:
+Modes (single robot):
   * ``onehot_bf16_dense``: ``matcher_mode="onehot_bf16"``,
     ``dense_free_fill=True``, fixed 7/4/4 iterations — the same bf16 table
     selection K1 makes, and the port's dense fill.  Its ATE is
@@ -16,9 +16,16 @@ Modes:
   * ``fixed``: the reference-exact gather matcher with line updates, for
     context only.
 
+``--fleet`` runs the fleet instead: ``fleet.update_fleet`` over
+``make_fleet_log``'s 64 phase-shifted slices of the same log, with bench's
+flow (``bench.py:462-493``: 10 forced batch-scans with ``match_pose`` set to
+the true poses, then 64 tracked ones) in ``sub4_onehot_dense``, the bench's
+fleet headline: K5's bf16 selection in XLA.  Its RMS, max and median
+instance ATE are ``replay.FLEET_JAX_REF_*``.
+
 Runs on the CPU (a few minutes); prints one JSON object.
 
-    python scripts/torch_port_ref_ate.py [--seed 0]
+    python scripts/torch_port_ref_ate.py [--seed 0] [--fleet]
 """
 import argparse
 import json
@@ -38,8 +45,10 @@ import numpy as np  # noqa: E402
 
 from slamnet_tpu.core import HectorConfig  # noqa: E402
 from slamnet_tpu.core.scan import Scan  # noqa: E402
-from slamnet_tpu.models import hector  # noqa: E402
-from slamnet_tpu_torch.replay import ate_of, make_log  # noqa: E402
+from slamnet_tpu.models import fleet, hector  # noqa: E402
+from slamnet_tpu_torch.replay import (ate_of, fleet_ate_of,  # noqa: E402
+                                      make_fleet_log, make_log,
+                                      sub4_pallas_dense_config)
 
 
 def run_mode(cfg, log):
@@ -80,15 +89,65 @@ def run_mode(cfg, log):
             "solve_failures": int(np.asarray(fails).sum())}
 
 
+def run_fleet(cfg, flog):
+    angles = jnp.asarray(flog.angles)
+    radii = jnp.asarray(flog.radii)
+    valids = jnp.asarray(flog.valid)
+    traj = jnp.asarray(flog.traj)
+    b = flog.bootstrap
+
+    def points(r):
+        return jnp.stack([r * jnp.cos(angles), r * jnp.sin(angles)], -1)
+
+    @jax.jit
+    def boot_step(states, r, v, poses):
+        states = states._replace(match_pose=poses)
+        return fleet.update_fleet(states, points(r), v, cfg,
+                                  map_without_matching=True)[0]
+
+    @jax.jit
+    def replay(states, radii, valids):
+        def body(sts, inp):
+            r, v = inp
+            sts, info = fleet.update_fleet(sts, points(r), v, cfg)
+            return sts, (sts.match_pose, info.map_updated, info.solve_failures)
+        return jax.lax.scan(body, states, (radii, valids))
+
+    states = fleet.init_fleet(cfg, flog.traj[0])
+    for t in range(b):
+        states = boot_step(states, radii[t], valids[t], traj[t])
+    _, (poses, upd, fails) = replay(states, radii[b:], valids[b:])
+    ate, mx, med = fleet_ate_of(np.asarray(poses), flog.traj[b:])
+    return {"ate_m": ate, "max_err_m": mx, "ate_median_m": med,
+            "map_updates": int(np.asarray(upd).sum()),
+            "solve_failures": int(np.asarray(fails).sum())}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fleet", action="store_true",
+                    help="the 64-robot fleet instead of the single robot")
     args = ap.parse_args()
     log = make_log(seed=args.seed)
     base = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4))
     out = {"seed": args.seed, "n_scans": int(log.radii.shape[0] - log.bootstrap),
            "bootstrap": log.bootstrap, "jax": jax.__version__,
            "device": str(jax.devices()[0])}
+    if args.fleet:
+        flog = make_fleet_log(log)
+        cfg = HectorConfig(**{
+            f: getattr(sub4_pallas_dense_config(), f)
+            for f in ("num_levels", "estimate_iterations", "xy_step_clamp_px",
+                      "max_match_jump", "match_subsample", "dense_free_fill")},
+            matcher_mode="onehot_bf16")
+        out["robots"], out["n_batch_scans"] = flog.radii.shape[1], \
+            flog.radii.shape[0] - flog.bootstrap
+        t0 = time.time()
+        out["fleet_sub4_onehot_dense"] = run_fleet(cfg, flog)
+        out["fleet_sub4_onehot_dense"]["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps(out))
+        return
     for name, cfg in (("onehot_bf16_dense",
                        base.overlay({"matcher_mode": "onehot_bf16",
                                      "dense_free_fill": True})),

@@ -1,12 +1,15 @@
 """slamnet_tpu_torch: the PyTorch + CUDA port of slamnet_tpu for NVIDIA Hopper.
 
 The JAX package ``slamnet_tpu`` is the reference; this package imports torch
-and never jax.  It holds the single-robot Hector ``pallas_dense`` pipeline:
-``models.hector`` over two hand-written CUDA kernels, K1 (``ops.match``, the
-coarse-to-fine Gauss-Newton match) and K2 (``ops.fill``, the dense polar
-occupancy fill), built from ``csrc/`` with nvcc at first use.  Each kernel
-wrapper runs its plain PyTorch version for CPU tensors (tests) and the kernel
-for CUDA tensors.  ``python3 chip_smoke.py`` drives it on the card.
+and never jax.  It holds the single-robot Hector ``pallas_dense`` pipeline
+(``models.hector``) and the fleet that tracks B robots on one card
+(``models.fleet``, ``sub4_pallas_dense``) over hand-written CUDA kernels: the
+coarse-to-fine Gauss-Newton match for one robot (K1), one block a robot (K5)
+or g_pack robots a block (K6) in ``ops.match``, and the dense polar occupancy
+fill (K2, single or batched with per-robot fire flags) in ``ops.fill``, built
+from ``csrc/`` with nvcc at first use.  Each kernel wrapper runs its plain
+PyTorch version for CPU tensors (tests) and the kernel for CUDA tensors.
+``python3 chip_smoke.py`` drives both paths on the card.
 """
 from . import core, models, ops, sim
 

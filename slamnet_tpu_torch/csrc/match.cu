@@ -1,26 +1,41 @@
-// K1: the whole coarse-to-fine Hector Gauss-Newton match in one launch.
+// K1, K5 and K6: the whole coarse-to-fine Hector Gauss-Newton match in one
+// launch, for one robot (K1), for B robots with one block each (K5), or for
+// B robots packed g_pack to a block (K6).  One kernel body serves all three.
 //
-// Replaces the TPU kernel slamnet_tpu/ops/pallas_onehot.py::make_pallas_match
-// (body _match_kernel with batched=False, prolog prepare_tables).
+// Replaces the TPU kernels of slamnet_tpu/ops/pallas_onehot.py:
+//   K1  make_pallas_match          (body _match_kernel, batched=False;
+//                                   prolog prepare_tables)
+//   K5  make_pallas_match_batch    (body _match_kernel, batched=True, a grid
+//                                   over instances; prolog prepare_tables_batch)
+//   K6  make_pallas_match_packed   (body _match_kernel_packed: G instances
+//                                   stacked on sublanes, segment-matmul sums)
 //
 // What bounds it on an H100: latency.  A match is a chain of
 // sum(estimate_iterations) dependent Gauss-Newton iterations (15 for the
 // 7/4/4 pyramid), each a beam-wide reduction of 11 sums followed by a scalar
-// 3x3 solve that the next iteration needs.  The bytes are small: the f32 maps
-// of all levels are 840 KB at 400/200/100 px and stay in the 50 MB L2, and an
-// iteration reads 4 neighbours for each of 400 beams.  One block runs on one
-// of the card's 132 SMs, so the kernel is latency-bound by design: the
-// occupancy is low and the time is the length of the serial chain.  Running
-// many matches at once (the fleet kernel, K5) is what fills the card.
+// 3x3 solve that the next iteration needs.  The bytes are small: one robot's
+// f32 maps of all levels are 840 KB at 400/200/100 px, and an iteration reads
+// 4 neighbours for each of 100-400 beams.  One match is one block on one of
+// the card's 132 SMs, so a single match (K1) is latency-bound by design; the
+// fleet (K5) puts B matches in one launch, B blocks over the SMs, and the
+// card fills with independent chains.
 //
 // What the design does about it:
-//   * one block per match, one thread per beam rounded up to whole warps
-//     (416 threads for 400 beams), so each iteration is one pass over the
-//     beams with no loop inside a thread;
-//   * the 11 sums go through warp shuffles, then across warps in shared
-//     memory; thread 0 solves and publishes the pose through shared memory,
-//     and one __syncthreads() ends the iteration — two barriers per iteration,
-//     every level in the same launch;
+//   * one instance's match is a group of whole warps, one thread per beam
+//     (4 warps for the 100 beams of match_subsample=4, 13 for 400), so each
+//     iteration is one pass over the beams with no loop inside a thread;
+//   * the 11 sums go through warp shuffles, then across the instance's warps
+//     in shared memory; the instance's thread 0 solves and publishes the pose
+//     through shared memory, and one __syncthreads() ends the iteration — two
+//     barriers per iteration, every level in the same launch;
+//   * K5: blockIdx.x is the instance.  Each block reads its own pyramid at
+//     maps + b*cells (size_t offsets), its own points, valid and hint, and
+//     writes out[b, 0:6].  K1 is the launch with batch = 1;
+//   * K6: g_pack instances share a block, each on its own warps.  The fixed
+//     iteration counts give every instance the same control flow, so the
+//     block-wide barriers hold, and each instance reduces over its own warps
+//     in K5's order: K6 equals K5 bit for bit (the TPU version's segment
+//     matmuls reordered the sums; here nothing is reordered);
 //   * the f32 maps are read directly (offset_l + yi*w + xi) and each
 //     neighbour is rounded to bf16 on the fly with __float2bfloat16_rn.  That
 //     reproduces prepare_tables' bf16 table (round to nearest even) value for
@@ -34,9 +49,9 @@
 // +/-deriv_clamp; the xy clamp and the damping apply only when > 0; a solve
 // fails when H00==0 || H11==0 || det==0 || !isfinite(det), and the step is
 // then zero; the heading wraps to (-pi, pi] by floored modulo between levels;
-// a scan with no valid beam returns the hint.  The output is f32[6]: x, y,
-// theta (world), solve failures, and the residual sum and in-bounds beam
-// count of the last iteration of the finest level.
+// an instance with no valid matcher beam returns its hint.  The output is
+// f32[6] per instance: x, y, theta (world), solve failures, and the residual
+// sum and in-bounds beam count of the last iteration of the finest level.
 //
 // Build without --use_fast_math (sinf, cosf, expf and the division stay
 // IEEE-accurate) and with -fmad=false (see ops/_build.py).
@@ -49,8 +64,12 @@ constexpr int kMatchMaxLevels = 4;
 // Mirrored by ops/match.py::_MatchParams (ctypes, passed by value).
 struct MatchParams {
   int num_levels;
-  int n;        // beams the matcher uses (after match_subsample)
-  int stride;   // match_subsample: beam i is point i*stride
+  int n;          // beams the matcher uses per instance (after match_subsample)
+  int stride;     // match_subsample: beam i is point i*stride
+  int n_points;   // points per instance (before subsampling)
+  int cells;      // map cells per instance (its whole pyramid)
+  int g_pack;     // instances per block (1 for K1 and K5)
+  int batch;      // instances (1 for K1)
   int width[kMatchMaxLevels];
   int offset[kMatchMaxLevels];
   int iters[kMatchMaxLevels];
@@ -64,6 +83,7 @@ namespace {
 
 constexpr int kSums = 11;          // dTr[3], H upper triangle[6], resid, n_in
 constexpr int kBeamsPerThread = 4;
+constexpr int kMaxPack = 8;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
@@ -89,25 +109,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void match_kernel(const float* __restrict__ maps,
-                             const float* __restrict__ points,
-                             const unsigned char* __restrict__ valid,
-                             const float* __restrict__ pose0,
-                             float* __restrict__ out, MatchParams p) {
+// 1024 threads (K6 at g_pack 8, or K1 above 992 beams) may run only when a
+// thread keeps to 64 registers: the bound makes the compiler keep to them.
+__global__ void __launch_bounds__(1024)
+match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
+             const unsigned char* __restrict__ valid,
+             const float* __restrict__ pose0, float* __restrict__ out,
+             MatchParams p) {
   __shared__ float s_part[32][kSums];
-  __shared__ float s_pose[3];
+  __shared__ float s_pose[kMaxPack][3];
+  __shared__ int s_any[32];
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  // this thread's instance g of the block's g_pack, and its place in it
+  const int lthreads = blockDim.x / p.g_pack;     // whole warps
+  const int wpi = lthreads >> 5;                  // warps per instance
+  const int g = threadIdx.x / lthreads;
+  const int tid = threadIdx.x - g * lthreads;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t inst = static_cast<size_t>(blockIdx.x) * p.g_pack + g;
+
+  maps += inst * p.cells;
+  points += inst * p.n_points * 2;
+  valid += inst * p.n_points;
+  pose0 += inst * 3;
+  out += inst * 6;
 
   float bx[kBeamsPerThread], by[kBeamsPerThread];
   bool bv[kBeamsPerThread];
   bool any_local = false;
 #pragma unroll
   for (int k = 0; k < kBeamsPerThread; ++k) {
-    const int b = tid + k * blockDim.x;
+    const int b = tid + k * lthreads;
     const bool in = b < p.n;
     const int src = in ? b * p.stride : 0;
     bx[k] = in ? points[2 * src] : 0.0f;
@@ -115,10 +148,12 @@ __global__ void match_kernel(const float* __restrict__ maps,
     bv[k] = in && valid[src] != 0;
     any_local |= bv[k];
   }
-  const bool any_valid = __syncthreads_or(any_local);
+  const bool any_warp = __any_sync(0xffffffffu, any_local);
+  if (lane == 0) s_any[warp] = any_warp;
+  __syncthreads();
 
   float px = pose0[0], py = pose0[1], th = pose0[2];
-  float fails = 0.0f, resid = 0.0f, n_in = 0.0f;   // kept by thread 0
+  float fails = 0.0f, resid = 0.0f, n_in = 0.0f;   // kept by tid 0
 
   for (int level = p.num_levels - 1; level >= 0; --level) {
     const int w = p.width[level];
@@ -137,7 +172,7 @@ __global__ void match_kernel(const float* __restrict__ maps,
 
 #pragma unroll
       for (int k = 0; k < kBeamsPerThread; ++k) {
-        if (tid + k * static_cast<int>(blockDim.x) >= p.n) break;
+        if (tid + k * lthreads >= p.n) break;
         const float X = bx[k], Y = by[k];
         const float mx = cr * X - sr * Y + ex;
         const float my = sr * X + cr * Y + ey;
@@ -180,12 +215,12 @@ __global__ void match_kernel(const float* __restrict__ maps,
       }
       __syncthreads();
 
-      if (warp == 0) {
+      if (tid < 32) {   // the instance's first warp sums over its warps
         float r[kSums];
 #pragma unroll
         for (int j = 0; j < kSums; ++j)
-          r[j] = warp_sum(lane < nwarps ? s_part[lane][j] : 0.0f);
-        if (lane == 0) {
+          r[j] = warp_sum(lane < wpi ? s_part[g * wpi + lane][j] : 0.0f);
+        if (tid == 0) {
           const float d0 = r[0], d1 = r[1], d2 = r[2];
           float H00 = r[3], H01 = r[4], H02 = r[5];
           float H11 = r[6], H12 = r[7], H22 = r[8];
@@ -212,18 +247,18 @@ __global__ void match_kernel(const float* __restrict__ maps,
           }
           const float s2 = clip((a2 * d0 + b2 * d1 + c2 * d2) * inv,
                                 -p.deriv_clamp, p.deriv_clamp);
-          s_pose[0] = ex + s0;
-          s_pose[1] = ey + s1;
-          s_pose[2] = th + s2;
+          s_pose[g][0] = ex + s0;
+          s_pose[g][1] = ey + s1;
+          s_pose[g][2] = th + s2;
           fails += ok ? 0.0f : 1.0f;
           resid = r[9];
           n_in = r[10];
         }
       }
       __syncthreads();
-      ex = s_pose[0];
-      ey = s_pose[1];
-      th = s_pose[2];
+      ex = s_pose[g][0];
+      ey = s_pose[g][1];
+      th = s_pose[g][2];
     }
 
     // heading wrap to (-pi, pi] (MathEx.NormalizeAngle), map px -> world
@@ -234,6 +269,8 @@ __global__ void match_kernel(const float* __restrict__ maps,
   }
 
   if (tid == 0) {
+    bool any_valid = false;
+    for (int w = 0; w < wpi; ++w) any_valid |= s_any[g * wpi + w] != 0;
     // empty scan: the hint comes back (ScanMatcher.cs:82-83)
     out[0] = any_valid ? px : pose0[0];
     out[1] = any_valid ? py : pose0[1];
@@ -246,12 +283,17 @@ __global__ void match_kernel(const float* __restrict__ maps,
 
 }  // namespace
 
+// One launch of batch / g_pack blocks, each of g_pack instances' threads.
 extern "C" int slamnet_match(const float* maps, const float* points,
                              const unsigned char* valid, const float* pose0,
                              float* out, MatchParams p, cudaStream_t stream) {
   int threads = ((p.n + 31) / 32) * 32;
   if (threads < 32) threads = 32;
   if (threads > 1024) threads = 1024;
-  match_kernel<<<1, threads, 0, stream>>>(maps, points, valid, pose0, out, p);
+  if (p.g_pack < 1 || p.g_pack > kMaxPack || p.batch < 1 ||
+      p.batch % p.g_pack != 0 || threads * p.g_pack > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  match_kernel<<<p.batch / p.g_pack, threads * p.g_pack, 0, stream>>>(
+      maps, points, valid, pose0, out, p);
   return static_cast<int>(cudaGetLastError());
 }

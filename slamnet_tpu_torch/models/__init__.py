@@ -1,3 +1,3 @@
-from . import hector
+from . import fleet, hector
 
-__all__ = ["hector"]
+__all__ = ["fleet", "hector"]

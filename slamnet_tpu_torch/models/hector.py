@@ -1,7 +1,10 @@
 """HectorSLAM pipeline: multi-resolution pyramid + coarse-to-fine Gauss-Newton.
 
 Port of ``slamnet_tpu/models/hector.py`` for the ``pallas_dense``
-configuration (``matcher_mode="pallas"``, ``dense_free_fill=True``):
+configuration (``matcher_mode="pallas"``, ``dense_free_fill=True``; the
+XLA mode ``"onehot_bf16"`` makes the same bf16 table selection and runs the
+same kernels, which lets the serving profile ``serving_hector_config()``
+run):
 HectorSLAMProcessor + MapRepMultiMap + ScanMatcher (HectorSLAM/Main/*.cs,
 Matcher/ScanMatcher.cs).  The state holds one flat f32 table with every
 pyramid level concatenated, finest first (``cfg.level_offsets``).  Level i+1
@@ -54,11 +57,15 @@ class MatchStats(NamedTuple):
     in_map_frac: torch.Tensor     # f32 in-bounds fraction of valid matcher beams
 
 
+# matcher modes that read the table through bf16 rounding: K1/K5's precision
+BF16_MATCHERS = ("pallas", "onehot_bf16")
+
+
 def _check_cfg(cfg: HectorConfig) -> None:
-    if cfg.matcher_mode != "pallas" or not cfg.dense_free_fill:
+    if cfg.matcher_mode not in BF16_MATCHERS or not cfg.dense_free_fill:
         raise NotImplementedError(
             "slamnet_tpu_torch runs the pallas_dense configuration only "
-            "(matcher_mode='pallas', dense_free_fill=True); got "
+            f"(matcher_mode in {BF16_MATCHERS}, dense_free_fill=True); got "
             f"matcher_mode={cfg.matcher_mode!r}, "
             f"dense_free_fill={cfg.dense_free_fill}")
 

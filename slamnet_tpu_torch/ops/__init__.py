@@ -1,4 +1,5 @@
-"""Ops of the Hector path: GN math, K1 (match), the dense fill and K2 (fill).
+"""Ops of the Hector paths: GN math, K1/K5/K6 (match), the dense fill and K2
+(fill, single and batched).
 
 Each kernel module holds its CUDA wrapper (a launch count on the wrapper
 function) beside its plain PyTorch version; the wrapper takes the plain

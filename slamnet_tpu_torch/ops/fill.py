@@ -1,19 +1,24 @@
-"""K2: the dense polar occupancy fill of all pyramid levels (``csrc/fill.cu``).
+"""K2: the dense polar occupancy fill of all pyramid levels (``csrc/fill.cu``),
+for one robot or a fleet.
 
 Replaces ``slamnet_tpu/ops/pallas_fill.py::polar_fill_pallas`` (with the
 beam-side prolog of ``update_occupancy_dense_pallas``).  ``update_maps``
 applies one scan to every level of the concatenated pyramid ``maps`` IN
 PLACE, gated by the device-side flag ``do_update`` (the JAX pipeline's
-``lax.cond`` at ``models/hector.py:324``): two launches a scan, and the host
-never waits.
+``lax.cond`` at ``models/hector.py:324``); ``update_maps_batch`` does the
+same for a fleet's flat f32[B*C] maps, instance b gated by ``fire[b]`` (the
+fleet's scan-over-instances ``lax.cond``, ``models/fleet.py:244-266``).  Two
+launches a scan or batch-scan, the single robot being the batch of one, and
+the host never waits.
 
-``marks`` u8[total_cells] is the kernel's occupied-endpoint scratch: all zero
-between scans (launch A sets the marks, launch B reads and clears them).
+``marks`` u8 (one byte a cell) is the kernel's occupied-endpoint scratch:
+all zero between scans (launch A sets a firing instance's marks, launch B
+reads and clears them).
 
-``update_maps_plain`` is the plain version: the ported
-``ops/logodds.py::update_occupancy_dense`` applied per level.  ``update_maps``
-runs it for CPU tensors only; for CUDA tensors it launches the kernel or
-raises.
+``update_maps_batch_plain`` is the plain version: the ported
+``ops/logodds.py::update_occupancy_dense`` applied per level, vectorized over
+the instance axis; ``update_maps_plain`` is its one-robot case.  The wrappers
+run it for CPU tensors only; for CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -27,14 +32,17 @@ from . import _build
 from .logodds import update_occupancy_dense
 
 MAX_LEVELS = 4
+MAX_BATCH = 65535         # gridDim.y of both launches
 ANGLE_BINS = 256          # logodds.update_occupancy_dense's default
-CELL_THREADS = 256        # launch B block size (csrc/fill.cu kCellThreads)
+CELL_BLOCK = 256 * 16     # launch B cells a block (csrc/fill.cu kCellThreads
+                          # x kCellsPerThread)
 
 
 class _FillParams(ctypes.Structure):
     """``struct FillParams`` of csrc/fill.cu, passed by value."""
 
     _fields_ = [("num_levels", ctypes.c_int), ("n", ctypes.c_int),
+                ("cells", ctypes.c_int), ("batch", ctypes.c_int),
                 ("width", ctypes.c_int * MAX_LEVELS),
                 ("offset", ctypes.c_int * MAX_LEVELS),
                 ("block_start", ctypes.c_int * (MAX_LEVELS + 1)),
@@ -44,14 +52,14 @@ class _FillParams(ctypes.Structure):
 
 
 @functools.cache
-def _params(cfg: HectorConfig, n: int) -> _FillParams:
+def _params(cfg: HectorConfig, n: int, batch: int) -> _FillParams:
     nl = cfg.num_levels
     pad = [0] * (MAX_LEVELS - nl)
     starts = [0]
     for w in cfg.level_sizes:
-        starts.append(starts[-1] + -(-w * w // CELL_THREADS))
+        starts.append(starts[-1] + -(-w * w // CELL_BLOCK))
     return _FillParams(
-        nl, n,
+        nl, n, cfg.total_cells, batch,
         (ctypes.c_int * MAX_LEVELS)(*cfg.level_sizes, *pad),
         (ctypes.c_int * MAX_LEVELS)(*cfg.level_offsets, *pad),
         (ctypes.c_int * (MAX_LEVELS + 1))(*starts, *pad),
@@ -70,6 +78,27 @@ def _launcher():
     return fn
 
 
+def _check_levels(cfg: HectorConfig) -> None:
+    if not 1 <= cfg.num_levels <= MAX_LEVELS:
+        raise ValueError(f"K2 takes 1..{MAX_LEVELS} levels, got {cfg.num_levels}")
+
+
+def _launch(what: str, maps, marks, points, valid, poses, scan_poses, fire,
+            cfg: HectorConfig, batch: int) -> None:
+    dev = maps.device
+    tables = torch.empty((batch, cfg.num_levels, ANGLE_BINS),
+                         dtype=torch.float32, device=dev)
+    robot = torch.empty((batch, cfg.num_levels, 4), dtype=torch.int32,
+                        device=dev)
+    code = _launcher()(maps.data_ptr(), marks.data_ptr(), points.data_ptr(),
+                       valid.data_ptr(), poses.data_ptr(),
+                       scan_poses.data_ptr(), fire.data_ptr(),
+                       tables.data_ptr(), robot.data_ptr(),
+                       _params(cfg, points.shape[-2], batch),
+                       _build.stream_handle(dev))
+    _build.raise_on_error(code, what)
+
+
 def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
                 valid: torch.Tensor, pose: torch.Tensor,
                 scan_pose: torch.Tensor, do_update: torch.Tensor,
@@ -78,14 +107,12 @@ def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
     scan (``points`` f32[N, 2], ``valid`` bool[N], cloud pose ``scan_pose``
     f32[3]) seen from ``pose`` f32[3] (world), where the 0-dim bool
     ``do_update`` is set.  Returns ``maps``."""
-    if not 1 <= cfg.num_levels <= MAX_LEVELS:
-        raise ValueError(f"K2 takes 1..{MAX_LEVELS} levels, got {cfg.num_levels}")
+    _check_levels(cfg)
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_plain(maps, points, valid, pose,
                                             scan_pose, do_update, cfg))
-    dev = maps.device
     n = points.shape[0]
-    _build.check_tensors("K2", dev, (
+    _build.check_tensors("K2", maps.device, (
         ("maps", maps, torch.float32, (cfg.total_cells,)),
         ("marks", marks, torch.uint8, (cfg.total_cells,)),
         ("points", points, torch.float32, (n, 2)),
@@ -95,20 +122,62 @@ def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
         ("do_update", do_update, torch.bool, ())))
     if n < 1:
         raise ValueError("K2 needs at least one beam")
-    tables = torch.empty((cfg.num_levels, ANGLE_BINS), dtype=torch.float32,
-                         device=dev)
-    robot = torch.empty((cfg.num_levels, 4), dtype=torch.int32, device=dev)
-    code = _launcher()(maps.data_ptr(), marks.data_ptr(), points.data_ptr(),
-                       valid.data_ptr(), pose.data_ptr(), scan_pose.data_ptr(),
-                       do_update.data_ptr(), tables.data_ptr(),
-                       robot.data_ptr(), _params(cfg, n),
-                       _build.stream_handle(dev))
-    _build.raise_on_error(code, "K2 fill")
+    _launch("K2 fill", maps, marks, points, valid, pose, scan_pose, do_update,
+            cfg, 1)
     update_maps.launches += 1
     return maps
 
 
 update_maps.launches = 0
+
+
+def _check_batch(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
+                valid: torch.Tensor, poses: torch.Tensor,
+                scan_poses: torch.Tensor, fire: torch.Tensor,
+                cfg: HectorConfig) -> int:
+    """Raise ValueError unless the fleet inputs fit the batched K2: contiguous
+    maps f32[B*C], marks u8[B*C], points f32[B, N, 2] with N >= 1, valid
+    bool[B, N], poses and scan_poses f32[B, 3], fire bool[B] on one device.
+    Returns B."""
+    _check_levels(cfg)
+    if points.dim() != 3 or points.shape[1] < 1:
+        raise ValueError(f"K2 batch points: want [B, N >= 1, 2], got "
+                         f"{tuple(points.shape)}")
+    b, n = points.shape[:2]
+    if b > MAX_BATCH:
+        raise ValueError(f"K2 batch takes at most {MAX_BATCH} instances, got {b}")
+    cells = b * cfg.total_cells
+    _build.check_tensors("K2 batch", maps.device, (
+        ("maps", maps, torch.float32, (cells,)),
+        ("marks", marks, torch.uint8, (cells,)),
+        ("points", points, torch.float32, (b, n, 2)),
+        ("valid", valid, torch.bool, (b, n)),
+        ("poses", poses, torch.float32, (b, 3)),
+        ("scan_poses", scan_poses, torch.float32, (b, 3)),
+        ("fire", fire, torch.bool, (b,))))
+    return b
+
+
+def update_maps_batch(maps: torch.Tensor, marks: torch.Tensor,
+                      points: torch.Tensor, valid: torch.Tensor,
+                      poses: torch.Tensor, scan_poses: torch.Tensor,
+                      fire: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
+    """Dense-fill every level of every firing instance of the fleet table
+    ``maps`` f32[B*C] in place: instance b with its scan (``points[b]``,
+    ``valid[b]``, cloud pose ``scan_poses[b]``) seen from ``poses[b]``
+    (world), where the device flag ``fire[b]`` is set; the other instances'
+    maps stay as they are, bit for bit.  Returns ``maps``."""
+    b = _check_batch(maps, marks, points, valid, poses, scan_poses, fire, cfg)
+    if maps.device.type == "cpu":
+        return maps.copy_(update_maps_batch_plain(maps, points, valid, poses,
+                                                  scan_poses, fire, cfg))
+    _launch("K2 fill_batch", maps, marks, points, valid, poses, scan_poses,
+            fire, cfg, b)
+    update_maps_batch.launches += 1
+    return maps
+
+
+update_maps_batch.launches = 0
 
 
 def update_maps_plain(maps: torch.Tensor, points: torch.Tensor,
@@ -118,13 +187,26 @@ def update_maps_plain(maps: torch.Tensor, points: torch.Tensor,
     """K2's plain version: a new f32[total_cells] with every level updated
     (MapRepMultiMap.UpdateByScan, MapRepMultiMap.cs:73-77) where
     ``do_update`` is set, ``maps`` unchanged otherwise."""
+    return update_maps_batch_plain(maps, points[None], valid[None], pose[None],
+                                   scan_pose[None], do_update.reshape(1), cfg)
+
+
+def update_maps_batch_plain(maps: torch.Tensor, points: torch.Tensor,
+                            valid: torch.Tensor, poses: torch.Tensor,
+                            scan_poses: torch.Tensor, fire: torch.Tensor,
+                            cfg: HectorConfig) -> torch.Tensor:
+    """The batched K2's plain version: a new f32[B*C] with every level of
+    instance b updated where ``fire[b]`` is set and left as it was
+    otherwise; each instance as ``update_maps_plain`` computes it."""
+    b = points.shape[0]
+    grids = maps.view(b, cfg.total_cells)
     out = []
     for level in range(cfg.num_levels):
         w = cfg.level_sizes[level]
         off = cfg.level_offsets[level]
         out.append(update_occupancy_dense(
-            maps[off:off + w * w], w, points, valid, pose, scan_pose[:2],
-            1.0 / cfg.level_resolutions[level], cfg.log_odds_free,
-            cfg.log_odds_occupied, cfg.occupied_cap, ANGLE_BINS,
-            cfg.dense_free_margin_px))
-    return torch.where(do_update, torch.cat(out), maps)
+            grids[:, off:off + w * w], w, points, valid, poses,
+            scan_poses[:, :2], 1.0 / cfg.level_resolutions[level],
+            cfg.log_odds_free, cfg.log_odds_occupied, cfg.occupied_cap,
+            ANGLE_BINS, cfg.dense_free_margin_px))
+    return torch.where(fire[:, None], torch.cat(out, dim=1), grids).reshape(-1)

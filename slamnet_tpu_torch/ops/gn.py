@@ -6,6 +6,10 @@ Port of ``slamnet_tpu/ops/gn.py`` ``_gn_coords`` (:142-151), ``_gn_tail``
 system is solved by the adjugate with the reference's guards: H00 != 0 &&
 H11 != 0 (ScanMatcher.cs:97), a non-invertible H skips the step (:99-103), and
 the rotation step is clamped (:107-117).
+
+Every function takes an optional leading instance axis: a pose f32[3] with
+beams f32[N], or poses f32[B, 3] with beams f32[B, N] (the fleet); each
+instance's numbers are the same either way.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import torch
 
 def _solve_scalar(H00, H01, H02, H11, H12, H22, d0, d1, d2, clamp: float,
                   xy_clamp: float = 0.0, damping: float = 0.0):
-    """Guarded adjugate solve on 0-dim tensors; returns (s0, s1, s2, ok).
+    """Guarded adjugate solve, elementwise on 0-dim or [B] tensors; returns
+    (s0, s1, s2, ok).
 
     ``damping`` > 0 scales H's diagonal by (1 + damping) (a Levenberg-style
     extension, not in the reference); ``xy_clamp`` > 0 bounds the translation
@@ -47,10 +52,10 @@ def _gn_coords(width: int, scale: float, pose_px: torch.Tensor,
                X: torch.Tensor, Y: torch.Tensor, valid: torch.Tensor):
     """Beams -> map pixels at ``pose_px`` (x_px, y_px, theta): the rotated
     coordinates, the in-bounds mask and the truncated, clipped cell."""
-    sr = torch.sin(pose_px[2]) * scale
-    cr = torch.cos(pose_px[2]) * scale
-    mx = cr * X - sr * Y + pose_px[0]
-    my = sr * X + cr * Y + pose_px[1]
+    sr = torch.sin(pose_px[..., 2:3]) * scale
+    cr = torch.cos(pose_px[..., 2:3]) * scale
+    mx = cr * X - sr * Y + pose_px[..., 0:1]
+    my = sr * X + cr * Y + pose_px[..., 1:2]
     ok = valid & (mx >= 0.0) & (mx <= width - 2) & (my >= 0.0) & (my <= width - 2)
     xi = mx.to(torch.int32).clamp(0, width - 2)
     yi = my.to(torch.int32).clamp(0, width - 2)
@@ -60,10 +65,11 @@ def _gn_coords(width: int, scale: float, pose_px: torch.Tensor,
 def _gn_tail(v: torch.Tensor, mx, my, xi, yi, ok, X, Y, sr, cr,
              pose_px: torch.Tensor, deriv_clamp: float, xy_clamp: float,
              damping: float):
-    """From the 4 neighbour probabilities v f32[4, N] to the solved step.
+    """From the 4 neighbour probabilities v f32[4, ..., N] to the solved step.
 
-    Returns (new_pose_px f32[3], solve_ok bool, resid_sum f32 = sum of
-    (1 - M(p))^2 over in-bounds valid beams, n_in f32 = that beam count)."""
+    Returns (new_pose_px f32[..., 3], solve_ok bool[...], resid_sum f32[...]
+    = sum of (1 - M(p))^2 over in-bounds valid beams, n_in f32[...] = that
+    beam count)."""
     fx = mx - xi
     fy = my - yi
     xf = 1.0 - fx
@@ -79,10 +85,11 @@ def _gn_tail(v: torch.Tensor, mx, my, xi, yi, ok, X, Y, sr, cr,
     red = torch.stack([gx * fun, gy * fun, rot * fun,
                        gx * gx, gx * gy, gx * rot,
                        gy * gy, gy * rot, rot * rot,
-                       fun * fun, ok.to(torch.float32)]).sum(dim=1)
-    d0, d1, d2, H00, H01, H02, H11, H12, H22 = red[:9]
+                       fun * fun, ok.to(torch.float32)], dim=-2).sum(dim=-1)
+    d0, d1, d2, H00, H01, H02, H11, H12, H22 = red[..., :9].unbind(-1)
     s0, s1, s2, solve_ok = _solve_scalar(H00, H01, H02, H11, H12, H22,
                                          d0, d1, d2, deriv_clamp, xy_clamp,
                                          damping)
-    new_pose = torch.stack([pose_px[0] + s0, pose_px[1] + s1, pose_px[2] + s2])
-    return new_pose, solve_ok, red[9], red[10]
+    new_pose = torch.stack([pose_px[..., 0] + s0, pose_px[..., 1] + s1,
+                            pose_px[..., 2] + s2], dim=-1)
+    return new_pose, solve_ok, red[..., 9], red[..., 10]

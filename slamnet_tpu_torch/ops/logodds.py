@@ -28,18 +28,30 @@ def update_occupancy_dense(logodds_flat: torch.Tensor, width: int,
                            occupied_cap: float = 50.0,
                            angle_bins: int = 256,
                            free_margin_px: float = 0.75) -> torch.Tensor:
-    """One scan's dense update of one level; returns a new f32[width*width]."""
-    dev = logodds_flat.device
-    theta = robot_pose_world[2]
-    c, s = torch.cos(theta), torch.sin(theta)
-    tx, ty = robot_pose_world[0], robot_pose_world[1]
-    bx = (c * scan_pose[0] - s * scan_pose[1] + tx) * scale_to_map
-    by = (s * scan_pose[0] + c * scan_pose[1] + ty) * scale_to_map
-    bxi, byi = dotnet_round(bx), dotnet_round(by)
+    """One scan's dense update of one level; returns a new f32[width*width].
 
-    ex = (c * points[:, 0] - s * points[:, 1] + tx) * scale_to_map
-    ey = (s * points[:, 0] + c * points[:, 1] + ty) * scale_to_map
-    exi, eyi = dotnet_round(ex), dotnet_round(ey)
+    Batched over instances when ``logodds_flat`` is f32[B, width*width]:
+    points f32[B, N, 2], valid bool[B, N], robot_pose_world f32[B, 3],
+    scan_pose f32[B, 2] give f32[B, width*width], each row computed as the
+    unbatched call computes it."""
+    if logodds_flat.dim() == 1:
+        return update_occupancy_dense(
+            logodds_flat[None], width, points[None], valid[None],
+            robot_pose_world[None], scan_pose[None], scale_to_map,
+            log_odds_free, log_odds_occupied, occupied_cap, angle_bins,
+            free_margin_px)[0]
+    dev = logodds_flat.device
+    b = logodds_flat.shape[0]
+    theta = robot_pose_world[:, 2:3]                     # [B, 1]
+    c, s = torch.cos(theta), torch.sin(theta)
+    tx, ty = robot_pose_world[:, 0:1], robot_pose_world[:, 1:2]
+    bx = (c * scan_pose[:, 0:1] - s * scan_pose[:, 1:2] + tx) * scale_to_map
+    by = (s * scan_pose[:, 0:1] + c * scan_pose[:, 1:2] + ty) * scale_to_map
+    bxi, byi = dotnet_round(bx), dotnet_round(by)        # [B, 1]
+
+    ex = (c * points[..., 0] - s * points[..., 1] + tx) * scale_to_map
+    ey = (s * points[..., 0] + c * points[..., 1] + ty) * scale_to_map
+    exi, eyi = dotnet_round(ex), dotnet_round(ey)        # [B, N]
 
     def in_dims(x, y):
         return (x >= 0) & (x < width) & (y >= 0) & (y < width)
@@ -55,29 +67,30 @@ def update_occupancy_dense(logodds_flat: torch.Tensor, width: int,
     bins = ((torch.atan2(dye, dxe) + math.pi) * bin_scale).to(torch.int32)
     bins = bins.clamp(0, angle_bins - 1)
     big = 1e9
-    table = torch.full((angle_bins,), big, dtype=torch.float32, device=dev)
+    table = torch.full((b, angle_bins), big, dtype=torch.float32, device=dev)
     table = table.scatter_reduce(
-        0, torch.where(beam_ok, bins, 0).long(),
+        1, torch.where(beam_ok, bins, 0).long(),
         torch.where(beam_ok, r_beam, torch.full_like(r_beam, big)), "amin")
     table = torch.where(table >= big, torch.zeros_like(table), table)
 
     # dense per-cell test
     idx = torch.arange(width, dtype=torch.int32, device=dev)
-    dx = (idx[None, :] - bxi).to(torch.float32)          # [1, W]
-    dy = (idx[:, None] - byi).to(torch.float32)          # [W, 1]
-    r_cell = torch.sqrt(dx * dx + dy * dy)               # [W, W]
-    cbin = ((torch.atan2(dy.expand(width, width), dx.expand(width, width))
-             + math.pi) * bin_scale).to(torch.int32).clamp(0, angle_bins - 1)
-    r_lim = table[cbin.long()]
+    dx = (idx[None, None, :] - bxi[:, :, None]).to(torch.float32)  # [B, 1, W]
+    dy = (idx[None, :, None] - byi[:, :, None]).to(torch.float32)  # [B, W, 1]
+    r_cell = torch.sqrt(dx * dx + dy * dy).reshape(b, -1)         # [B, W*W]
+    shape = (b, width, width)
+    cbin = ((torch.atan2(dy.expand(shape), dx.expand(shape)) + math.pi)
+            * bin_scale).to(torch.int32).clamp(0, angle_bins - 1)
+    r_lim = table.gather(1, cbin.reshape(b, -1).long())
     is_free_img = (r_cell < r_lim - free_margin_px) & (r_cell > 0.0)
 
-    # occupied endpoints: a B-point scatter
+    # occupied endpoints: a per-instance N-point scatter
     end_flat = torch.where(beam_ok, eyi * width + exi, 0).long()
-    occ = torch.zeros(width * width, dtype=torch.int32, device=dev)
-    occ = occ.scatter_reduce(0, end_flat, beam_ok.to(torch.int32), "amax")
+    occ = torch.zeros((b, width * width), dtype=torch.int32, device=dev)
+    occ = occ.scatter_reduce(1, end_flat, beam_ok.to(torch.int32), "amax")
 
     is_occ = occ > 0
-    is_free = is_free_img.reshape(-1) & ~is_occ & beam_ok.any()
+    is_free = is_free_img & ~is_occ & beam_ok.any(dim=1, keepdim=True)
     zero = torch.zeros_like(logodds_flat)
     return (logodds_flat
             + torch.where(is_free, log_odds_free, zero)

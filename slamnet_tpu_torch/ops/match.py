@@ -1,18 +1,27 @@
-"""K1: the coarse-to-fine Hector match as one CUDA kernel (``csrc/match.cu``).
+"""K1, K5 and K6: the coarse-to-fine Hector match as one CUDA kernel
+(``csrc/match.cu``), for one robot or a fleet.
 
-Replaces ``slamnet_tpu/ops/pallas_onehot.py::make_pallas_match`` (the
-``matcher_mode="pallas"`` path of ``models/hector.py:167-192``).  ``match``
-takes the concatenated f32 pyramid and the scan as they are and returns
-f32[6] = (x, y, theta, solve_failures, resid_sum, n_in) of the finest level's
-last iteration, as the TPU kernel's lanes 0-5 do.
+Replaces ``slamnet_tpu/ops/pallas_onehot.py``'s ``make_pallas_match`` (K1,
+the ``matcher_mode="pallas"`` path of ``models/hector.py:167-192``),
+``make_pallas_match_batch`` (K5, the fleet's matcher, ``models/fleet.py:82-116``)
+and ``make_pallas_match_packed`` (K6, K5 with G instances a program).
+``match`` takes one robot's concatenated f32 pyramid and scan and returns
+f32[6] = (x, y, theta, solve_failures, resid_sum, n_in) of the finest
+level's last iteration, as the TPU kernel's lanes 0-5 do; ``match_batch``
+(K5) and ``match_packed`` (K6) take a fleet's flat f32[B*C] maps, points
+f32[B, N, 2], valid bool[B, N] and hints f32[B, 3] and return f32[B, 6].
 
-Semantics are the TPU kernel's: every level's table is read through bf16
+Semantics are the TPU kernels': every level's table is read through bf16
 rounding (the one-hot bf16 selection of ``prepare_tables``), fixed per-level
 iteration counts, theta clamp, optional xy clamp and damping, heading wrapped
-between levels, the hint returned for a scan with no valid beam.
+between levels, the hint returned for an instance with no valid matcher
+beam.  The three launches run one kernel body, so K5 equals B separate K1
+calls, and K6 equals K5, bit for bit.
 
-``match_plain`` is the same loop in PyTorch on the bf16-rounded table (the
-ported ``ops/gn.py`` math).  ``match`` runs it for CPU tensors only; for CUDA
+``match_batch_plain`` is the same loop in PyTorch on the bf16-rounded table
+(the ported ``ops/gn.py`` math), batched over the instance axis; it is the
+plain version of K5 and of K6, and ``match_plain`` (K1's) is its one-robot
+case.  Each wrapper runs the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -28,14 +37,18 @@ from . import _build
 from .gn import _gn_coords, _gn_tail
 
 MAX_LEVELS = 4
-MAX_BEAMS = 4096      # 1024 threads x 4 beams each (csrc/match.cu)
+MAX_BEAMS = 4096      # one match: 1024 threads x 4 beams each (csrc/match.cu)
+MAX_THREADS = 1024    # a block's threads: g_pack matches of whole warps each
+G_PACKS = (1, 2, 4, 8)
 
 
 class _MatchParams(ctypes.Structure):
     """``struct MatchParams`` of csrc/match.cu, passed by value."""
 
     _fields_ = [("num_levels", ctypes.c_int), ("n", ctypes.c_int),
-                ("stride", ctypes.c_int),
+                ("stride", ctypes.c_int), ("n_points", ctypes.c_int),
+                ("cells", ctypes.c_int), ("g_pack", ctypes.c_int),
+                ("batch", ctypes.c_int),
                 ("width", ctypes.c_int * MAX_LEVELS),
                 ("offset", ctypes.c_int * MAX_LEVELS),
                 ("iters", ctypes.c_int * MAX_LEVELS),
@@ -54,12 +67,19 @@ def _check_cfg(cfg: HectorConfig) -> None:
                          "is unsupported")
 
 
+def _threads(n: int) -> int:
+    """Threads of one match: one a beam, whole warps, at most a block."""
+    return min(max(-(-n // 32) * 32, 32), MAX_THREADS)
+
+
 @functools.cache
-def _params(cfg: HectorConfig, n: int) -> _MatchParams:
+def _params(cfg: HectorConfig, n_points: int, batch: int,
+            g_pack: int) -> _MatchParams:
     nl = cfg.num_levels
     pad = [0] * (MAX_LEVELS - nl)
     return _MatchParams(
-        nl, n, cfg.match_subsample,
+        nl, -(-n_points // cfg.match_subsample), cfg.match_subsample,
+        n_points, cfg.total_cells, g_pack, batch,
         (ctypes.c_int * MAX_LEVELS)(*cfg.level_sizes, *pad),
         (ctypes.c_int * MAX_LEVELS)(*cfg.level_offsets, *pad),
         (ctypes.c_int * MAX_LEVELS)(*cfg.estimate_iterations[:nl], *pad),
@@ -77,12 +97,23 @@ def _launcher():
     return fn
 
 
+def _launch(what: str, maps, points, valid, hints, cfg: HectorConfig,
+            batch: int, g_pack: int) -> torch.Tensor:
+    out = torch.empty((batch, 6), dtype=torch.float32, device=maps.device)
+    code = _launcher()(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
+                       hints.data_ptr(), out.data_ptr(),
+                       _params(cfg, points.shape[-2], batch, g_pack),
+                       _build.stream_handle(maps.device))
+    _build.raise_on_error(code, what)
+    return out
+
+
 def match(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
           hint: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
-    """Coarse-to-fine match of ``points`` f32[N, 2] / ``valid`` bool[N] in the
-    pyramid ``maps`` f32[total_cells], from ``hint`` f32[3] (world).  Uses
-    every ``cfg.match_subsample``-th beam.  Returns f32[6] on the device of
-    ``maps``; launches nothing the host waits for."""
+    """K1: coarse-to-fine match of ``points`` f32[N, 2] / ``valid`` bool[N]
+    in the pyramid ``maps`` f32[total_cells], from ``hint`` f32[3] (world).
+    Uses every ``cfg.match_subsample``-th beam.  Returns f32[6] on the device
+    of ``maps``; launches nothing the host waits for."""
     _check_cfg(cfg)
     if maps.device.type == "cpu":
         return match_plain(maps, points, valid, hint, cfg)
@@ -94,45 +125,120 @@ def match(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     n = -(-points.shape[0] // cfg.match_subsample)
     if not 1 <= n <= MAX_BEAMS:
         raise ValueError(f"K1 takes 1..{MAX_BEAMS} matcher beams, got {n}")
-    out = torch.empty(6, dtype=torch.float32, device=maps.device)
-    code = _launcher()(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
-                       hint.data_ptr(), out.data_ptr(), _params(cfg, n),
-                       _build.stream_handle(maps.device))
-    _build.raise_on_error(code, "K1 match")
+    out = _launch("K1 match", maps, points, valid, hint, cfg, 1, 1)
     match.launches += 1
-    return out
+    return out.view(6)
 
 
 match.launches = 0
 
 
+def _check_batch(kernel: str, maps: torch.Tensor, points: torch.Tensor,
+                valid: torch.Tensor, hints: torch.Tensor, cfg: HectorConfig,
+                g_pack: int = 1) -> int:
+    """Raise ValueError unless the fleet inputs fit K5 (``g_pack`` 1) or K6:
+    contiguous maps f32[B*C], points f32[B, N, 2], valid bool[B, N], hints
+    f32[B, 3] on one device, ``g_pack`` in G_PACKS dividing B, and g_pack
+    matches of whole warps in one block.  Returns B."""
+    _check_cfg(cfg)
+    if points.dim() != 3:
+        raise ValueError(f"{kernel} points: want [B, N, 2], got "
+                         f"{tuple(points.shape)}")
+    b, n_pts = points.shape[:2]
+    _build.check_tensors(kernel, maps.device, (
+        ("maps", maps, torch.float32, (b * cfg.total_cells,)),
+        ("points", points, torch.float32, (b, n_pts, 2)),
+        ("valid", valid, torch.bool, (b, n_pts)),
+        ("hints", hints, torch.float32, (b, 3))))
+    n = -(-n_pts // cfg.match_subsample)
+    if not 1 <= n <= MAX_BEAMS:
+        raise ValueError(f"{kernel} takes 1..{MAX_BEAMS} matcher beams, got {n}")
+    if g_pack not in G_PACKS or b % g_pack:
+        raise ValueError(f"{kernel} g_pack must be one of {G_PACKS} and divide "
+                         f"B={b}, got {g_pack}")
+    if g_pack * _threads(n) > MAX_THREADS:
+        raise ValueError(f"{kernel}: {g_pack} matches of {_threads(n)} threads "
+                         f"exceed a block's {MAX_THREADS}")
+    return b
+
+
+def match_batch(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
+                hints: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
+    """K5: every instance's match in one launch, one block an instance.
+    ``maps`` f32[B*C] (C = cfg.total_cells), ``points`` f32[B, N, 2],
+    ``valid`` bool[B, N], ``hints`` f32[B, 3] (world).  Returns f32[B, 6]
+    (K1's six numbers per instance) on the device of ``maps``."""
+    b = _check_batch("K5", maps, points, valid, hints, cfg)
+    if maps.device.type == "cpu":
+        return match_batch_plain(maps, points, valid, hints, cfg)
+    out = _launch("K5 match_batch", maps, points, valid, hints, cfg, b, 1)
+    match_batch.launches += 1
+    return out
+
+
+match_batch.launches = 0
+
+
+def match_packed(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
+                 hints: torch.Tensor, cfg: HectorConfig,
+                 g_pack: int = 4) -> torch.Tensor:
+    """K6: ``match_batch`` with ``g_pack`` instances sharing a block, each on
+    its own warps.  Computes the same function as K5, bit for bit; its plain
+    version is ``match_batch_plain``."""
+    b = _check_batch("K6", maps, points, valid, hints, cfg, g_pack)
+    if maps.device.type == "cpu":
+        return match_batch_plain(maps, points, valid, hints, cfg)
+    out = _launch("K6 match_packed", maps, points, valid, hints, cfg, b,
+                  g_pack)
+    match_packed.launches += 1
+    return out
+
+
+match_packed.launches = 0
+
+
 def match_plain(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
                 hint: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
-    """K1's plain PyTorch version: same inputs, same f32[6] output."""
+    """K1's plain version: same inputs, same f32[6] output (the one-robot
+    case of ``match_batch_plain``)."""
+    return match_batch_plain(maps, points[None], valid[None], hint[None],
+                             cfg)[0]
+
+
+def match_batch_plain(maps: torch.Tensor, points: torch.Tensor,
+                      valid: torch.Tensor, hints: torch.Tensor,
+                      cfg: HectorConfig) -> torch.Tensor:
+    """K5's and K6's plain version (``fleet._match_batch``'s semantics,
+    ``slamnet_tpu/models/fleet.py:61-116``): one batched loop over the
+    instance axis, each instance gathering at ``b*C + offset_l + yi*w + xi``
+    of the bf16-rounded flat table.  Returns f32[B, 6]."""
     _check_cfg(cfg)
+    b = points.shape[0]
     sub = cfg.match_subsample
-    X, Y, V = points[::sub, 0], points[::sub, 1], valid[::sub]
+    X, Y, V = points[:, ::sub, 0], points[:, ::sub, 1], valid[:, ::sub]
     table = maps.to(torch.bfloat16).to(torch.float32)
-    zero = torch.zeros((), dtype=torch.float32, device=maps.device)
+    inst = torch.arange(b, device=maps.device)[:, None] * cfg.total_cells
+    zero = torch.zeros(b, dtype=torch.float32, device=maps.device)
     fails, resid, n_in = zero, zero, zero
-    pose = hint
+    pose = hints
     for level in range(cfg.num_levels - 1, -1, -1):
         w = cfg.level_sizes[level]
-        off = cfg.level_offsets[level]
         scale = 1.0 / cfg.level_resolutions[level]
-        tab = table[off:off + w * w]
-        est = torch.stack([pose[0] * scale, pose[1] * scale, pose[2]])
+        row0 = inst + cfg.level_offsets[level]
+        est = torch.stack([pose[:, 0] * scale, pose[:, 1] * scale, pose[:, 2]],
+                          dim=1)
         for _ in range(cfg.estimate_iterations[level]):
             sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
-            base = (yi * w + xi).long()
-            v = torch.sigmoid(tab[torch.stack([base, base + 1, base + w,
-                                               base + w + 1])])
+            base = row0 + (yi * w + xi).long()
+            v = torch.sigmoid(table[torch.stack([base, base + 1, base + w,
+                                                 base + w + 1])])
             est, solve_ok, resid, n_in = _gn_tail(
                 v, mx, my, xi, yi, ok, X, Y, sr, cr, est, cfg.deriv_clamp,
                 cfg.xy_step_clamp_px, cfg.gn_damping)
             fails = fails + (~solve_ok).to(torch.float32)
-        pose = torch.stack([est[0] / scale, est[1] / scale,
-                            normalize_angle(est[2])])
-    # empty scan returns the hint (ScanMatcher.cs:82-83)
-    pose = torch.where(V.any(), pose, hint)
-    return torch.cat([pose, torch.stack([fails, resid, n_in])])
+        pose = torch.stack([est[:, 0] / scale, est[:, 1] / scale,
+                            normalize_angle(est[:, 2])], dim=1)
+    # an instance with no valid matcher beam returns its hint
+    # (ScanMatcher.cs:82-83)
+    pose = torch.where(V.any(dim=1, keepdim=True), pose, hints)
+    return torch.cat([pose, torch.stack([fails, resid, n_in], dim=1)], dim=1)

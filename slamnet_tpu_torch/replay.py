@@ -1,4 +1,4 @@
-"""The slice end to end: make the loop log, bootstrap, replay, score.
+"""The slices end to end: make the loop log, bootstrap, replay, score.
 
 Port of the headline flow of ``bench.py:103-198`` for the ``pallas_dense``
 configuration:
@@ -17,6 +17,20 @@ One difference from ``bench.py``: the bench bootstraps every mode with its
 the slice's own dense config.  ``JAX_REF_ATE_M`` is the JAX package's ATE on
 this same log and flow (``matcher_mode="onehot_bf16"`` + dense fill, the
 selection K1 makes), written by ``scripts/torch_port_ref_ate.py``.
+
+The fleet flow of ``bench.py:435-493`` for ``sub4_pallas_dense``:
+
+  * ``make_fleet_log``: B phase-shifted slices of that log, one a robot;
+  * ``fleet_bootstrap``: each robot's first ``bootstrap`` scans as forced
+    updates with ``match_pose`` set to the true poses (``bench.py:466-475``);
+  * ``models.fleet.replay_fleet``: the remaining batch-scans, each hinted
+    with the previous match pose;
+  * ``fleet_ate_of``: RMS over all instance-scans, max, and the median of
+    the per-instance ATEs (``bench.py:489-493``).
+
+``FLEET_JAX_REF_*`` are the JAX package's fleet (``onehot_bf16``, K5's
+selection in XLA) on the same slices and flow, from
+``scripts/torch_port_ref_ate.py --fleet``.
 """
 from __future__ import annotations
 
@@ -27,7 +41,7 @@ import torch
 
 from .core.config import HectorConfig, SimConfig
 from .core.scan import Scan
-from .models import hector
+from .models import fleet, hector
 from .sim import default_field, revolution_angles, scan_revolution
 from .sim.trajectory import loop_trajectory
 
@@ -43,6 +57,18 @@ NUM_BEAMS = 400
 # mode (context only) gave ate_m 0.002116798423230648.
 JAX_REF_ATE_M = 0.0025219914969056845
 
+FLEET_B = 64
+FLEET_T = 64
+# JAX package fleet (sub4_onehot_dense) on make_fleet_log(make_log(seed=0)),
+# 64 robots, 10 forced + 64 tracked batch-scans, JAX 0.9.0 on the CPU:
+# `python scripts/torch_port_ref_ate.py --fleet` printed
+# "fleet_sub4_onehot_dense": {"ate_m": 0.006292261648923159, "max_err_m":
+# 0.03412262722849846, "ate_median_m": 0.005386218428611755, "map_updates":
+# 183, "solve_failures": 0}.
+FLEET_JAX_REF_ATE_M = 0.006292261648923159
+FLEET_JAX_REF_MAX_M = 0.03412262722849846
+FLEET_JAX_REF_MEDIAN_M = 0.005386218428611755
+
 
 def pallas_dense_config(**overrides) -> HectorConfig:
     """bench.py's headline mode (``bench.py:222-224``): 3-level 400x400
@@ -52,7 +78,20 @@ def pallas_dense_config(**overrides) -> HectorConfig:
                             overrides)
 
 
+def sub4_pallas_dense_config(**overrides) -> HectorConfig:
+    """bench.py's fleet base (``bench.py:453-454``) with the K5 matcher and
+    the dense fill: bench's fleet headline ``sub4_onehot_dense``
+    (``bench.py:500-502``) with ``onehot_bf16`` swapped for ``pallas``, the
+    same selection."""
+    return HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
+                        xy_step_clamp_px=10.0, max_match_jump=1.0,
+                        match_subsample=4, matcher_mode="pallas",
+                        dense_free_fill=True).overlay(overrides)
+
+
 class ScanLog(NamedTuple):
+    """A scan log; a fleet log (``make_fleet_log``) has a robot axis B after
+    the time axis: traj f32[T, B, 3], radii f32[T, B, N], valid bool[T, B, N]."""
     traj: np.ndarray     # f32[T, 3] true poses
     angles: np.ndarray   # f32[N] beam angles (robot frame)
     radii: np.ndarray    # f32[T, N] noisy ranges, 0 where missed
@@ -61,6 +100,7 @@ class ScanLog(NamedTuple):
 
 
 class DeviceLog(NamedTuple):
+    """A ScanLog's clouds on a device (fleet: points f32[T, B, N, 2])."""
     points: torch.Tensor  # f32[T, N, 2] robot-local clouds
     valid: torch.Tensor   # bool[T, N]
     traj: torch.Tensor    # f32[T, 3]
@@ -79,6 +119,20 @@ def make_log(seed: int = 0) -> ScanLog:
                                    torch.from_numpy(angles),
                                    sim.max_scan_dist, sim.measure_error, gen)
     return ScanLog(traj, angles, radii.numpy(), valid.numpy(), BOOTSTRAP)
+
+
+def make_fleet_log(log: ScanLog, b: int = FLEET_B, t: int = FLEET_T) -> ScanLog:
+    """``b`` phase-shifted slices of ``log``, ``log.bootstrap + t`` scans each
+    (``bench.py:452-459``): robot i replays scans ``starts[i]`` onward, with
+    ``starts = linspace(0, total - (t + bootstrap), b)``, so the motion gates
+    of the robots fire out of step."""
+    span = t + log.bootstrap
+    starts = np.linspace(0, log.radii.shape[0] - span, b).astype(int)
+
+    def cut(a):
+        return np.stack([a[s:s + span] for s in starts], axis=1)
+    return ScanLog(cut(log.traj), log.angles, cut(log.radii), cut(log.valid),
+                   log.bootstrap)
 
 
 def to_device(log: ScanLog, device: torch.device | str) -> DeviceLog:
@@ -134,3 +188,27 @@ def ate_of(poses: np.ndarray, truth: np.ndarray) -> Tuple[float, float]:
     pe = np.linalg.norm(np.asarray(poses)[:, :2] - np.asarray(truth)[:, :2],
                         axis=1)
     return float(np.sqrt((pe ** 2).mean())), float(pe.max())
+
+
+def fleet_bootstrap(states: hector.HectorState, dlog: DeviceLog, n: int,
+                    cfg: HectorConfig, plain: bool = False
+                    ) -> hector.HectorState:
+    """Forced map updates for batch-scans 0..n-1 with every robot's
+    ``match_pose`` set to its true pose first (``bench.py:466-475``);
+    ``states.maps`` is updated in place."""
+    for t in range(n):
+        states = states._replace(match_pose=dlog.traj[t].clone())
+        states, _ = fleet.update_fleet(states, dlog.points[t], dlog.valid[t],
+                                       cfg, True, plain)
+    return states
+
+
+def fleet_ate_of(poses: np.ndarray, truth: np.ndarray
+                 ) -> Tuple[float, float, float]:
+    """(RMS over all instance-scans, max, median per-instance ATE) in meters
+    for poses and truth f32[T, B, 3] (``bench.py:489-493``)."""
+    pe = np.linalg.norm(np.asarray(poses)[..., :2] - np.asarray(truth)[..., :2],
+                        axis=-1)
+    inst = np.sqrt((pe ** 2).mean(axis=0))
+    return (float(np.sqrt((pe ** 2).mean())), float(pe.max()),
+            float(np.median(inst)))

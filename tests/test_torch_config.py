@@ -46,7 +46,8 @@ def test_hector_properties_overlay_and_serving_profile():
 def test_import_never_pulls_in_jax():
     # a subprocess: this test process already imported jax (tests/conftest.py)
     code = ("import sys, slamnet_tpu_torch, slamnet_tpu_torch.replay, "
-            "slamnet_tpu_torch.entry, slamnet_tpu_torch.convert; "
+            "slamnet_tpu_torch.entry, slamnet_tpu_torch.convert, "
+            "slamnet_tpu_torch.models.fleet; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
