@@ -7,7 +7,9 @@ Run from the repository root, with no arguments:
 
 Phases, one line each; any failure raises and the exit code is not 0:
   1. device   — a CUDA device is required; its name and power limit;
-  2. build    — nvcc builds csrc/*.cu (K1, K2) into build/;
+  2. build    — nvcc builds csrc/*.cu (match.cu: K1/K3/K5/K6, fill.cu: K2,
+                line.cu: K4), one nvcc a source started together, into
+                build/;
   3. K1       — the match kernel against its plain version on a bootstrapped
                 400x400 pyramid: 3 hints (pose within 2e-3, equal solve
                 failures, residual within rtol 0.05), the guard config
@@ -18,7 +20,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 increments, at most 0.1% of cells per level differing, each
                 by |log_odds_free|; do_update=0 leaves the maps bit for bit;
   5. slice    — the pallas_dense replay of 10 + 512 loop scans through the
-                kernels: one K1 and one K2 call per replayed scan (launch
+                kernels (the 10 bootstrap scans in the fixed config, as the
+                bench does): one K1 and one K2 call per replayed scan (launch
                 counts), ATE <= JAX_REF_ATE_M + 2e-4 and max error <= 0.05 m;
                 scans/s of the kernel path beside the plain path's;
   6. K5       — the fleet match kernel against its plain version on a
@@ -37,7 +40,38 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 batch-scans: one K5 and one batched K2 call per batch-scan
                 (74 each, no K1 or single K2), RMS / max / median-instance
                 ATE within FLEET_JAX_REF_* + 5e-4 / 0.01 / 2e-4;
-                instance-scans/s of the kernel path beside the plain path's.
+                instance-scans/s of the kernel path beside the plain path's;
+ 10. K3       — the f32-table match against its plain version on a fixed-mode
+                400x400 pyramid: 3 hints and the guard config (pose within
+                K3_POSE_TOL 1e-5, equal solve failures, residual within
+                K3_RESID_RTOL 1e-5), and K1 on the same inputs outside the
+                residual bound in at least one of them (so a kernel reading
+                the bf16 table fails), an
+                empty scan (returns the hint), and a scan whose valid beams
+                all fall between the subsampled ones (match_subsample 4,
+                heading 4.0): the XLA modes' full-scan rule gives the wrapped
+                GN estimate, equal to the plain version bit for bit, where
+                K1's rule returns the hint; the batched K3 on the 64-robot
+                sub1 fleet equals 64 K3 calls bit for bit, its plain version
+                within the same tolerances, and K5 on the same inputs outside
+                the residual bound on some robot of each case;
+ 11. K4       — the line update against its plain version on all 3 levels of
+                the fixed-mode map and of random maps, bit for bit;
+                do_update=0 leaves the maps bit for bit; marks all zero after
+                every call; the batched K4 on the fleet's and random maps,
+                fire masks all / none / ~1 in 18, bit for bit, non-firing
+                robots untouched;
+ 12. fixed    — the fixed replay of 10 + 512 loop scans: one K3 and one K4
+                call per replayed scan (no K1, no K2), ATE <=
+                JAX_FIXED_REF_ATE_M + 1e-4 (bench.py:256's slack) and max
+                error <= 0.05 m; scans/s beside the plain path; the bench's
+                relative gate (pallas_dense ATE <= fixed ATE + 1e-4) printed
+                for the port and for JAX, as information;
+ 13. sub1     — the 64-robot sub1 fleet (gather + line updates, subsample 1),
+                10 + 64 batch-scans: one batched K3 and one batched K4 call a
+                batch-scan (74 each, no K5, no batched K2), RMS / max /
+                median-instance ATE within FLEET_SUB1_JAX_REF_* + 5e-4 / 0.01
+                / 2e-4; instance-scans/s beside the plain path (best of 1).
 Then one JSON line of kernel measurements, and last the result line.
 """
 import json
@@ -50,6 +84,13 @@ REPS_PLAIN = 20
 TIMED_REPLAYS = 3
 G_PACKS = (1, 2, 4, 8)
 K6_G_REPORTED = 4     # the g_pack of K6's entry in the kernels line
+# K3 vs its plain version: the f32 table leaves only the order of the beam
+# sums, 1 ulp of a 20 m coordinate in pose (1.9e-6 measured on the H100) and
+# 3.6e-7 of the residual.  K1's bf16 table moved the same match's pose by only
+# 2 ulp (3.8e-6) but its residual by 8.7e-5, so the residual bound is the one
+# that tells the tables apart; the phase checks that it does on its own inputs
+K3_POSE_TOL = 1e-5
+K3_RESID_RTOL = 1e-5
 
 
 def say(msg: str) -> None:
@@ -59,6 +100,23 @@ def say(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def k3_readings(out, plain, bf16):
+    """K3's f32[B, 6] outputs against its plain version's and against the
+    bf16 table's (K1/K5) on the same inputs: max |pose err|, max residual
+    relative error, max |pose diff| and max residual relative diff (the
+    residual is resid_sum / max(n_in, 1), as the JAX stats give it)."""
+    import numpy as np
+
+    def resid(o):
+        return o[:, 4] / np.maximum(o[:, 5], 1.0)
+
+    def rel(a, b):
+        return float((np.abs(resid(a) - resid(b))
+                      / np.maximum(np.abs(resid(b)), 1e-30)).max())
+    return (float(np.abs(out[:, :3] - plain[:, :3]).max()), rel(out, plain),
+            float(np.abs(out[:, :3] - bf16[:, :3]).max()), rel(out, bf16))
 
 
 def _events_ms(torch, run, reps: int) -> float:
@@ -115,6 +173,7 @@ def main() -> int:
     from slamnet_tpu_torch.core.scan import Scan
     from slamnet_tpu_torch.models import fleet, hector
     from slamnet_tpu_torch.ops import _build, fill, match
+    from slamnet_tpu_torch.ops import line as line_ops
     from slamnet_tpu_torch.sim import default_field, revolution_angles
     from slamnet_tpu_torch.sim import scan_revolution
 
@@ -565,6 +624,388 @@ def main() -> int:
     check(fmed <= replay.FLEET_JAX_REF_MEDIAN_M + 2e-4,
           f"fleet median instance ATE {fmed} above FLEET_JAX_REF_MEDIAN_M + 2e-4")
 
+    # ---- 10. K3 vs its plain version; the batched K3 vs 64 K3 calls --------
+    xcfg = replay.fixed_config()
+    xstate = hector.init(xcfg, truth, dev)
+    for _ in range(6):
+        xstate, _ = hector.update(xstate, sim_scan(truth), truth, xcfg, True)
+    xscan = sim_scan(truth)
+    xmaps = xstate.maps
+    k3_before = match.match.launches_f32
+    k3_calls = 0
+    k3_err = k3_res = k3_gap = k3_res_gap = 0.0
+    k3_cases = [(xcfg, (0.2, -0.15, 0.04)), (xcfg, (-0.1, 0.12, -0.03)),
+                (xcfg, (0.05, 0.2, 0.06)),
+                (xcfg.overlay({"xy_step_clamp_px": 10.0, "gn_damping": 0.1,
+                               "match_subsample": 4}), (0.15, 0.1, -0.03))]
+    for i, (c, off) in enumerate(k3_cases):
+        hint = truth + torch.tensor(off, device=dev)
+        ok_ = match.match(xmaps, xscan.points, xscan.valid, hint, c)
+        k3_calls += 1
+        op = match.match_plain(xmaps, xscan.points, xscan.valid, hint, c)
+        # K1 on the same input: what K3 would return through the bf16 table
+        o1 = match.match(xmaps, xscan.points, xscan.valid, hint,
+                         c.overlay({"matcher_mode": "pallas"}))
+        ok_, op, o1 = ok_.cpu().numpy(), op.cpu().numpy(), o1.cpu().numpy()
+        err, res, gap, res_gap = k3_readings(ok_[None], op[None], o1[None])
+        k3_err, k3_res = max(k3_err, err), max(k3_res, res)
+        k3_gap, k3_res_gap = max(k3_gap, gap), max(k3_res_gap, res_gap)
+        say(f"[K3] case {i}: vs plain |pose err| {err:.3g}, residual rel err "
+            f"{res:.3g}; vs K1 (bf16 table) |pose diff| {gap:.3g}, residual "
+            f"rel diff {res_gap:.3g}")
+        check(np.isfinite(ok_).all(), f"K3 output not finite: {ok_}")
+        check(err <= K3_POSE_TOL,
+              f"K3 pose {ok_[:3]} vs plain {op[:3]} (tol {K3_POSE_TOL})")
+        check(res <= K3_RESID_RTOL, f"K3 residual rel err {res} vs plain "
+              f"(rtol {K3_RESID_RTOL})")
+        check(ok_[3] == op[3], f"K3 solve failures {ok_[3]} vs plain {op[3]}")
+        check(np.linalg.norm(ok_[:2] - truth[:2].cpu().numpy()) < 0.08,
+              f"K3 did not converge to the true pose: {ok_[:3]}")
+    # a K3 that read the bf16 table would give K1's answers: some case must
+    # put them outside the bounds K3 is held to
+    check(k3_res_gap > K3_RESID_RTOL,
+          f"K1's residuals within rtol {K3_RESID_RTOL} of K3's in every case "
+          f"(max {k3_res_gap}): the check cannot tell the f32 table from bf16")
+    hint = torch.tensor([20.0, 20.0, 0.5], device=dev)
+    oe = match.match(xmaps, xscan.points, empty, hint, xcfg)
+    k3_calls += 1
+    check(torch.equal(oe[:3], hint), f"K3 empty scan: {oe[:3]} != hint {hint}")
+    # valid beams only between the subsampled ones: the XLA modes' rule (the
+    # full scan has valid beams) gives the GN estimate with its heading
+    # wrapped; K1's rule (no valid matcher beam) gives the hint
+    between = xscan.valid & (torch.arange(400, device=dev) % 4 != 0)
+    hint4 = torch.tensor([20.0, 20.0, 4.0], device=dev)
+    x4 = xcfg.overlay({"match_subsample": 4})
+    o4 = match.match(xmaps, xscan.points, between, hint4, x4)
+    k3_calls += 1
+    p4 = match.match_plain(xmaps, xscan.points, between, hint4, x4)
+    check(torch.equal(o4, p4), f"K3 between-beams scan {o4.tolist()} != plain "
+          f"{p4.tolist()}")
+    check(abs(float(o4[2]) - (4.0 - 2 * np.pi)) < 1e-5
+          and float((o4[:2] - hint4[:2]).abs().max()) < 1e-5
+          and float(o4[3]) == 15.0,
+          f"K3 between-beams scan: {o4.tolist()}, want the hint with heading "
+          "4 - 2 pi and 15 failed solves")
+    o4k1 = match.match(xmaps, xscan.points, between, hint4,
+                       x4.overlay({"matcher_mode": "pallas"}))
+    check(torch.equal(o4k1[:3], hint4),
+          f"K1 between-beams scan {o4k1[:3].tolist()} != hint")
+    torch.cuda.synchronize()
+    check(match.match.launches_f32 - k3_before == k3_calls,
+          f"K3 launch count rose by {match.match.launches_f32 - k3_before}, "
+          f"expected {k3_calls}")
+    hint = truth + torch.tensor((0.2, -0.15, 0.04), device=dev)
+
+    def k3():
+        return match.match(xmaps, xscan.points, xscan.valid, hint, xcfg)
+
+    def k3_plain():
+        return match.match_plain(xmaps, xscan.points, xscan.valid, hint, xcfg)
+
+    k3_ms = graph_ms(torch, k3, REPS_KERNEL)
+    k3_plain_ms = graph_ms(torch, k3_plain, REPS_PLAIN)
+    k3_eager = eager_ms(torch, k3, REPS_KERNEL)
+    k3_plain_eager = eager_ms(torch, k3_plain, REPS_PLAIN)
+
+    scfg = replay.sub1_config()
+    t0 = time.perf_counter()
+    sst0 = replay.fleet_bootstrap(fleet.init_fleet(scfg, flog.traj[0], dev),
+                                  fdlog, boot, scfg)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    smaps = sst0.maps
+    k3b_err = k3b_res = 0.0
+    k3b_before = match.match_batch.launches_f32
+    for c, off in ((scfg, (0.2, -0.15, 0.04)), (scfg, (-0.1, 0.12, -0.03)),
+                   (scfg.overlay({"gn_damping": 0.1}), (0.15, 0.1, -0.03))):
+        hints = (ftruth + torch.tensor(off, device=dev)).contiguous()
+        ok_ = match.match_batch(smaps, fpts, fval, hints, c)
+        op = match.match_batch_plain(smaps, fpts, fval, hints, c)
+        o5 = match.match_batch(smaps, fpts, fval, hints,
+                               c.overlay({"matcher_mode": "pallas"}))   # K5
+        for b in range(fb):       # each instance against a K3 call of its own
+            o1 = match.match(smaps[b * cells:(b + 1) * cells], fpts[b],
+                             fval[b], hints[b], c)
+            check(torch.equal(o1, ok_[b]),
+                  f"batched K3 instance {b} {ok_[b].tolist()} != K3 "
+                  f"{o1.tolist()}")
+        k, pl = ok_.cpu().numpy(), op.cpu().numpy()
+        err, res, gap, res_gap = k3_readings(k, pl, o5.cpu().numpy())
+        k3b_err, k3b_res = max(k3b_err, err), max(k3b_res, res)
+        say(f"[K3 batch] {off}: vs plain max |pose err| {err:.3g}, residual "
+            f"rel err {res:.3g}; vs K5 (bf16 table) max |pose diff| {gap:.3g}, "
+            f"residual rel diff {res_gap:.3g}")
+        check(np.isfinite(k).all(), "batched K3 output not finite")
+        check(err <= K3_POSE_TOL,
+              f"batched K3 pose vs plain: max diff {err} (tol {K3_POSE_TOL})")
+        check(res <= K3_RESID_RTOL, f"batched K3 residual rel err {res} vs "
+              f"plain (rtol {K3_RESID_RTOL})")
+        check(res_gap > K3_RESID_RTOL,
+              f"K5's residuals within rtol {K3_RESID_RTOL} of the batched K3's "
+              f"on every robot (max {res_gap}): the check cannot tell the f32 "
+              "table from bf16")
+        check((k[:, 3] == pl[:, 3]).all(),
+              f"batched K3 solve failures {k[:, 3]} vs plain {pl[:, 3]}")
+        check(torch.equal(ok_[empty_inst, :3], hints[empty_inst]),
+              f"batched K3 empty instance {ok_[empty_inst, :3]} != hint")
+        dist = np.linalg.norm(k[:, :2] - ftruth[:, :2].cpu().numpy(), axis=1)
+        check(float(np.median(dist)) < 0.05, "batched K3 did not converge: "
+              f"median distance to truth {np.median(dist)}")
+    torch.cuda.synchronize()
+    check(match.match_batch.launches_f32 - k3b_before == 3,
+          "batched K3 launch count")
+    shints = (ftruth + torch.tensor((0.2, -0.15, 0.04), device=dev)).contiguous()
+
+    def k3b():
+        return match.match_batch(smaps, fpts, fval, shints, scfg)
+
+    def k3b_plain():
+        return match.match_batch_plain(smaps, fpts, fval, shints, scfg)
+
+    k3b_ms = graph_ms(torch, k3b, REPS_KERNEL)
+    k3b_plain_ms = graph_ms(torch, k3b_plain, REPS_PLAIN)
+    say(f"[K3] {len(k3_cases)} matches + empty scan + between-beams scan "
+        f"agree with the plain version: max |pose err| {k3_err:.3g} (tol "
+        f"{K3_POSE_TOL}), equal solve failures, max residual rel err "
+        f"{k3_res:.3g} (rtol {K3_RESID_RTOL}); K1's bf16-table answers "
+        f"differ by up to {k3_gap:.3g} in pose and {k3_res_gap:.3g} in "
+        f"residual; the "
+        f"between-beams scan (subsample 4, heading 4.0) gives "
+        f"{[round(float(x), 6) for x in o4[:3]]}, the plain version's bit for "
+        f"bit, and K1's rule the hint; device {k3_ms:.4f} ms/match vs plain "
+        f"{k3_plain_ms:.4f} ms (CUDA graph; K1 {k1_ms:.4f}); eager "
+        f"{k3_eager:.4f} ms vs plain {k3_plain_eager:.4f} ms")
+    say(f"[K3 batch] sub1 fleet of {fb} robots bootstrapped ({boot} "
+        f"batch-scans, {boot_s:.1f} s); 3 x {fb} matches (robot {empty_inst} "
+        f"with no valid beam returns its hint) equal {fb} K3 calls bit for "
+        f"bit and the plain version within max |pose err| {k3b_err:.3g} "
+        f"(tol {K3_POSE_TOL}) and residual rel err {k3b_res:.3g} (rtol "
+        f"{K3_RESID_RTOL}), K5's residuals outside the bound in each case; "
+        f"device {k3b_ms:.4f} ms/batch vs plain {k3b_plain_ms:.4f} ms (CUDA "
+        f"graph; K5 {k5_ms:.4f})")
+
+    # ---- 11. K4 and the batched K4 vs their plain versions ----------------
+    k4_before = (line_ops.update_maps_line.launches,
+                 line_ops.update_maps_line_batch.launches)
+    k4_err = 0.0
+    k4_cells = {}
+    for name, base in (("fixed-mode", xmaps), ("random", rand_maps)):
+        marks = torch.zeros(xcfg.total_cells, dtype=torch.uint8, device=dev)
+        mk = base.clone()
+        line_ops.update_maps_line(mk, marks, k2_scan.points, k2_scan.valid, pose,
+                              zero3, yes, xcfg)
+        mp = line_ops.update_maps_line_plain(base, k2_scan.points, k2_scan.valid,
+                                         pose, zero3, yes, xcfg)
+        check(int(marks.sum()) == 0, f"K4 {name}: marks not cleared")
+        check(bool(torch.isfinite(mk).all()), f"K4 {name}: maps not finite")
+        for level in range(xcfg.num_levels):
+            off, w = xcfg.level_offsets[level], xcfg.level_sizes[level]
+            sl = slice(off, off + w * w)
+            check(torch.equal(mk[sl], mp[sl]),
+                  f"K4 {name} level {level}: {int((mk[sl] != mp[sl]).sum())} "
+                  "cells differ from the plain version")
+            d = mk[sl] - base[sl]
+            check(bool((d < 0).any()) and bool((d > 0).any()),
+                  f"K4 {name} level {level}: no free or no occupied cell")
+        k4_cells[name] = int((mk != base).sum())
+        k4_err = max(k4_err, float((mk - mp).abs().max()))
+        mz = base.clone()
+        line_ops.update_maps_line(mz, marks, k2_scan.points, k2_scan.valid, pose,
+                              zero3, no, xcfg)
+        check(torch.equal(mz, base), f"K4 {name}: do_update=0 changed the maps")
+        check(int(marks.sum()) == 0, f"K4 {name}: marks not zero (gated)")
+    srand = torch.as_tensor(np.random.default_rng(2).uniform(
+        -8.0, 60.0, fb * cells).astype(np.float32), device=dev)
+    k4b_err = 0.0
+    for name, base in (("fleet", smaps), ("random", srand)):
+        b2 = base.view(fb, cells)
+        for mname, m in masks.items():
+            fire = torch.as_tensor(m, device=dev)
+            marks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
+            mk = base.clone()
+            line_ops.update_maps_line_batch(mk, marks, fpts_all, fval_all, fposes,
+                                        fzero, fire, scfg)
+            mp = line_ops.update_maps_line_batch_plain(base, fpts_all, fval_all,
+                                                   fposes, fzero, fire, scfg)
+            what = f"K4 batch {name}/{mname}"
+            check(int(marks.sum()) == 0, f"{what}: marks not cleared")
+            check(torch.equal(mk, mp), f"{what}: "
+                  f"{int((mk != mp).sum())} cells differ from the plain version")
+            mk2 = mk.view(fb, cells)
+            check(torch.equal(mk2[~fire], b2[~fire]),
+                  f"{what}: a non-firing robot's maps changed")
+            if bool(fire.any()):
+                check(bool((mk2[fire] != b2[fire]).any(dim=1).all()),
+                      f"{what}: a firing robot's maps did not change")
+            k4b_err = max(k4b_err, float((mk - mp).abs().max()))
+    torch.cuda.synchronize()
+    k4_calls = (line_ops.update_maps_line.launches - k4_before[0],
+                line_ops.update_maps_line_batch.launches - k4_before[1])
+    check(k4_calls == (4, 6), f"K4 launch counts {k4_calls}, want (4, 6)")
+    marks = torch.zeros(xcfg.total_cells, dtype=torch.uint8, device=dev)
+    mt = xmaps.clone()
+    k4_ms, k4_plain_ms = {}, {}
+    for gname, gate in (("fire", yes), ("gated", no)):
+        k4_ms[gname] = graph_ms(torch, lambda gate=gate: line_ops.update_maps_line(
+            mt, marks, k2_scan.points, k2_scan.valid, pose, zero3, gate, xcfg),
+            REPS_KERNEL)
+        k4_plain_ms[gname] = graph_ms(
+            torch, lambda gate=gate: line_ops.update_maps_line_plain(
+                mt, k2_scan.points, k2_scan.valid, pose, zero3, gate, xcfg),
+            REPS_PLAIN)
+    k4_eager = eager_ms(torch, lambda: line_ops.update_maps_line(
+        mt, marks, k2_scan.points, k2_scan.valid, pose, zero3, yes, xcfg),
+        REPS_KERNEL)
+    fmarks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
+    smt = smaps.clone()
+    k4b_ms, k4b_plain_ms = {}, {}
+    for mname in ("1-in-18", "all"):
+        fire = torch.as_tensor(masks[mname], device=dev)
+        k4b_ms[mname] = graph_ms(
+            torch, lambda fire=fire: line_ops.update_maps_line_batch(
+                smt, fmarks, fpts_all, fval_all, fposes, fzero, fire, scfg),
+            REPS_KERNEL)
+        k4b_plain_ms[mname] = graph_ms(
+            torch, lambda fire=fire: line_ops.update_maps_line_batch_plain(
+                smt, fpts_all, fval_all, fposes, fzero, fire, scfg), REPS_PLAIN)
+    say(f"[K4] 3 levels x (fixed-mode, random) equal the plain version bit "
+        f"for bit ({k4_cells} cells changed), do_update=0 bit-exact, marks "
+        f"cleared; device {k4_ms['fire']:.4f} ms/scan firing, "
+        f"{k4_ms['gated']:.4f} gated vs plain {k4_plain_ms['fire']:.4f} / "
+        f"{k4_plain_ms['gated']:.4f} ms (CUDA graph; K2 {k2_ms:.4f}); eager "
+        f"firing {k4_eager:.4f} ms")
+    say(f"[K4 batch] {fb} robots x (fleet, random) x fire masks {list(masks)} "
+        f"equal the plain version bit for bit, non-firing robots untouched, "
+        f"marks cleared; device ms/batch-scan (CUDA graph) 1-in-18 "
+        f"{k4b_ms['1-in-18']:.4f} vs plain {k4b_plain_ms['1-in-18']:.4f}, all "
+        f"{k4b_ms['all']:.4f} vs plain {k4b_plain_ms['all']:.4f}")
+
+    # ---- 12. the fixed replay end to end ------------------------------------
+    counted = {"match": match.match, "fill": fill.update_maps,
+               "line": line_ops.update_maps_line,
+               "match_batch": match.match_batch,
+               "match_packed": match.match_packed,
+               "fill_batch": fill.update_maps_batch,
+               "line_batch": line_ops.update_maps_line_batch}
+
+    def zero_counts():
+        for f in counted.values():
+            f.launches = 0
+        match.match.launches_f32 = 0
+        match.match_batch.launches_f32 = 0
+
+    def read_counts():
+        got = {k: f.launches for k, f in counted.items()}
+        got["match_f32"] = match.match.launches_f32
+        got["match_batch_f32"] = match.match_batch.launches_f32
+        return got
+
+    xst0 = replay.bootstrap(hector.init(xcfg, log.traj[0], dev), dlog,
+                            log.bootstrap, xcfg)
+    zero_counts()
+    xstf, xout = replay.replay(xst0, dlog, log.bootstrap, xcfg)
+    torch.cuda.synchronize()
+    xlaunch = read_counts()
+    want = dict.fromkeys(xlaunch, 0)
+    want.update(match_f32=n, line=n)
+    check(xlaunch == want, f"launches in the fixed replay: {xlaunch}, want {want}")
+    xposes = xout.poses.cpu().numpy()
+    check(xposes.shape == (n, 3) and np.isfinite(xposes).all(),
+          f"fixed replay poses: shape {xposes.shape}, finite "
+          f"{np.isfinite(xposes).all()}")
+    check(bool(torch.isfinite(xstf.maps).all()), "fixed replay maps not finite")
+    xate, xmax = replay.ate_of(xposes, log.traj[log.bootstrap:])
+    xupdates = int(xout.map_updated.sum())
+    xfails = int(xout.solve_failures.sum())
+
+    def best_fixed(plain: bool) -> float:
+        replay.replay(xst0, dlog, log.bootstrap, xcfg, plain)   # warm-up
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(TIMED_REPLAYS):
+            t = time.perf_counter()
+            replay.replay(xst0, dlog, log.bootstrap, xcfg, plain)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    tx_kernel = best_fixed(False)
+    tx_plain = best_fixed(True)
+    _, xout_p = replay.replay(xst0, dlog, log.bootstrap, xcfg, plain=True)
+    xate_p, xmax_p = replay.ate_of(xout_p.poses.cpu().numpy(),
+                                   log.traj[log.bootstrap:])
+    nonzero = {k: v for k, v in xlaunch.items() if v}
+    say(f"[fixed] fixed replay of {n} scans: ATE {xate:.6f} m (JAX ref "
+        f"{replay.JAX_FIXED_REF_ATE_M:.6f}, gate +1e-4), max err {xmax:.4f} m, "
+        f"map updates {xupdates}, solve failures {xfails}, launches "
+        f"{nonzero} (all others 0); kernels {n / tx_kernel:.1f} scans/s vs "
+        f"plain {n / tx_plain:.1f} scans/s (plain ATE {xate_p:.6f}, max "
+        f"{xmax_p:.4f})")
+    port_gate = ate <= xate + 1e-4
+    jax_gate = replay.JAX_REF_ATE_M <= replay.JAX_FIXED_REF_ATE_M + 1e-4
+    say(f"[fixed] bench.py:256's gate, information only: pallas_dense ATE <= "
+        f"fixed ATE + 1e-4 — port {ate:.6f} vs {xate + 1e-4:.6f} "
+        f"({'holds' if port_gate else 'fails'}); JAX "
+        f"{replay.JAX_REF_ATE_M:.6f} vs {replay.JAX_FIXED_REF_ATE_M + 1e-4:.6f} "
+        f"({'holds' if jax_gate else 'fails'})")
+    check(xate <= replay.JAX_FIXED_REF_ATE_M + 1e-4,
+          f"fixed ATE {xate} above JAX_FIXED_REF_ATE_M + 1e-4")
+    check(xmax <= 0.05, f"fixed max error {xmax} m above 0.05 m")
+
+    # ---- 13. the sub1 fleet end to end -------------------------------------
+    zero_counts()
+    sst = replay.fleet_bootstrap(fleet.init_fleet(scfg, flog.traj[0], dev),
+                                 fdlog, boot, scfg)
+    sstf, sout = fleet.replay_fleet(sst, fdlog.points[boot:],
+                                    fdlog.valid[boot:], scfg)
+    torch.cuda.synchronize()
+    slaunch = read_counts()
+    want = dict.fromkeys(slaunch, 0)
+    want.update(match_batch_f32=nb, line_batch=nb)
+    check(slaunch == want, f"launches in the sub1 fleet flow: {slaunch}, want "
+          f"{want}")
+    sposes = sout.cpu().numpy()
+    check(sposes.shape == (nt, fb, 3) and np.isfinite(sposes).all(),
+          f"sub1 poses: shape {sposes.shape}, finite {np.isfinite(sposes).all()}")
+    check(bool(torch.isfinite(sstf.maps).all()), "sub1 maps not finite")
+    sate, smax, smed = replay.fleet_ate_of(sposes, flog.traj[boot:])
+
+    def best_sub1(plain: bool, reps: int) -> float:
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            fleet.replay_fleet(sst, fdlog.points[boot:], fdlog.valid[boot:],
+                               scfg, plain)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    fleet.replay_fleet(sst, fdlog.points[boot:], fdlog.valid[boot:], scfg)
+    torch.cuda.synchronize()                                    # warm-up
+    ts_kernel = best_sub1(False, TIMED_REPLAYS)
+    ts_plain = best_sub1(True, 1)
+    _, spl = fleet.replay_fleet(sst, fdlog.points[boot:], fdlog.valid[boot:],
+                                scfg, plain=True)
+    spate, spmax, spmed = replay.fleet_ate_of(spl.cpu().numpy(),
+                                              flog.traj[boot:])
+    nonzero = {k: v for k, v in slaunch.items() if v}
+    say(f"[sub1] sub1 fleet, {fb} robots x ({boot} + {nt}) batch-scans: RMS "
+        f"ATE {sate:.6f} m (JAX ref {replay.FLEET_SUB1_JAX_REF_ATE_M:.6f}, gate "
+        f"+5e-4), max err {smax:.4f} m (ref "
+        f"{replay.FLEET_SUB1_JAX_REF_MAX_M:.4f}, gate +0.01), median instance "
+        f"ATE {smed:.6f} m (ref {replay.FLEET_SUB1_JAX_REF_MEDIAN_M:.6f}, gate "
+        f"+2e-4); launches {nonzero} (all others 0); kernels "
+        f"{iscans / ts_kernel:.1f} instance-scans/s (best of {TIMED_REPLAYS}) "
+        f"vs plain {iscans / ts_plain:.1f} (best of 1; plain ATE {spate:.6f}, "
+        f"max {spmax:.4f}, median {spmed:.6f})")
+    check(sate <= replay.FLEET_SUB1_JAX_REF_ATE_M + 5e-4,
+          f"sub1 ATE {sate} above FLEET_SUB1_JAX_REF_ATE_M + 5e-4")
+    check(smax <= replay.FLEET_SUB1_JAX_REF_MAX_M + 0.01,
+          f"sub1 max error {smax} above FLEET_SUB1_JAX_REF_MAX_M + 0.01")
+    check(smed <= replay.FLEET_SUB1_JAX_REF_MEDIAN_M + 2e-4,
+          f"sub1 median instance ATE {smed} above FLEET_SUB1_JAX_REF_MEDIAN_M "
+          "+ 2e-4")
+
     print(json.dumps({"kernels": [
         {"name": "match", "route": "cuda",
          "source": "slamnet_tpu_torch/csrc/match.cu",
@@ -590,7 +1031,27 @@ def main() -> int:
          "source": "slamnet_tpu_torch/csrc/fill.cu",
          "replaces": "slamnet_tpu/ops/pallas_fill.py:86",
          "launches": flaunch["fill_batch"], "max_abs_err": kb_err,
-         "ms": kb_ms["1-in-18"], "plain_ms": kb_plain_ms["1-in-18"]}],
+         "ms": kb_ms["1-in-18"], "plain_ms": kb_plain_ms["1-in-18"]},
+        {"name": "match_f32", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/match.cu",
+         "replaces": "slamnet_tpu/ops/pallas_gn.py:133",
+         "launches": xlaunch["match_f32"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "match_f32_batch", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/match.cu",
+         "replaces": "slamnet_tpu/ops/pallas_gn.py:133",
+         "launches": slaunch["match_batch_f32"], "max_abs_err": k3b_err,
+         "ms": k3b_ms, "plain_ms": k3b_plain_ms},
+        {"name": "line", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/line.cu",
+         "replaces": "slamnet_tpu/ops/pallas_scatter.py:71",
+         "launches": xlaunch["line"], "max_abs_err": k4_err,
+         "ms": k4_ms["fire"], "plain_ms": k4_plain_ms["fire"]},
+        {"name": "line_batch", "route": "cuda",
+         "source": "slamnet_tpu_torch/csrc/line.cu",
+         "replaces": "slamnet_tpu/ops/pallas_scatter.py:71",
+         "launches": slaunch["line_batch"], "max_abs_err": k4b_err,
+         "ms": k4b_ms["1-in-18"], "plain_ms": k4b_plain_ms["1-in-18"]}],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -600,6 +1061,16 @@ def main() -> int:
         "fleet_ate_median_m": fmed, "k6_ms_by_g_pack": k6_ms,
         "fill_batch_all_fire_ms": kb_ms["all"],
         "fill_batch_all_fire_plain_ms": kb_plain_ms["all"],
+        "fixed_replay_scans_per_s": n / tx_kernel,
+        "fixed_replay_plain_scans_per_s": n / tx_plain,
+        "fixed_ate_m": xate, "fixed_max_err_m": xmax,
+        "jax_fixed_ref_ate_m": replay.JAX_FIXED_REF_ATE_M,
+        "sub1_instance_scans_per_s": iscans / ts_kernel,
+        "sub1_plain_instance_scans_per_s": iscans / ts_plain,
+        "sub1_ate_m": sate, "sub1_max_err_m": smax, "sub1_ate_median_m": smed,
+        "line_gated_ms": k4_ms["gated"],
+        "line_batch_all_fire_ms": k4b_ms["all"],
+        "line_batch_all_fire_plain_ms": k4b_plain_ms["all"],
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

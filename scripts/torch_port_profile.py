@@ -6,11 +6,12 @@ without the profiler, then traces one replay with ``torch.profiler`` (CPU +
 CUDA).  Prints one JSON object: wall time per step, the device's busy share of
 the traced replay (the union of its kernels' intervals over the replay's span),
 and the device kernels by total time.  A step is a scan of the single-robot
-``pallas_dense`` replay (512 scans), or with ``--fleet`` a batch-scan of the
-64-robot ``sub4_pallas_dense`` fleet (64 batch-scans after a 10-batch-scan
-bootstrap).
+replay (512 scans after a 10-scan fixed-mode bootstrap; ``--mode``
+``pallas_dense``, the default, or ``fixed``), or with ``--fleet`` a
+batch-scan of the 64-robot fleet (64 batch-scans after a 10-batch-scan
+bootstrap; ``--mode`` ``sub4_pallas_dense``, the default, or ``sub1``).
 
-    python3 scripts/torch_port_profile.py [--fleet] [--out DIR]  # DIR/trace.json
+    python3 scripts/torch_port_profile.py [--fleet] [--mode M] [--out DIR]
 """
 import argparse
 import json
@@ -28,8 +29,13 @@ from slamnet_tpu_torch import replay  # noqa: E402
 from slamnet_tpu_torch.models import fleet, hector  # noqa: E402
 
 
-def _single(dev):
-    cfg = replay.pallas_dense_config()
+SINGLE = {"pallas_dense": replay.pallas_dense_config,
+          "fixed": replay.fixed_config}
+FLEET = {"sub4_pallas_dense": replay.sub4_pallas_dense_config,
+         "sub1": replay.sub1_config}
+
+
+def _single(dev, cfg):
     log = replay.make_log(seed=0)
     dlog = replay.to_device(log, dev)
     st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog,
@@ -38,8 +44,7 @@ def _single(dev):
             lambda: replay.replay(st0, dlog, log.bootstrap, cfg))
 
 
-def _fleet(dev):
-    cfg = replay.sub4_pallas_dense_config()
+def _fleet(dev, cfg):
     flog = replay.make_fleet_log(replay.make_log(seed=0))
     dlog = replay.to_device(flog, dev)
     b = flog.bootstrap
@@ -55,11 +60,19 @@ def main() -> int:
     ap.add_argument("--out", help="directory for the Chrome trace")
     ap.add_argument("--fleet", action="store_true",
                     help="the 64-robot fleet instead of the single robot")
+    ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET}),
+                    help="the configuration (default pallas_dense, or "
+                         "sub4_pallas_dense with --fleet)")
     args = ap.parse_args()
+    modes = FLEET if args.fleet else SINGLE
+    mode = args.mode or next(iter(modes))
+    if mode not in modes:
+        path = "fleet" if args.fleet else "single-robot"
+        ap.error(f"--mode {mode} is not a {path} mode: {sorted(modes)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    n, run = (_fleet if args.fleet else _single)(dev)
+    n, run = (_fleet if args.fleet else _single)(dev, modes[mode]())
     run()                                                  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -93,11 +106,10 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            args.out, "trace_fleet.json" if args.fleet else "trace.json"))
+        prof.export_chrome_trace(os.path.join(args.out, f"trace_{mode}.json"))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "path": "fleet" if args.fleet else "single", "steps": n,
+        "path": "fleet" if args.fleet else "single", "mode": mode, "steps": n,
         "wall_us_per_step": wall / n * 1e6,
         "traced_wall_us_per_step": traced / n * 1e6,
         "device_kernels": len(kernels),

@@ -4,28 +4,31 @@
 The port (``slamnet_tpu_torch``) gates its H100 replay on
 ``replay.JAX_REF_ATE_M``; this script produces that number.  It makes the
 log with ``slamnet_tpu_torch.replay.make_log(seed)`` (the port's simulator,
-on the CPU) and runs the JAX package over it with the port's flow: a 10-scan
-forced bootstrap at the true poses in the mode's own config, then 512 scans
-each hinted with the previous match pose.
+on the CPU) and runs the JAX package over it with the bench's flow
+(``bench.py:147-172``): a 10-scan forced bootstrap at the true poses in the
+``fixed`` config whatever the mode, then 512 scans each hinted with the
+previous match pose.
 
 Modes (single robot):
+  * ``fixed``: the reference-exact gather matcher with line updates.  Its
+    ATE is ``JAX_FIXED_REF_ATE_M``.
   * ``onehot_bf16_dense``: ``matcher_mode="onehot_bf16"``,
     ``dense_free_fill=True``, fixed 7/4/4 iterations — the same bf16 table
     selection K1 makes, and the port's dense fill.  Its ATE is
     ``JAX_REF_ATE_M``.
-  * ``fixed``: the reference-exact gather matcher with line updates, for
-    context only.
 
 ``--fleet`` runs the fleet instead: ``fleet.update_fleet`` over
 ``make_fleet_log``'s 64 phase-shifted slices of the same log, with bench's
 flow (``bench.py:462-493``: 10 forced batch-scans with ``match_pose`` set to
-the true poses, then 64 tracked ones) in ``sub4_onehot_dense``, the bench's
-fleet headline: K5's bf16 selection in XLA.  Its RMS, max and median
-instance ATE are ``replay.FLEET_JAX_REF_*``.
+the true poses in the mode's own config, then 64 tracked ones).  ``--mode``
+picks the bench's fleet mode: ``sub4_onehot_dense`` (the headline, K5's
+bf16 selection in XLA; ``replay.FLEET_JAX_REF_*``) or ``sub1`` (the accuracy
+anchor, gather + line updates; ``replay.FLEET_SUB1_JAX_REF_*``): its RMS,
+max and median instance ATE.
 
 Runs on the CPU (a few minutes); prints one JSON object.
 
-    python scripts/torch_port_ref_ate.py [--seed 0] [--fleet]
+    python scripts/torch_port_ref_ate.py [--seed 0] [--fleet [--mode sub1]]
 """
 import argparse
 import json
@@ -47,11 +50,15 @@ from slamnet_tpu.core import HectorConfig  # noqa: E402
 from slamnet_tpu.core.scan import Scan  # noqa: E402
 from slamnet_tpu.models import fleet, hector  # noqa: E402
 from slamnet_tpu_torch.replay import (ate_of, fleet_ate_of,  # noqa: E402
-                                      make_fleet_log, make_log,
+                                      make_fleet_log, make_log, sub1_config,
                                       sub4_pallas_dense_config)
 
+FLEET_FIELDS = ("num_levels", "estimate_iterations", "xy_step_clamp_px",
+                "max_match_jump", "match_subsample", "dense_free_fill",
+                "matcher_mode")
 
-def run_mode(cfg, log):
+
+def run_mode(cfg, boot_cfg, log):
     angles = jnp.asarray(log.angles)
     radii = jnp.asarray(log.radii)
     valids = jnp.asarray(log.valid)
@@ -66,7 +73,7 @@ def run_mode(cfg, log):
     def boot(state, radii, valids, poses):
         def body(st, inp):
             r, v, p = inp
-            st, _ = hector.update(st, cloud(r, v), p, cfg,
+            st, _ = hector.update(st, cloud(r, v), p, boot_cfg,
                                   map_without_matching=jnp.asarray(True))
             return st, None
         return jax.lax.scan(body, state, (radii, valids, poses))[0]
@@ -128,6 +135,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fleet", action="store_true",
                     help="the 64-robot fleet instead of the single robot")
+    ap.add_argument("--mode", choices=("sub4_onehot_dense", "sub1"),
+                    default="sub4_onehot_dense", help="the fleet's mode")
     args = ap.parse_args()
     log = make_log(seed=args.seed)
     base = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4))
@@ -136,24 +145,23 @@ def main():
            "device": str(jax.devices()[0])}
     if args.fleet:
         flog = make_fleet_log(log)
-        cfg = HectorConfig(**{
-            f: getattr(sub4_pallas_dense_config(), f)
-            for f in ("num_levels", "estimate_iterations", "xy_step_clamp_px",
-                      "max_match_jump", "match_subsample", "dense_free_fill")},
-            matcher_mode="onehot_bf16")
+        port_cfg = (sub1_config() if args.mode == "sub1" else
+                    sub4_pallas_dense_config(matcher_mode="onehot_bf16"))
+        cfg = HectorConfig(**{f: getattr(port_cfg, f) for f in FLEET_FIELDS})
         out["robots"], out["n_batch_scans"] = flog.radii.shape[1], \
             flog.radii.shape[0] - flog.bootstrap
+        name = f"fleet_{args.mode}"
         t0 = time.time()
-        out["fleet_sub4_onehot_dense"] = run_fleet(cfg, flog)
-        out["fleet_sub4_onehot_dense"]["seconds"] = round(time.time() - t0, 1)
+        out[name] = run_fleet(cfg, flog)
+        out[name]["seconds"] = round(time.time() - t0, 1)
         print(json.dumps(out))
         return
-    for name, cfg in (("onehot_bf16_dense",
+    for name, cfg in (("fixed", base),
+                      ("onehot_bf16_dense",
                        base.overlay({"matcher_mode": "onehot_bf16",
-                                     "dense_free_fill": True})),
-                      ("fixed", base)):
+                                     "dense_free_fill": True}))):
         t0 = time.time()
-        out[name] = run_mode(cfg, log)
+        out[name] = run_mode(cfg, base, log)
         out[name]["seconds"] = round(time.time() - t0, 1)
     print(json.dumps(out))
 

@@ -1,14 +1,26 @@
-// K1, K5 and K6: the whole coarse-to-fine Hector Gauss-Newton match in one
-// launch, for one robot (K1), for B robots with one block each (K5), or for
-// B robots packed g_pack to a block (K6).  One kernel body serves all three.
+// K1, K3, K5 and K6: the whole coarse-to-fine Hector Gauss-Newton match in
+// one launch, for one robot (K1, K3), for B robots with one block each (K5,
+// the batched K3), or for B robots packed g_pack to a block (K6).  One kernel
+// body serves all of them, templated on the precision of the table.
 //
-// Replaces the TPU kernels of slamnet_tpu/ops/pallas_onehot.py:
-//   K1  make_pallas_match          (body _match_kernel, batched=False;
-//                                   prolog prepare_tables)
-//   K5  make_pallas_match_batch    (body _match_kernel, batched=True, a grid
-//                                   over instances; prolog prepare_tables_batch)
-//   K6  make_pallas_match_packed   (body _match_kernel_packed: G instances
-//                                   stacked on sublanes, segment-matmul sums)
+// Replaces the TPU kernels
+//   K1  pallas_onehot.py make_pallas_match         (body _match_kernel,
+//                                   batched=False; prolog prepare_tables)
+//   K5  pallas_onehot.py make_pallas_match_batch   (body _match_kernel,
+//                                   batched=True, a grid over instances;
+//                                   prolog prepare_tables_batch)
+//   K6  pallas_onehot.py make_pallas_match_packed  (body _match_kernel_packed:
+//                                   G instances stacked on sublanes,
+//                                   segment-matmul sums)
+//   K3  pallas_gn.py match_pallas  (body _matcher_kernel: the f32 table, a
+//                                   per-beam scalar loop of single-element
+//                                   VMEM loads)
+// all under slamnet_tpu/ops/.  K1/K5/K6 read the table through bf16 rounding
+// (matcher_mode "pallas" / "onehot_bf16"); K3 reads the f32 maps as they are
+// (matcher_mode "gather" / "onehot_highest", the reference-exact gather
+// matcher of models/hector.py:194-259 and models/fleet.py:118-187, which
+// K3's TPU version computes without the heading wrap, the empty-scan
+// fallback, the clamps, the damping and the stats: all are here).
 //
 // What bounds it on an H100: latency.  A match is a chain of
 // sum(estimate_iterations) dependent Gauss-Newton iterations (15 for the
@@ -36,12 +48,21 @@
 //     block-wide barriers hold, and each instance reduces over its own warps
 //     in K5's order: K6 equals K5 bit for bit (the TPU version's segment
 //     matmuls reordered the sums; here nothing is reordered);
-//   * the f32 maps are read directly (offset_l + yi*w + xi) and each
-//     neighbour is rounded to bf16 on the fly with __float2bfloat16_rn.  That
-//     reproduces prepare_tables' bf16 table (round to nearest even) value for
-//     value, so no per-match table copy is made.  The TPU kernel's one-hot
-//     matmuls, 128-lane padding, y+1 twin table and beam padding worked
-//     around the TPU's missing vector gather and are not carried over.
+//   * the f32 maps are read directly (offset_l + yi*w + xi).  The bf16
+//     instantiation rounds each neighbour to bf16 on the fly with
+//     __float2bfloat16_rn, which reproduces prepare_tables' bf16 table
+//     (round to nearest even) value for value, so no per-match table copy
+//     is made; the f32 instantiation (K3) takes the value as it is.  The TPU
+//     kernels' one-hot matmuls, 128-lane padding, y+1 twin table, beam
+//     padding and K3's scalar loads worked around the TPU's missing vector
+//     gather and are not carried over;
+//   * the empty-scan rule is a flag, as JAX decides it: the single robot's
+//     XLA modes test the full scan (hector.py:195,254); K1
+//     (pallas_onehot.py:197) and the fleet in every mode (fleet.py:67-71
+//     subsamples valid before :119) test the subsampled matcher beams.
+//     Under the full-scan rule, valid beams that all fall between the
+//     subsampled ones give the GN estimate: the hint through x*scale/scale
+//     with its heading wrapped.
 //
 // Semantics (pallas_onehot.py:69-212): cells truncate toward zero and clip to
 // [0, w-2]; a beam counts when it is valid and its map point lies in
@@ -49,7 +70,8 @@
 // +/-deriv_clamp; the xy clamp and the damping apply only when > 0; a solve
 // fails when H00==0 || H11==0 || det==0 || !isfinite(det), and the step is
 // then zero; the heading wraps to (-pi, pi] by floored modulo between levels;
-// an instance with no valid matcher beam returns its hint.  The output is
+// an instance with no valid beam (the matcher's, or with empty_full_scan the
+// scan's) returns its hint.  The output is
 // f32[6] per instance: x, y, theta (world), solve failures, and the residual
 // sum and in-bounds beam count of the last iteration of the finest level.
 //
@@ -69,7 +91,11 @@ struct MatchParams {
   int n_points;   // points per instance (before subsampling)
   int cells;      // map cells per instance (its whole pyramid)
   int g_pack;     // instances per block (1 for K1 and K5)
-  int batch;      // instances (1 for K1)
+  int batch;      // instances (1 for K1 and K3)
+  int table_f32;  // 1: read the f32 table as it is (K3); 0: through bf16
+  int empty_full_scan;  // 1: the hint only when no beam of the whole scan is
+                        // valid (a single robot's XLA modes); 0: when no
+                        // matcher beam is (K1, and every fleet mode)
   int width[kMatchMaxLevels];
   int offset[kMatchMaxLevels];
   int iters[kMatchMaxLevels];
@@ -87,8 +113,11 @@ constexpr int kMaxPack = 8;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
-__device__ __forceinline__ float sigmoid_bf16(float v) {
-  const float t = __bfloat162float(__float2bfloat16_rn(v));
+// A table entry as the matcher reads it: through bf16 rounding (K1, K5, K6)
+// or as it is (K3), then the occupancy probability 1 / (1 + e^-v).
+template <bool kF32Table>
+__device__ __forceinline__ float prob(float v) {
+  const float t = kF32Table ? v : __bfloat162float(__float2bfloat16_rn(v));
   return 1.0f / (1.0f + expf(-t));
 }
 
@@ -111,6 +140,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // 1024 threads (K6 at g_pack 8, or K1 above 992 beams) may run only when a
 // thread keeps to 64 registers: the bound makes the compiler keep to them.
+template <bool kF32Table>
 __global__ void __launch_bounds__(1024)
 match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
              const unsigned char* __restrict__ valid,
@@ -148,6 +178,10 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
     bv[k] = in && valid[src] != 0;
     any_local |= bv[k];
   }
+  if (p.empty_full_scan) {
+    any_local = false;
+    for (int i = tid; i < p.n_points; i += lthreads) any_local |= valid[i] != 0;
+  }
   const bool any_warp = __any_sync(0xffffffffu, any_local);
   if (lane == 0) s_any[warp] = any_warp;
   __syncthreads();
@@ -182,10 +216,10 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
         const int xi = min(max(static_cast<int>(mx), 0), w - 2);
         const int yi = min(max(static_cast<int>(my), 0), w - 2);
         const float* c = tab + yi * w + xi;
-        const float v0 = sigmoid_bf16(c[0]);
-        const float v1 = sigmoid_bf16(c[1]);
-        const float v2 = sigmoid_bf16(c[w]);
-        const float v3 = sigmoid_bf16(c[w + 1]);
+        const float v0 = prob<kF32Table>(c[0]);
+        const float v1 = prob<kF32Table>(c[1]);
+        const float v2 = prob<kF32Table>(c[w]);
+        const float v3 = prob<kF32Table>(c[w + 1]);
         const float fx = mx - static_cast<float>(xi);
         const float fy = my - static_cast<float>(yi);
         const float xf = 1.0f - fx;
@@ -283,7 +317,8 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
 
 }  // namespace
 
-// One launch of batch / g_pack blocks, each of g_pack instances' threads.
+// One launch of batch / g_pack blocks, each of g_pack instances' threads;
+// the f32 instantiation (K3) when p.table_f32, else the bf16 one.
 extern "C" int slamnet_match(const float* maps, const float* points,
                              const unsigned char* valid, const float* pose0,
                              float* out, MatchParams p, cudaStream_t stream) {
@@ -293,7 +328,12 @@ extern "C" int slamnet_match(const float* maps, const float* points,
   if (p.g_pack < 1 || p.g_pack > kMaxPack || p.batch < 1 ||
       p.batch % p.g_pack != 0 || threads * p.g_pack > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  match_kernel<<<p.batch / p.g_pack, threads * p.g_pack, 0, stream>>>(
-      maps, points, valid, pose0, out, p);
+  const dim3 grid(p.batch / p.g_pack), block(threads * p.g_pack);
+  if (p.table_f32)
+    match_kernel<true><<<grid, block, 0, stream>>>(maps, points, valid, pose0,
+                                                   out, p);
+  else
+    match_kernel<false><<<grid, block, 0, stream>>>(maps, points, valid,
+                                                    pose0, out, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
-"""Single-step entry point: one Hector ``pallas_dense`` update at bench scale.
+"""Single-step entry point: one Hector update at bench scale.
 
 Port of ``__graft_entry__.py:23-45`` with an explicit device: ``entry(device)``
 returns ``(step, (state, points, valid))``; ``step`` runs one matched update
-of the 3-level 400x400 pipeline (K1 match + motion-gated K2 fill) and returns
-the new state.
+of the 3-level 400x400 pipeline in the JAX entry's own configuration
+(``HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4))``, the bench's
+reference-exact ``fixed`` mode: K3 match + motion-gated K4 line update) and
+returns the new state.
 """
 from __future__ import annotations
 
@@ -12,11 +14,11 @@ import torch
 
 from .core.scan import Scan
 from .models import hector
-from .replay import pallas_dense_config
+from .replay import fixed_config
 
 
 def entry(device: torch.device | str = "cuda"):
-    cfg = pallas_dense_config()
+    cfg = fixed_config()
     n = 400
     state = hector.init(cfg, (20.0, 20.0, 0.0), device)
     rng = np.random.default_rng(0)

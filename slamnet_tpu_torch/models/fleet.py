@@ -1,15 +1,20 @@
 """Fleet serving: B independent Hector instances batched on one card.
 
 Port of ``slamnet_tpu/models/fleet.py`` (``init_fleet``, ``fleet_cells``,
-``_match_batch``, ``update_fleet``, ``replay_fleet``) for the
-``sub4_pallas_dense`` configuration.  The state is a ``hector.HectorState``
-with an instance axis: ``maps`` is ONE flat f32[B*C] table (C =
-``fleet_cells(cfg)``, each instance's pyramid finest level first, as in JAX),
-``marks`` the matching u8[B*C] fill scratch, and the poses f32[B, 3].
+``_match_batch``, ``update_fleet``, ``replay_fleet``), with
+``models/hector.py``'s modes: the bench's fleet base with the K5 matcher and
+the dense fill (``sub4_pallas_dense``), or with the gather matcher and line
+updates (``sub1``, the fleet's accuracy anchor).  The state is a
+``hector.HectorState`` with an instance axis: ``maps`` is ONE flat f32[B*C]
+table (C = ``fleet_cells(cfg)``, each instance's pyramid finest level first,
+as in JAX), ``marks`` the matching u8[B*C] update scratch, and the poses
+f32[B, 3].
 
-One batch-scan costs one K5 launch (all B matches, ``ops/match.py``), a few
-small PyTorch operators for the guards, the motion gates and the update
-budget, and one batched K2 call (``ops/fill.py``) that reads a per-instance
+One batch-scan costs one match launch for all B robots (K5, or the batched
+K3 for ``gather`` / ``onehot_highest``; ``ops/match.py``), a few small
+PyTorch operators for the guards, the motion gates and the update budget,
+and one batched map-update call (K2, ``ops/fill.py``, or with
+``dense_free_fill=False`` K4, ``ops/line.py``) that reads a per-instance
 device flag ``fire`` bool[B]: only the firing instances (about 1 in 18 at
 the reference's gate statistics) touch their maps.  The JAX version's
 scan-over-instances ``lax.cond`` was a TPU workaround; here the flag does its
@@ -28,7 +33,7 @@ import torch
 
 from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, rad_diff
-from ..ops import fill, match as match_op
+from ..ops import fill, line, match as match_op
 from .hector import FLOAT_MIN, HectorInfo, HectorState, _check_cfg
 
 
@@ -80,7 +85,7 @@ def update_fleet(states: HectorState, points: torch.Tensor,
     hint = states.match_pose
     force = _force(map_without_matching, b, dev)
 
-    # ---- phase 1: every match in one launch ---------------------------------
+    # ---- phase 1: every match in one launch (K5 or the batched K3) ----------
     if plain:
         out = match_op.match_batch_plain(states.maps, points, valid, hint, cfg)
     else:
@@ -112,7 +117,7 @@ def update_fleet(states: HectorState, points: torch.Tensor,
     do_update = (dist2 > cfg.min_distance_diff_for_map_update ** 2) \
         | ang_gate | force
 
-    # ---- phase 3: the update budget, then one batched fill ------------------
+    # ---- phase 3: the update budget, then one batched update (K2 or K4) ----
     # JAX's argsort(~do_update, stable)[:cap] picks the firing instances of
     # lowest index; an instance beyond the budget defers (its gate stays
     # armed because its last-update pose does not move).
@@ -124,11 +129,15 @@ def update_fleet(states: HectorState, points: torch.Tensor,
         fire = do_update
     zero = torch.zeros((b, 3), dtype=torch.float32, device=dev)
     if plain:
-        maps = states.maps.copy_(fill.update_maps_batch_plain(
-            states.maps, points, valid, match_pose, zero, fire, cfg))
+        plain_fn = (fill.update_maps_batch_plain if cfg.dense_free_fill
+                    else line.update_maps_line_batch_plain)
+        maps = states.maps.copy_(plain_fn(states.maps, points, valid,
+                                          match_pose, zero, fire, cfg))
     else:
-        maps = fill.update_maps_batch(states.maps, states.marks, points, valid,
-                                      match_pose, zero, fire, cfg)
+        fn = (fill.update_maps_batch if cfg.dense_free_fill
+              else line.update_maps_line_batch)
+        maps = fn(states.maps, states.marks, points, valid, match_pose, zero,
+                  fire, cfg)
     new_last = torch.where(fire[:, None], match_pose, last)
     info = HectorInfo(map_updated=fire,
                       residual=out[:, 4] / out[:, 5].clamp(min=1.0),

@@ -1,22 +1,31 @@
 """HectorSLAM pipeline: multi-resolution pyramid + coarse-to-fine Gauss-Newton.
 
-Port of ``slamnet_tpu/models/hector.py`` for the ``pallas_dense``
-configuration (``matcher_mode="pallas"``, ``dense_free_fill=True``; the
-XLA mode ``"onehot_bf16"`` makes the same bf16 table selection and runs the
-same kernels, which lets the serving profile ``serving_hector_config()``
-run):
-HectorSLAMProcessor + MapRepMultiMap + ScanMatcher (HectorSLAM/Main/*.cs,
-Matcher/ScanMatcher.cs).  The state holds one flat f32 table with every
-pyramid level concatenated, finest first (``cfg.level_offsets``).  Level i+1
-has half the pixels and twice the cell length of level i
-(MapRepMultiMap.cs:49-57); every level is updated from the raw scan.
+Port of ``slamnet_tpu/models/hector.py``: HectorSLAMProcessor +
+MapRepMultiMap + ScanMatcher (HectorSLAM/Main/*.cs, Matcher/ScanMatcher.cs).
+The state holds one flat f32 table with every pyramid level concatenated,
+finest first (``cfg.level_offsets``).  Level i+1 has half the pixels and
+twice the cell length of level i (MapRepMultiMap.cs:49-57); every level is
+updated from the raw scan.
 
-One scan costs one K1 launch (the match, ``ops/match.py``), a few small
-PyTorch operators for the guards and the motion gate, and one K2 call (the
-dense fill of all levels, ``ops/fill.py``) that reads the gate as a device
-flag.  Nothing in ``update`` waits for the device or branches on a device
-value.  ``update`` changes ``state.maps`` IN PLACE and returns a state that
-shares it (JAX returns a new array).
+The configuration picks the kernels (``ops/match.py``, ``ops/fill.py``,
+``ops/line.py``):
+
+* matcher: ``matcher_mode`` ``"gather"`` (the default, reference-exact) or
+  ``"onehot_highest"`` (bit-identical to it in JAX) -> K3 on the f32 table;
+  ``"pallas"`` or ``"onehot_bf16"`` (the serving profile's) -> K1 on the
+  bf16-rounded table;
+* map update: ``dense_free_fill=False`` (the default, the reference's
+  Bresenham lines) -> K4; ``True`` (the dense polar fill) -> K2.
+
+So ``HectorConfig()``'s defaults (the bench's ``fixed`` mode) run K3 + K4
+and ``pallas_dense`` runs K1 + K2.  Other modes, ``early_exit_tol > 0`` and a
+non-zero ``offset`` raise NotImplementedError.
+
+One scan costs one match launch, a few small PyTorch operators for the
+guards and the motion gate, and one map-update call that reads the gate as
+a device flag.  Nothing in ``update`` waits for the device or branches on a
+device value.  ``update`` changes ``state.maps`` IN PLACE and returns a
+state that shares it (JAX returns a new array).
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from torch import nn
 from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, rad_diff
 from ..core.scan import Scan
-from ..ops import fill, match as match_op
+from ..ops import fill, line, match as match_op
 
 # float.MinValue (-3.4028235e38, the f32 lowest): the first squared distance
 # to it overflows to +inf in f32, so the first scan always updates the maps
@@ -40,7 +49,7 @@ class HectorState(NamedTuple):
     maps: torch.Tensor              # f32[total_cells], all levels, finest first
     match_pose: torch.Tensor        # f32[3] world
     last_update_pose: torch.Tensor  # f32[3] world
-    marks: torch.Tensor             # u8[total_cells] K2 scratch, zero between scans
+    marks: torch.Tensor             # u8[total_cells] K2/K4 scratch, zero between scans
 
 
 class HectorInfo(NamedTuple):
@@ -57,17 +66,17 @@ class MatchStats(NamedTuple):
     in_map_frac: torch.Tensor     # f32 in-bounds fraction of valid matcher beams
 
 
-# matcher modes that read the table through bf16 rounding: K1/K5's precision
-BF16_MATCHERS = ("pallas", "onehot_bf16")
+MATCHERS = match_op.F32_MATCHERS + match_op.BF16_MATCHERS
 
 
 def _check_cfg(cfg: HectorConfig) -> None:
-    if cfg.matcher_mode not in BF16_MATCHERS or not cfg.dense_free_fill:
+    if cfg.matcher_mode not in MATCHERS or cfg.early_exit_tol > 0.0 \
+            or tuple(cfg.offset) != (0.0, 0.0):
         raise NotImplementedError(
-            "slamnet_tpu_torch runs the pallas_dense configuration only "
-            f"(matcher_mode in {BF16_MATCHERS}, dense_free_fill=True); got "
+            f"slamnet_tpu_torch runs matcher_mode in {MATCHERS} with fixed "
+            "iteration counts (early_exit_tol=0) and offset (0, 0); got "
             f"matcher_mode={cfg.matcher_mode!r}, "
-            f"dense_free_fill={cfg.dense_free_fill}")
+            f"early_exit_tol={cfg.early_exit_tol}, offset={cfg.offset}")
 
 
 def init(cfg: HectorConfig, start_pose,
@@ -130,8 +139,9 @@ def match_with_stats(maps: torch.Tensor, scan: Scan, hint_pose_world: torch.Tens
                      cfg: HectorConfig, plain: bool = False
                      ) -> Tuple[torch.Tensor, MatchStats]:
     """ScanMatcher.MatchData over the pyramid (ScanMatcher.cs:41-84) through
-    K1, plus matcher health (ScanMatcher.cs:99-115).  ``plain=True`` runs
-    K1's plain version whatever the device (for comparisons)."""
+    K1 or K3 (by ``cfg.matcher_mode``), plus matcher health
+    (ScanMatcher.cs:99-115).  ``plain=True`` runs the kernel's plain version
+    whatever the device (for comparisons)."""
     _check_cfg(cfg)
     fn = match_op.match_plain if plain else match_op.match
     out = fn(maps, scan.points, scan.valid, hint_pose_world, cfg)
@@ -147,16 +157,19 @@ def match_with_stats(maps: torch.Tensor, scan: Scan, hint_pose_world: torch.Tens
 def update_maps(state: HectorState, scan: Scan, pose_world: torch.Tensor,
                 do_update: torch.Tensor, cfg: HectorConfig,
                 plain: bool = False) -> torch.Tensor:
-    """MapRepMultiMap.UpdateByScan (MapRepMultiMap.cs:73-77) by the dense
-    fill, in place on ``state.maps`` where the 0-dim bool ``do_update`` is
-    set.  ``plain=True`` runs K2's plain version whatever the device."""
+    """MapRepMultiMap.UpdateByScan (MapRepMultiMap.cs:73-77), in place on
+    ``state.maps`` where the 0-dim bool ``do_update`` is set: the dense fill
+    (K2) or the Bresenham line update (K4), by ``cfg.dense_free_fill``.
+    ``plain=True`` runs the kernel's plain version whatever the device."""
     _check_cfg(cfg)
     if plain:
-        return state.maps.copy_(fill.update_maps_plain(
-            state.maps, scan.points, scan.valid, pose_world, scan.pose,
-            do_update, cfg))
-    return fill.update_maps(state.maps, state.marks, scan.points, scan.valid,
-                            pose_world, scan.pose, do_update, cfg)
+        plain_fn = (fill.update_maps_plain if cfg.dense_free_fill
+                    else line.update_maps_line_plain)
+        return state.maps.copy_(plain_fn(state.maps, scan.points, scan.valid,
+                                         pose_world, scan.pose, do_update, cfg))
+    fn = fill.update_maps if cfg.dense_free_fill else line.update_maps_line
+    return fn(state.maps, state.marks, scan.points, scan.valid, pose_world,
+              scan.pose, do_update, cfg)
 
 
 def update(state: HectorState, scan: Scan, pose_hint_world: torch.Tensor,

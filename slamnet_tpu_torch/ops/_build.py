@@ -1,8 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-One ``nvcc`` call compiles every ``slamnet_tpu_torch/csrc/*.cu`` into
+On first use, one ``nvcc -c`` a source compiles every
+``slamnet_tpu_torch/csrc/*.cu``, all started together so the build takes as
+long as the slowest source however many there are, and one more ``nvcc``
+links the objects into
 ``build/slamnet_tpu_torch/<hash of sources and flags>/libslamnet_kernels.so``
-at the repository root, on first use.  The sources have a plain C interface
+at the repository root.  The sources have a plain C interface
 (``extern "C"`` launchers that take the CUDA stream and return
 ``cudaGetLastError()``), so nothing includes PyTorch's headers and the build
 takes seconds.  A rebuilt source gets a new hash and a new directory.
@@ -28,7 +31,7 @@ LIB_NAME = "libslamnet_kernels.so"
 # versions (one kernel per operator) compute them, so roundings to map cells
 # agree between the kernels and their plain versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -71,14 +74,30 @@ def build() -> tuple[Path, str]:
     if lib.is_file():
         return lib, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    tmp.replace(lib)        # atomic: a concurrent loader never sees half a file
-    return lib, proc.stdout + proc.stderr
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                  stderr=subprocess.STDOUT)
+                 for cmd in cmds]          # every source at once, one nvcc each
+        outs = [p.communicate()[0] for p in procs]   # all end before any raise
+        for cmd, out, p in zip(cmds, outs, procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        tmp.replace(lib)    # atomic: a concurrent loader never sees half a file
+    finally:                # no object or partial library outlives the build
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return lib, "".join(outs) + proc.stdout + proc.stderr
 
 
 @functools.cache

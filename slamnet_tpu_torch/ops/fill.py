@@ -78,9 +78,10 @@ def _launcher():
     return fn
 
 
-def _check_levels(cfg: HectorConfig) -> None:
+def _check_levels(cfg: HectorConfig, kernel: str = "K2") -> None:
     if not 1 <= cfg.num_levels <= MAX_LEVELS:
-        raise ValueError(f"K2 takes 1..{MAX_LEVELS} levels, got {cfg.num_levels}")
+        raise ValueError(f"{kernel} takes 1..{MAX_LEVELS} levels, got "
+                         f"{cfg.num_levels}")
 
 
 def _launch(what: str, maps, marks, points, valid, poses, scan_poses, fire,
@@ -131,23 +132,24 @@ def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
 update_maps.launches = 0
 
 
-def _check_batch(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
-                valid: torch.Tensor, poses: torch.Tensor,
-                scan_poses: torch.Tensor, fire: torch.Tensor,
-                cfg: HectorConfig) -> int:
-    """Raise ValueError unless the fleet inputs fit the batched K2: contiguous
-    maps f32[B*C], marks u8[B*C], points f32[B, N, 2] with N >= 1, valid
+def check_update_inputs(kernel: str, maps: torch.Tensor, marks: torch.Tensor,
+                        points: torch.Tensor, valid: torch.Tensor,
+                        poses: torch.Tensor, scan_poses: torch.Tensor,
+                        fire: torch.Tensor, cfg: HectorConfig) -> int:
+    """Raise ValueError, naming ``kernel``, unless the fleet inputs fit a
+    batched map update (K2 here, K4 in ``ops/line.py``): contiguous maps
+    f32[B*C], marks u8[B*C], points f32[B, N, 2] with N >= 1, valid
     bool[B, N], poses and scan_poses f32[B, 3], fire bool[B] on one device.
     Returns B."""
-    _check_levels(cfg)
+    _check_levels(cfg, kernel)
     if points.dim() != 3 or points.shape[1] < 1:
-        raise ValueError(f"K2 batch points: want [B, N >= 1, 2], got "
+        raise ValueError(f"{kernel} points: want [B, N >= 1, 2], got "
                          f"{tuple(points.shape)}")
     b, n = points.shape[:2]
     if b > MAX_BATCH:
-        raise ValueError(f"K2 batch takes at most {MAX_BATCH} instances, got {b}")
+        raise ValueError(f"{kernel} takes at most {MAX_BATCH} instances, got {b}")
     cells = b * cfg.total_cells
-    _build.check_tensors("K2 batch", maps.device, (
+    _build.check_tensors(kernel, maps.device, (
         ("maps", maps, torch.float32, (cells,)),
         ("marks", marks, torch.uint8, (cells,)),
         ("points", points, torch.float32, (b, n, 2)),
@@ -167,7 +169,8 @@ def update_maps_batch(maps: torch.Tensor, marks: torch.Tensor,
     ``valid[b]``, cloud pose ``scan_poses[b]``) seen from ``poses[b]``
     (world), where the device flag ``fire[b]`` is set; the other instances'
     maps stay as they are, bit for bit.  Returns ``maps``."""
-    b = _check_batch(maps, marks, points, valid, poses, scan_poses, fire, cfg)
+    b = check_update_inputs("K2 batch", maps, marks, points, valid, poses,
+                            scan_poses, fire, cfg)
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_batch_plain(maps, points, valid, poses,
                                                   scan_poses, fire, cfg))

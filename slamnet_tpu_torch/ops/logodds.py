@@ -1,15 +1,22 @@
-"""Dense polar log-odds occupancy update for one pyramid level (PyTorch).
+"""Log-odds occupancy updates of one pyramid level (PyTorch).
 
-Port of ``slamnet_tpu/ops/logodds.py::update_occupancy_dense`` (:76-179),
-the branch its CPU backend takes (an exact ``table[cbin]`` lookup): K2's
-plain version, applied per level by ``ops/fill.py::update_maps_plain``.
+Ports of ``slamnet_tpu/ops/logodds.py``:
 
-The free region of one scan is star-shaped around the robot: scatter the beam
-ranges into an ``angle_bins`` polar table (per-bin minimum, empty bins 0),
-then mark every cell free whose range is under its bin's entry minus
-``free_margin_px`` (the wall-erosion guard).  Occupied endpoints are a
-B-point scatter; free cells get ``log_odds_free``, occupied cells under the
-cap ``log_odds_occupied`` (OccGridMap.cs:114-239 rules).
+* ``update_occupancy`` (:26-73), the reference's line update: every beam's
+  Bresenham free cells and its occupied endpoint as two order-independent
+  scattered masks (OccGridMap.cs:114-239 rules: occupied overrides free,
+  ``log_odds_free`` on free cells, ``log_odds_occupied`` on occupied cells
+  under the cap).  K4's plain version, applied per level by
+  ``ops/line.py::update_maps_line_plain``.
+* ``update_occupancy_dense`` (:76-179), the branch its CPU backend takes (an
+  exact ``table[cbin]`` lookup): K2's plain version, applied per level by
+  ``ops/fill.py::update_maps_plain``.  The free region of one scan is
+  star-shaped around the robot: scatter the beam ranges into an
+  ``angle_bins`` polar table (per-bin minimum, empty bins 0), then mark
+  every cell free whose range is under its bin's entry minus
+  ``free_margin_px`` (the wall-erosion guard).
+
+Both take an optional leading instance axis (the fleet).
 """
 from __future__ import annotations
 
@@ -18,6 +25,67 @@ import math
 import torch
 
 from ..core.geometry import dotnet_round
+from .rasterize import hector_line_cells
+
+
+def update_occupancy(logodds_flat: torch.Tensor, width: int,
+                     points: torch.Tensor, valid: torch.Tensor,
+                     robot_pose_world: torch.Tensor, scan_pose: torch.Tensor,
+                     scale_to_map: float, log_odds_free: float,
+                     log_odds_occupied: float,
+                     occupied_cap: float = 50.0) -> torch.Tensor:
+    """One scan's line update of one level; returns a new f32[width*width].
+
+    Batched over instances when ``logodds_flat`` is f32[B, width*width]:
+    points f32[B, N, 2], valid bool[B, N], robot_pose_world f32[B, 3],
+    scan_pose f32[B, 2] give f32[B, width*width], each row computed as the
+    unbatched call computes it.  Endpoints are p_map = (R(theta) p + t) *
+    scale rounded half to even (.NET ToRoundPoint); a beam counts when it is
+    valid, its begin differs from its end, and both lie in the map."""
+    if logodds_flat.dim() == 1:
+        return update_occupancy(
+            logodds_flat[None], width, points[None], valid[None],
+            robot_pose_world[None], scan_pose[None], scale_to_map,
+            log_odds_free, log_odds_occupied, occupied_cap)[0]
+    b = logodds_flat.shape[0]
+    theta = robot_pose_world[:, 2:3]                     # [B, 1]
+    c, s = torch.cos(theta), torch.sin(theta)
+    tx, ty = robot_pose_world[:, 0:1], robot_pose_world[:, 1:2]
+    bx = (c * scan_pose[:, 0:1] - s * scan_pose[:, 1:2] + tx) * scale_to_map
+    by = (s * scan_pose[:, 0:1] + c * scan_pose[:, 1:2] + ty) * scale_to_map
+    begin = torch.stack([dotnet_round(bx), dotnet_round(by)], dim=-1)  # [B, 1, 2]
+
+    ex = (c * points[..., 0] - s * points[..., 1] + tx) * scale_to_map
+    ey = (s * points[..., 0] + c * points[..., 1] + ty) * scale_to_map
+    end = torch.stack([dotnet_round(ex), dotnet_round(ey)], dim=-1)    # [B, N, 2]
+
+    def in_dims(p):
+        return ((p[..., 0] >= 0) & (p[..., 0] < width) & (p[..., 1] >= 0)
+                & (p[..., 1] < width))
+
+    begin_b = begin.expand_as(end)
+    same = (end[..., 0] == begin_b[..., 0]) & (end[..., 1] == begin_b[..., 1])
+    beam_ok = valid & ~same & in_dims(begin_b) & in_dims(end)
+
+    cells = hector_line_cells(begin_b, end, width, max_steps=width)
+    fmask = cells.mask & beam_ok[..., None]
+    ncells = width * width
+    free = torch.zeros((b, ncells), dtype=torch.int32, device=points.device)
+    free = free.scatter_reduce(
+        1, torch.where(fmask, cells.flat, 0).reshape(b, -1).long(),
+        fmask.reshape(b, -1).to(torch.int32), "amax")
+    end_flat = end[..., 1] * width + end[..., 0]
+    occ = torch.zeros((b, ncells), dtype=torch.int32, device=points.device)
+    occ = occ.scatter_reduce(1, torch.where(beam_ok, end_flat, 0).long(),
+                             beam_ok.to(torch.int32), "amax")
+
+    is_occ = occ > 0
+    is_free = (free > 0) & ~is_occ
+    zero = torch.zeros_like(logodds_flat)
+    return (logodds_flat
+            + torch.where(is_free, log_odds_free, zero)
+            + torch.where(is_occ & (logodds_flat < occupied_cap),
+                          log_odds_occupied, zero))
 
 
 def update_occupancy_dense(logodds_flat: torch.Tensor, width: int,

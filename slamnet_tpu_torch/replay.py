@@ -1,36 +1,37 @@
 """The slices end to end: make the loop log, bootstrap, replay, score.
 
-Port of the headline flow of ``bench.py:103-198`` for the ``pallas_dense``
-configuration:
+Port of the headline flow of ``bench.py:103-198`` for the ``fixed`` and
+``pallas_dense`` configurations:
 
   * ``make_log``: the port's simulator on the CPU (numpy out) — the loop
     trajectory at 0.3 m/s, 400-beam revolutions with the reference's
     discrete uniform noise drawn from a seeded ``torch.Generator``;
   * ``bootstrap``: the first ``bootstrap`` scans as forced map updates at the
-    true poses;
+    true poses, in the ``fixed`` config whatever the mode, as the bench does
+    (``bench.py:147-172``);
   * ``replay``: every later scan matched with the previous ``match_pose`` as
     its hint, maps updated behind the motion gate;
   * ``ate_of``: RMS and max position error against the truth.
 
-One difference from ``bench.py``: the bench bootstraps every mode with its
-``fixed`` config (line updates, ``bench.py:147-172``); here the bootstrap runs
-the slice's own dense config.  ``JAX_REF_ATE_M`` is the JAX package's ATE on
-this same log and flow (``matcher_mode="onehot_bf16"`` + dense fill, the
-selection K1 makes), written by ``scripts/torch_port_ref_ate.py``.
+``JAX_FIXED_REF_ATE_M`` and ``JAX_REF_ATE_M`` are the JAX package's ATEs on
+this same log and flow (``fixed``; ``matcher_mode="onehot_bf16"`` + dense
+fill, the selection K1 makes), written by ``scripts/torch_port_ref_ate.py``.
 
-The fleet flow of ``bench.py:435-493`` for ``sub4_pallas_dense``:
+The fleet flow of ``bench.py:435-493`` for ``sub4_pallas_dense`` and
+``sub1``:
 
   * ``make_fleet_log``: B phase-shifted slices of that log, one a robot;
   * ``fleet_bootstrap``: each robot's first ``bootstrap`` scans as forced
-    updates with ``match_pose`` set to the true poses (``bench.py:466-475``);
+    updates with ``match_pose`` set to the true poses, in the mode's own
+    config (``bench.py:462-475``);
   * ``models.fleet.replay_fleet``: the remaining batch-scans, each hinted
     with the previous match pose;
   * ``fleet_ate_of``: RMS over all instance-scans, max, and the median of
     the per-instance ATEs (``bench.py:489-493``).
 
-``FLEET_JAX_REF_*`` are the JAX package's fleet (``onehot_bf16``, K5's
-selection in XLA) on the same slices and flow, from
-``scripts/torch_port_ref_ate.py --fleet``.
+``FLEET_JAX_REF_*`` and ``FLEET_SUB1_JAX_REF_*`` are the JAX package's
+fleet on the same slices and flow (``sub4_onehot_dense``, K5's selection in
+XLA; ``sub1``), from ``scripts/torch_port_ref_ate.py --fleet [--mode sub1]``.
 """
 from __future__ import annotations
 
@@ -49,13 +50,15 @@ N_SCANS = 512
 BOOTSTRAP = 10
 NUM_BEAMS = 400
 
-# JAX package (onehot_bf16 + dense fill, fixed 7/4/4 iterations) on
-# make_log(seed=0), 10-scan dense bootstrap + 512 replayed scans, JAX 0.9.0 on
-# the CPU: `python scripts/torch_port_ref_ate.py` printed
-# "onehot_bf16_dense": {"ate_m": 0.0025219914969056845, "max_err_m":
-# 0.01577146165072918, "map_updates": 28, "solve_failures": 0}; its "fixed"
-# mode (context only) gave ate_m 0.002116798423230648.
-JAX_REF_ATE_M = 0.0025219914969056845
+# JAX package on make_log(seed=0), 10-scan fixed-mode bootstrap + 512
+# replayed scans, JAX 0.9.0 on the CPU: `python scripts/torch_port_ref_ate.py`
+# printed "fixed": {"ate_m": 0.002116798423230648, "max_err_m":
+# 0.008902426809072495, "map_updates": 28, "solve_failures": 0} (gather
+# matcher + line updates) and "onehot_bf16_dense": {"ate_m":
+# 0.002063475549221039, "max_err_m": 0.008838655427098274, "map_updates": 28,
+# "solve_failures": 0} (onehot_bf16 + dense fill, fixed 7/4/4 iterations).
+JAX_FIXED_REF_ATE_M = 0.002116798423230648
+JAX_REF_ATE_M = 0.002063475549221039
 
 FLEET_B = 64
 FLEET_T = 64
@@ -68,6 +71,22 @@ FLEET_T = 64
 FLEET_JAX_REF_ATE_M = 0.006292261648923159
 FLEET_JAX_REF_MAX_M = 0.03412262722849846
 FLEET_JAX_REF_MEDIAN_M = 0.005386218428611755
+# JAX package fleet sub1 (gather matcher + line updates) on the same slices
+# and flow, JAX 0.9.0 on the CPU: `python scripts/torch_port_ref_ate.py
+# --fleet --mode sub1` printed "fleet_sub1": {"ate_m": 0.003720715409144759,
+# "max_err_m": 0.02590116672217846, "ate_median_m": 0.003108435543254018,
+# "map_updates": 183, "solve_failures": 0}.
+FLEET_SUB1_JAX_REF_ATE_M = 0.003720715409144759
+FLEET_SUB1_JAX_REF_MAX_M = 0.02590116672217846
+FLEET_SUB1_JAX_REF_MEDIAN_M = 0.003108435543254018
+
+
+def fixed_config(**overrides) -> HectorConfig:
+    """bench.py's reference-exact mode (``bench.py:109``): 3-level 400x400
+    pyramid, 7/4/4 GN iterations, every other field at its default — the
+    gather matcher (K3) and the Bresenham line update (K4)."""
+    return HectorConfig(num_levels=3,
+                        estimate_iterations=(7, 4, 4)).overlay(overrides)
 
 
 def pallas_dense_config(**overrides) -> HectorConfig:
@@ -76,6 +95,16 @@ def pallas_dense_config(**overrides) -> HectorConfig:
     return HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
                         matcher_mode="pallas", dense_free_fill=True).overlay(
                             overrides)
+
+
+def sub1_config(**overrides) -> HectorConfig:
+    """bench.py's fleet accuracy anchor ``sub1`` (``bench.py:453-454``,
+    ``:499``): the fleet base (xy clamp 10 px, max jump 1 m) with the gather
+    matcher on every beam (the batched K3) and line updates (the batched
+    K4)."""
+    return HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
+                        xy_step_clamp_px=10.0,
+                        max_match_jump=1.0).overlay(overrides)
 
 
 def sub4_pallas_dense_config(**overrides) -> HectorConfig:
@@ -144,13 +173,23 @@ def to_device(log: ScanLog, device: torch.device | str) -> DeviceLog:
                      torch.as_tensor(log.traj, device=device))
 
 
+def fixed_of(cfg: HectorConfig) -> HectorConfig:
+    """``cfg``'s ``fixed`` twin: the same pyramid with the gather matcher,
+    the line update and fixed iterations (``bench.py``'s mode configs are
+    its ``fixed`` config with these three fields replaced)."""
+    return cfg.overlay({"matcher_mode": "gather", "dense_free_fill": False,
+                        "early_exit_tol": 0.0})
+
+
 def bootstrap(state: hector.HectorState, dlog: DeviceLog, n: int,
               cfg: HectorConfig, plain: bool = False) -> hector.HectorState:
-    """Forced map updates at the true poses for scans 0..n-1 (in place)."""
+    """Forced map updates at the true poses for scans 0..n-1 (in place), in
+    ``fixed_of(cfg)`` whatever ``cfg``'s mode (``bench.py:147-172``)."""
     zero = torch.zeros(3, dtype=torch.float32, device=dlog.points.device)
+    boot_cfg = fixed_of(cfg)
     for t in range(n):
         state, _ = hector.update(state, Scan(dlog.points[t], dlog.valid[t], zero),
-                                 dlog.traj[t], cfg, True, plain)
+                                 dlog.traj[t], boot_cfg, True, plain)
     return state
 
 

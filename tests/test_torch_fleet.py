@@ -15,6 +15,12 @@ with numpy from a seed: the same numpy inputs go to both packages.
 * ``match_batch_plain`` is held against JAX's K5 in interpret mode (as
   ``tests/test_fleet.py`` runs it): poses 2e-3, equal solve failures,
   residual rtol 0.05.
+* ``sub1`` (the bench's fleet accuracy anchor: the gather matcher, batched
+  K3, and line updates, batched K4) against the JAX fleet in ``gather``
+  mode: the f32 table on both sides, so poses agree to 1e-4 m, the gates
+  fire on the same batch-scans, and at most 0.1% of an instance-level's
+  cells differ (a 1-ulp cos/sin difference may move a rounded endpoint,
+  ``tests/test_torch_line.py``).
 """
 import dataclasses
 
@@ -49,6 +55,10 @@ jax_step = jax.jit(jfleet.update_fleet, static_argnames=("cfg",))
 
 def port_cfg(**over):
     return replay.sub4_pallas_dense_config(**SMALL).overlay(over)
+
+
+def sub1_cfg(**over):
+    return replay.sub1_config(**SMALL).overlay(over)
 
 
 def jax_cfg(cfg, mode="onehot_bf16"):
@@ -248,13 +258,13 @@ def test_onehot_bf16_runs_the_same_kernels(flog, jax_boot):
     scan = Scan.from_points(pts[6, 0], v[6, 0])
     st1 = hector.init(port_cfg(matcher_mode="onehot_bf16"), traj[6, 0])
     hector.update(st1, scan, st1.match_pose, port_cfg(matcher_mode="onehot_bf16"))
-    for mode in ("onehot_highest", "gather"):
-        with pytest.raises(NotImplementedError, match="pallas_dense"):
+    # a mode no kernel runs, or an early exit, is refused by both models
+    for bad in ({"matcher_mode": "onehot"}, {"early_exit_tol": 1e-3}):
+        with pytest.raises(NotImplementedError, match="matcher_mode"):
             fleet.update_fleet(convert.fleet_state_from_numpy(**arrays), p, vv,
-                               port_cfg(matcher_mode=mode))
-        with pytest.raises(NotImplementedError, match="pallas_dense"):
-            hector.update(st1, scan, st1.match_pose,
-                          port_cfg(matcher_mode=mode))
+                               port_cfg(**bad))
+        with pytest.raises(NotImplementedError, match="matcher_mode"):
+            hector.update(st1, scan, st1.match_pose, port_cfg(**bad))
 
 
 def test_update_maps_batch_plain_equals_per_instance(flog):
@@ -342,6 +352,13 @@ def _refusals():
         "fill_marks_shape": (ValueError, "K2 batch marks",
                              lambda: fill.update_maps_batch(
                                  maps, marks[:c], pts, v, h, h, fire, cfg)),
+        "k3_batch_valid_dtype": (ValueError, "K3 batch valid",
+                                 lambda: match.match_batch(
+                                     maps, pts, v.to(torch.uint8), h,
+                                     sub1_cfg())),
+        "k3_batch_maps_size": (ValueError, "K3 batch maps",
+                               lambda: match.match_batch(maps[:-1], pts, v, h,
+                                                         sub1_cfg())),
         "build_without_cuda": (RuntimeError, "CUDA device", match._launcher),
     }
 
@@ -401,3 +418,73 @@ def test_fleet_replay_is_update_fleet_in_a_loop(flog):
     rms, mx, _ = replay.fleet_ate_of(poses.numpy(), traj[BOOT:])
     assert mx < 0.1 and rms < 0.05
 
+
+
+def test_sub1_fleet_matches_jax(flog):
+    # the fleet's accuracy anchor: batched K3 + batched K4 plain versions
+    # against the JAX fleet in gather mode with line updates
+    cfg = sub1_cfg()
+    got = run_port(cfg, flog)
+    want = run_jax(jax_cfg(cfg, "gather"), flog)
+    upd = np.stack([g[1] for g in got])
+    for t, ((gp, gu, gm), (wp, wu, wm)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(gu, wu, err_msg=f"map_updated, step {t}")
+        np.testing.assert_allclose(gp, wp, atol=1e-4, err_msg=f"step {t}")
+        g = gm.reshape(B, cfg.total_cells)
+        w = wm.reshape(B, cfg.total_cells)
+        for off, size in zip(cfg.level_offsets, cfg.level_sizes):
+            sl = slice(off, off + size * size)
+            frac = (g[:, sl] != w[:, sl]).mean(axis=1)
+            assert frac.max() <= 1e-3, (t, frac)
+    assert upd[:BOOT].all()
+    assert 1 <= upd[BOOT:].sum() < (T - BOOT) * B    # fired, not always
+    err = np.linalg.norm(got[-1][0][:, :2] - flog[0][-1, :, :2], axis=1)
+    assert err.max() < 0.1
+
+
+def test_one_robot_sub1_fleet_equals_hector_update(flog):
+    # a 1-robot sub1 fleet IS the port's fixed-mode hector.update (batched K3
+    # and K4 plain versions against the single ones), bit for bit
+    traj, pts, v = flog
+    cfg = sub1_cfg()
+    single = hector.init(cfg, traj[0, 0])
+    batch = fleet.init_fleet(cfg, traj[0, :1])
+    for t, boot in enumerate((True, True, False, False, False)):
+        scan = Scan.from_points(pts[t, 0], v[t, 0])
+        single, sinfo = hector.update(single, scan, single.match_pose, cfg,
+                                      boot)
+        batch, binfo = fleet.update_fleet(batch, torch.from_numpy(pts[t, :1]),
+                                          torch.from_numpy(v[t, :1]), cfg,
+                                          boot)
+        assert bool(binfo.map_updated[0]) == bool(sinfo.map_updated)
+    assert torch.equal(batch.match_pose[0], single.match_pose)
+    assert torch.equal(batch.maps, single.maps)
+    assert torch.equal(batch.last_update_pose[0], single.last_update_pose)
+    assert not batch.marks.any()
+
+
+@pytest.mark.parametrize("mode", ["gather", "onehot_bf16", "pallas"])
+def test_fleet_empty_scan_rule_follows_the_jax_mode(flog, jax_boot, mode):
+    # robot 2's valid beams all fall between the subsampled ones, its hint
+    # heading is 4.0: JAX's fleet tests the subsampled beams in every mode
+    # (fleet.py:67-71 subsamples valid before :119), so each mode returns
+    # the hint itself, where the single robot's XLA modes return the GN
+    # estimate (tests/test_torch_match.py); the other robots match
+    traj, pts, v = flog
+    jst, _ = jax_boot
+    cfg = port_cfg(matcher_mode=mode)
+    valid = v[6].copy()
+    valid[2] = np.arange(N) % 4 != 0
+    hints = traj[6].copy()
+    hints[2] = [20.0, 20.0, 4.0]
+    poses_j, stats_j = jfleet._match_batch(
+        jst.maps, jfleet.fleet_cells(jax_cfg(cfg, mode)), jnp.asarray(pts[6]),
+        jnp.asarray(valid), jnp.asarray(hints), jax_cfg(cfg, mode))
+    out = match.match_batch(torch.from_numpy(np.array(jst.maps)),
+                            torch.from_numpy(pts[6]), torch.from_numpy(valid),
+                            torch.from_numpy(hints), cfg)
+    np.testing.assert_array_equal(out[2, :3].numpy(), hints[2])
+    np.testing.assert_allclose(np.asarray(poses_j)[2], hints[2], atol=1e-6)
+    assert int(out[2, 3]) == int(stats_j.solve_failures[2]) == 9
+    np.testing.assert_allclose(out[:, :3].numpy(), np.asarray(poses_j),
+                               atol=2e-3)

@@ -1,12 +1,21 @@
-"""The slice as a whole: slamnet_tpu_torch's Hector pipeline against JAX.
+"""The slices as a whole: slamnet_tpu_torch's Hector pipeline against JAX.
 
-Both packages bootstrap from the same scans at the true poses and then track
-the same scans, each hinted with its own previous match pose.  JAX runs
-``matcher_mode="onehot_bf16"`` + dense fill (the bf16 selection K1 makes, in
-XLA); the port runs ``pallas_dense`` through its plain versions on CPU.
-Per-scan poses agree to 2e-3 m and the motion-gated map updates fire on the
-same scans.
+Both packages bootstrap from the same scans at the true poses in the
+``fixed`` config (as ``bench.py:147-172`` bootstraps every mode) and then
+track the same scans, each hinted with its own previous match pose.
+
+* ``pallas_dense``: JAX runs ``matcher_mode="onehot_bf16"`` + dense fill (the
+  bf16 selection K1 makes, in XLA); the port runs ``pallas_dense`` through
+  its plain versions on CPU.  Per-scan poses agree to 2e-3 m and the
+  motion-gated map updates fire on the same scans.
+* ``fixed`` (the defaults: gather matcher + line updates, K3 + K4's plain
+  versions): the f32 table on both sides and bit-exact integer line updates,
+  so per-scan poses agree to 1e-4 m, the gates fire on the same scans, and
+  the maps agree cell for cell but for a beam whose rounded endpoint a 1-ulp
+  cos/sin difference moves (at most 1e-3 of the cells).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,27 +50,34 @@ def log():
     return traj, pts.numpy(), v.numpy()
 
 
-@pytest.fixture(scope="module")
-def jax_run(log):
+def _jax_run(log, cfg):
+    """JAX's bench flow: BOOT forced scans in the fixed config, then TRACK
+    tracked ones in ``cfg``; (boot state, poses, map_updated, final maps)."""
     traj, pts, v = log
-    cfg = JHectorConfig(matcher_mode="onehot_bf16", dense_free_fill=True,
-                        **SMALL)
+    boot_cfg = JHectorConfig(**SMALL)
 
-    @jax.jit
-    def step(st, p, valid, hint, force):
+    def step(st, p, valid, hint, force, cfg):
         return jhector.update(st, JScan(p, valid, jnp.zeros(3, jnp.float32)),
                               hint, cfg, map_without_matching=force)
 
+    boot = jax.jit(functools.partial(step, cfg=boot_cfg))
+    track = jax.jit(functools.partial(step, cfg=cfg))
     st = jhector.init(cfg, traj[0])
     for t in range(BOOT):
-        st, _ = step(st, pts[t], v[t], traj[t], jnp.asarray(True))
+        st, _ = boot(st, pts[t], v[t], traj[t], jnp.asarray(True))
     boot_state = st
     poses, upd = [], []
     for t in range(BOOT, BOOT + TRACK):
-        st, info = step(st, pts[t], v[t], st.match_pose, jnp.asarray(False))
+        st, info = track(st, pts[t], v[t], st.match_pose, jnp.asarray(False))
         poses.append(np.asarray(st.match_pose))
         upd.append(bool(info.map_updated))
-    return boot_state, np.stack(poses), np.asarray(upd)
+    return boot_state, np.stack(poses), np.asarray(upd), np.asarray(st.maps)
+
+
+@pytest.fixture(scope="module")
+def jax_run(log):
+    return _jax_run(log, JHectorConfig(matcher_mode="onehot_bf16",
+                                       dense_free_fill=True, **SMALL))[:3]
 
 
 def test_convert_round_trip(jax_run):
@@ -162,11 +178,42 @@ def test_module_and_entry_step(log):
         assert bool(info.map_updated) and bool(ref.map_updated)
     assert torch.equal(slam.maps, st.maps)
     assert torch.equal(slam.match_pose, st.match_pose)
-    with pytest.raises(NotImplementedError, match="pallas_dense"):
-        hector.HectorSLAM(cfg.overlay({"matcher_mode": "gather"}))
+    for bad in ({"matcher_mode": "onehot"}, {"early_exit_tol": 1e-3},
+                {"offset": (1.0, 0.0)}):
+        with pytest.raises(NotImplementedError, match="matcher_mode"):
+            hector.HectorSLAM(cfg.overlay(bad))
+    hector.HectorSLAM(cfg.overlay({"matcher_mode": "gather"}))
 
+    # the entry runs the JAX entry's own config: the fixed mode (K3 + K4)
     step, (state, points, valid) = entry("cpu")
+    first = hector.HectorState(*(t.clone() for t in state))
     new = step(state, points, valid)
-    assert new.maps.shape == (replay.pallas_dense_config().total_cells,)
+    assert new.maps.shape == (replay.fixed_config().total_cells,)
     assert torch.isfinite(new.maps).all() and bool(new.maps.ne(0).any())
     assert torch.isfinite(new.match_pose).all()
+    ref, _ = hector.update(first, Scan(points, valid, torch.zeros(3)),
+                           first.match_pose, replay.fixed_config())
+    assert torch.equal(new.maps, ref.maps)
+    assert torch.equal(new.match_pose, ref.match_pose)
+
+
+def test_fixed_bootstrap_then_tracking_matches_jax(log):
+    # the reference-exact mode end to end: K3's and K4's plain versions
+    traj, pts, v = log
+    _, jposes, jupd, jmaps = _jax_run(log, JHectorConfig(**SMALL))
+    cfg = replay.fixed_config(**SMALL)
+    dlog = replay.DeviceLog(torch.from_numpy(pts), torch.from_numpy(v),
+                            torch.from_numpy(traj))
+    st = replay.bootstrap(hector.init(cfg, traj[0]), dlog, BOOT, cfg)
+    np.testing.assert_array_equal(st.last_update_pose.numpy(), traj[BOOT - 1])
+    stf, out = replay.replay(st, dlog, BOOT, cfg)
+    poses = out.poses.numpy()
+    np.testing.assert_allclose(poses, jposes, atol=1e-4)
+    np.testing.assert_array_equal(out.map_updated.numpy(), jupd)
+    assert 2 <= jupd.sum() < TRACK                   # the gate fired, not always
+    assert int(out.solve_failures.sum()) == 0
+    diff = stf.maps.numpy() != jmaps
+    assert diff.mean() <= 1e-3, diff.mean()
+    ate, mx = replay.ate_of(poses, traj[BOOT:])
+    ate_j, _ = replay.ate_of(jposes, traj[BOOT:])
+    assert mx < 0.1 and abs(ate - ate_j) < 1e-4
