@@ -9,16 +9,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
   1. device   — a CUDA device is required; its name and power limit;
   2. build    — nvcc builds csrc/*.cu (match.cu: K1/K3/K5/K6, fill.cu: K2,
                 line.cu: K4), one nvcc a source started together, into
-                build/;
+                build/; each kernel's registers, stack and spills as ptxas
+                reports them;
   3. K1       — the match kernel against its plain version on a bootstrapped
                 400x400 pyramid: 3 hints (pose within 2e-3, equal solve
                 failures, residual within rtol 0.05), the guard config
                 (xy clamp, damping, subsample 4; pose within 3e-3), an
-                empty scan (returns the hint);
+                empty scan (returns the hint), a map whose free cells hold
+                -100 and -1e4 (below -88.73 e^-v overflows; the same
+                bounds, and some such cell must lie under the beams); its
+                device time at
+                estimate_iterations (1,1,1), (7,4,4) and (14,8,8), and the
+                line through them: the cost of one GN iteration (slope) and
+                of the launch around them (intercept);
   4. K2       — the fill kernel against its plain version on all 3 levels of
                 a bootstrapped map and of random maps: identical occupied
                 increments, at most 0.1% of cells per level differing, each
                 by |log_odds_free|; do_update=0 leaves the maps bit for bit;
+                the marks (K4's scratch) stay all zero; timed firing and
+                gated;
   5. slice    — the pallas_dense replay of 10 + 512 loop scans through the
                 kernels (the 10 bootstrap scans in the fixed config, as the
                 bench does): one K1 and one K2 call per replayed scan (launch
@@ -27,7 +36,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
   6. K5       — the fleet match kernel against its plain version on a
                 bootstrapped 64-robot fleet (sub4_pallas_dense): 3 hint
                 offsets and the guard config (damping), one robot with no
-                valid beam (returns its hint); equal, bit for bit, to 64
+                valid beam (returns its hint), the fleet's maps with free
+                cells at -100 and -1e4 (as in 3); equal, bit for bit, to 64
                 separate K1 calls;
   7. K6       — the packed fleet match (on no path of its own) equal to K5
                 bit for bit at g_pack 1, 2, 4 and 8, and within K5's
@@ -35,7 +45,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
   8. K2 batch — the batched fill against its plain version on the fleet's
                 maps and random maps, fire masks all / none / ~1 in 18: the
                 K2 checks per instance and level, non-firing robots
-                untouched bit for bit, marks cleared;
+                untouched bit for bit, marks all zero; the same at B = 300
+                robots (the fleet's robots repeated, 252 MB of maps: more
+                work items than blocks) and at B = 5000 robots on a
+                64/32/16-px pyramid (more robots than one block ranks at
+                once);
   9. fleet    — the sub4_pallas_dense fleet of 64 robots, 10 + 64
                 batch-scans: one K5 and one batched K2 call per batch-scan
                 (74 each, no K1 or single K2), RMS / max / median-instance
@@ -46,15 +60,17 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 K3_POSE_TOL 1e-5, equal solve failures, residual within
                 K3_RESID_RTOL 1e-5), and K1 on the same inputs outside the
                 residual bound in at least one of them (so a kernel reading
-                the bf16 table fails), an
-                empty scan (returns the hint), and a scan whose valid beams
+                the bf16 table fails), free cells at -100 and -1e4 (as in 3,
+                within K3's bounds), an empty scan (returns the hint), and a
+                scan whose valid beams
                 all fall between the subsampled ones (match_subsample 4,
                 heading 4.0): the XLA modes' full-scan rule gives the wrapped
                 GN estimate, equal to the plain version bit for bit, where
                 K1's rule returns the hint; the batched K3 on the 64-robot
                 sub1 fleet equals 64 K3 calls bit for bit, its plain version
-                within the same tolerances, and K5 on the same inputs outside
-                the residual bound on some robot of each case;
+                within the same tolerances (on its maps with free cells at
+                -100 and -1e4 too), and K5 on the same inputs outside the
+                residual bound on some robot of each case;
  11. K4       — the line update against its plain version on all 3 levels of
                 the fixed-mode map and of random maps, bit for bit;
                 do_update=0 leaves the maps bit for bit; marks all zero after
@@ -72,7 +88,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 batch-scan (74 each, no K5, no batched K2), RMS / max /
                 median-instance ATE within FLEET_SUB1_JAX_REF_* + 5e-4 / 0.01
                 / 2e-4; instance-scans/s beside the plain path (best of 1).
-Then one JSON line of kernel measurements, and last the result line.
+Then one JSON line of kernel measurements, and last the result line.  Each
+kernel's entry carries its bound: the larger of the bytes it must move on
+this run's inputs (each input read once, each output written once; a match
+counts each distinct table cell its beams read, a map update (K2, K4) the
+cells it changes) over 3.35 TB/s and its
+f32 operations over 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W), and
+library_ms null: no single PyTorch call computes any of these functions.
 """
 import json
 import subprocess
@@ -91,6 +113,15 @@ K6_G_REPORTED = 4     # the g_pack of K6's entry in the kernels line
 # that tells the tables apart; the phase checks that it does on its own inputs
 K3_POSE_TOL = 1e-5
 K3_RESID_RTOL = 1e-5
+SLOPE_ITERS = ((1, 1, 1), (7, 4, 4), (14, 8, 8))
+# the card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet, 700 W):
+# HBM3 bytes/s, and f32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+MATCH_OPS_PER_BEAM = 90   # f32 operations of one beam in one GN iteration
+FILL_OPS_PER_CELL = 30    # a firing cell's distance, bin and free test
+LINE_OPS_PER_CELL = 10    # a Bresenham step and its update
+EXPF_OVERFLOW = -88.73    # log-odds below which e^-v overflows a float
 
 
 def say(msg: str) -> None:
@@ -117,6 +148,130 @@ def k3_readings(out, plain, bf16):
                       / np.maximum(np.abs(resid(b)), 1e-30)).max())
     return (float(np.abs(out[:, :3] - plain[:, :3]).max()), rel(out, plain),
             float(np.abs(out[:, :3] - bf16[:, :3]).max()), rel(out, bf16))
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for ``nbytes`` moved and ``ops`` f32 operations done."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cells_read(maps, points, valid, hints, cfg):
+    """The distinct table cells (flat indices into ``maps``) that a batched
+    match's beams read on these inputs: the plain version's loop, recording
+    the cells."""
+    import torch
+    from slamnet_tpu_torch.core.geometry import normalize_angle
+    from slamnet_tpu_torch.ops import match
+    from slamnet_tpu_torch.ops.gn import _gn_coords, _gn_tail
+
+    b, sub = points.shape[0], cfg.match_subsample
+    X, Y, V = points[:, ::sub, 0], points[:, ::sub, 1], valid[:, ::sub]
+    table = (maps if match.table_f32(cfg)
+             else maps.to(torch.bfloat16).to(torch.float32))
+    inst = torch.arange(b, device=maps.device)[:, None] * cfg.total_cells
+    seen = []
+    pose = hints
+    for level in range(cfg.num_levels - 1, -1, -1):
+        w = cfg.level_sizes[level]
+        scale = 1.0 / cfg.level_resolutions[level]
+        row0 = inst + cfg.level_offsets[level]
+        est = torch.stack([pose[:, 0] * scale, pose[:, 1] * scale, pose[:, 2]],
+                          dim=1)
+        for _ in range(cfg.estimate_iterations[level]):
+            sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
+            base = row0 + (yi * w + xi).long()
+            idx = torch.stack([base, base + 1, base + w, base + w + 1])
+            seen.append(idx.reshape(-1))
+            est = _gn_tail(torch.sigmoid(table[idx]), mx, my, xi, yi, ok, X,
+                           Y, sr, cr, est, cfg.deriv_clamp,
+                           cfg.xy_step_clamp_px, cfg.gn_damping)[0]
+        pose = torch.stack([est[:, 0] / scale, est[:, 1] / scale,
+                            normalize_angle(est[:, 2])], dim=1)
+    return torch.unique(torch.cat(seen))
+
+
+def match_work(maps, points, valid, hints, cfg) -> tuple:
+    """Bytes and f32 operations of a batched match on these inputs: each
+    distinct table cell its beams read (4 B), the matcher beams' points and
+    flags, the hints, the f32[6] outputs; MATCH_OPS_PER_BEAM a
+    beam-iteration."""
+    cells = int(cells_read(maps, points, valid, hints, cfg).numel())
+    beams = valid[:, ::cfg.match_subsample].numel()
+    iters = sum(cfg.estimate_iterations[:cfg.num_levels])
+    return (4 * cells + 9 * beams + 36 * points.shape[0],
+            MATCH_OPS_PER_BEAM * iters * beams)
+
+
+def deep_free(torch, maps):
+    """A copy of ``maps`` whose free cells (log-odds below 0) hold -100 and
+    -1e4 in turn: below EXPF_OVERFLOW, where e^-v overflows a float and the
+    sigmoid 1 / (1 + e^-v) is 0.  Nothing bounds a free cell's log-odds
+    from below (each update adds log(0.4/0.6)), so a long run reaches them."""
+    out = maps.clone()
+    odd = torch.arange(maps.numel(), device=maps.device) % 2 == 1
+    out[(maps < 0) & ~odd] = -100.0
+    out[(maps < 0) & odd] = -1e4
+    return out
+
+
+def check_deep(what, deep, out, plain, points, valid, hints, cfg, pose_tol,
+               resid_rtol) -> tuple:
+    """A match kernel's f32[6] or f32[B, 6] ``out`` on ``deep`` (from
+    deep_free) against its plain version's ``plain``: cells below
+    EXPF_OVERFLOW under the beams, finite, the pose within ``pose_tol``,
+    equal solve failures, the residual within ``resid_rtol``.  Returns the
+    max |pose err| and how many cells read lie below EXPF_OVERFLOW."""
+    import numpy as np
+    k, p = out.reshape(-1, 6).cpu().numpy(), plain.reshape(-1, 6).cpu().numpy()
+    b = k.shape[0]
+    read = cells_read(deep, points.reshape(b, -1, 2), valid.reshape(b, -1),
+                      hints.reshape(b, 3), cfg)
+    n_deep = int((deep[read] < EXPF_OVERFLOW).sum())
+    check(n_deep > 0, f"{what}: no cell below {EXPF_OVERFLOW} under the beams")
+    check(np.isfinite(k).all(), f"{what}: output not finite: {k}")
+    err = float(np.abs(k[:, :3] - p[:, :3]).max())
+    check(err <= pose_tol, f"{what}: pose vs plain max diff {err} (tol "
+          f"{pose_tol})")
+    check((k[:, 3] == p[:, 3]).all(),
+          f"{what}: solve failures {k[:, 3]} vs plain {p[:, 3]}")
+    res_k = k[:, 4] / np.maximum(k[:, 5], 1.0)
+    res_p = p[:, 4] / np.maximum(p[:, 5], 1.0)
+    rel = float((np.abs(res_k - res_p) / np.maximum(np.abs(res_p), 1e-30)).max())
+    check(rel <= resid_rtol, f"{what}: residual rel err {rel} vs plain (rtol "
+          f"{resid_rtol})")
+    return err, n_deep
+
+
+def fill_work(cfg, changed: int, n: int, n_fire: int, batch: int) -> tuple:
+    """K2's bytes and operations: each cell the fill changes, read and
+    written once (f32; counted from the run, as for K4), the firing robots'
+    scans (points, valid, two poses), the B fire flags; FILL_OPS_PER_CELL
+    for every cell of a firing robot's levels, each of which the polar test
+    decides."""
+    return (8 * changed + n_fire * (9 * n + 24) + batch,
+            FILL_OPS_PER_CELL * n_fire * cfg.total_cells)
+
+
+def line_work(cells: int, n: int, n_fire: int, batch: int) -> tuple:
+    """K4's bytes and operations: each cell its walks change, read and
+    written once (f32), the firing robots' scans, the B fire flags."""
+    return 8 * cells + n_fire * (9 * n + 24) + batch, LINE_OPS_PER_CELL * cells
+
+
+def iteration_slope(torch, run, cfg, reps: int = REPS_KERNEL) -> tuple:
+    """Device ms of ``run(c)`` (a CUDA graph of ``reps`` calls) for ``c`` =
+    ``cfg`` at each SLOPE_ITERS, and the least-squares line through them
+    over the total iterations: (times, ms an iteration, ms at none)."""
+    ms = [graph_ms(torch, lambda c=cfg.overlay({"estimate_iterations": it}):
+                   run(c), reps) for it in SLOPE_ITERS]
+    xs = [sum(it) for it in SLOPE_ITERS]
+    mx, my = sum(xs) / len(xs), sum(ms) / len(ms)
+    k = (sum((x - mx) * (y - my) for x, y in zip(xs, ms))
+         / sum((x - mx) ** 2 for x in xs))
+    return ms, k, my - k * mx
 
 
 def _events_ms(torch, run, reps: int) -> float:
@@ -188,10 +343,13 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     _, build_s, build_log = _build.library()
-    say(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: {build_s:.1f} s "
+    # a tree from before per-source flags has none: this script can then
+    # time that tree's kernels beside these in one call
+    say(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} (and "
+        f"{getattr(_build, 'SOURCE_FLAGS', {})}): {build_s:.1f} s "
         f"({', '.join(p.name for p in _build.sources())})")
     for line in build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say(f"[build]   {line.strip()}")
 
     cfg = replay.pallas_dense_config()
@@ -243,11 +401,19 @@ def main() -> int:
     oe = match.match(maps, scan.points, empty, hint, cfg)
     k1_calls += 1
     check(torch.equal(oe[:3], hint), f"K1 empty scan: {oe[:3]} != hint {hint}")
+    hint = truth + torch.tensor((0.2, -0.15, 0.04), device=dev)
+    deep = deep_free(torch, maps)
+    od = match.match(deep, scan.points, scan.valid, hint, cfg)
+    k1_calls += 1
+    pd = match.match_plain(deep, scan.points, scan.valid, hint, cfg)
+    k1_deep_err, k1_deep = check_deep("K1 deep free cells", deep, od, pd,
+                                      scan.points, scan.valid, hint, cfg,
+                                      2e-3, 0.05)
+    del deep
     torch.cuda.synchronize()
     check(match.match.launches - k1_before == k1_calls,
           f"K1 launch count rose by {match.match.launches - k1_before}, "
           f"expected {k1_calls}")
-    hint = truth + torch.tensor((0.2, -0.15, 0.04), device=dev)
 
     def k1():
         return match.match(maps, scan.points, scan.valid, hint, cfg)
@@ -259,11 +425,22 @@ def main() -> int:
     k1_plain_ms = graph_ms(torch, k1_plain, REPS_PLAIN)
     k1_eager = eager_ms(torch, k1, REPS_KERNEL)
     k1_plain_eager = eager_ms(torch, k1_plain, REPS_PLAIN)
+    k1_bound = bound(*match_work(maps, scan.points[None], scan.valid[None],
+                                 hint[None], cfg))
     say(f"[K1] {len(cases)} matches + empty scan agree with the plain version: "
         f"max |pose err| {k1_err:.3g} (tol 2e-3/3e-3), equal solve failures, "
-        f"residual within rtol 0.05; device {k1_ms:.4f} ms/match vs plain "
-        f"{k1_plain_ms:.4f} ms (CUDA graph); eager {k1_eager:.4f} ms vs plain "
+        f"residual within rtol 0.05; so does a map whose free cells hold -100 "
+        f"and -1e4 ({k1_deep} cells read below {EXPF_OVERFLOW}; |pose err| "
+        f"{k1_deep_err:.3g}); device {k1_ms:.4f} ms/match vs plain "
+        f"{k1_plain_ms:.4f} ms (CUDA graph; bound {k1_bound[0]:.6f} ms by "
+        f"{k1_bound[1]}); eager {k1_eager:.4f} ms vs plain "
         f"{k1_plain_eager:.4f} ms")
+    slope_ms, per_it, icpt = iteration_slope(torch, lambda c: match.match(
+        maps, scan.points, scan.valid, hint, c), cfg)
+    say(f"[K1] iteration slope: {per_it * 1e3:.4f} us a GN iteration, "
+        f"intercept {icpt * 1e3:.4f} us (device ms at estimate_iterations "
+        + ", ".join(f"{it}: {t:.4f}" for it, t in zip(SLOPE_ITERS, slope_ms))
+        + ")")
 
     # ---- 4. K2 vs its plain version ------------------------------------------
     lof, loo = cfg.log_odds_free, cfg.log_odds_occupied
@@ -272,6 +449,7 @@ def main() -> int:
                                 .astype(np.float32), device=dev)
     k2_err = 0.0
     k2_worst = 0.0
+    k2_cells = {}
     yes = torch.ones((), dtype=torch.bool, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     pose = truth + torch.tensor((0.37, -0.21, 0.3), device=dev)
@@ -285,7 +463,7 @@ def main() -> int:
         mp = fill.update_maps_plain(base, k2_scan.points, k2_scan.valid, pose,
                                     zero3, yes, cfg)
         check(bool(torch.isfinite(mk).all()), f"K2 {name}: maps not finite")
-        check(int(marks.sum()) == 0, f"K2 {name}: marks not cleared")
+        check(int(marks.sum()) == 0, f"K2 {name}: marks not zero")
         dk, dp = mk - base, mp - base
         for level in range(cfg.num_levels):
             off, w = cfg.level_offsets[level], cfg.level_sizes[level]
@@ -305,13 +483,14 @@ def main() -> int:
                       f"K2 {name} level {level}: a cell differs by other than "
                       f"|lof|: {gap.max().item()}")
         check(bool((dk < 0).any()), f"K2 {name}: no free cell marked")
+        k2_cells[name] = int((mk != base).sum())
         k2_err = max(k2_err, float((mk - mp).abs().max()))
         # do_update = 0: maps unchanged bit for bit, marks cleared all the same
         mz = base.clone()
         fill.update_maps(mz, marks, k2_scan.points, k2_scan.valid, pose, zero3,
                          no, cfg)
         check(torch.equal(mz, base), f"K2 {name}: do_update=0 changed the maps")
-        check(int(marks.sum()) == 0, f"K2 {name}: marks not cleared (gated)")
+        check(int(marks.sum()) == 0, f"K2 {name}: marks not zero (gated)")
     torch.cuda.synchronize()
     check(fill.update_maps.launches - k2_before == 4, "K2 launch count")
     marks = torch.zeros(cfg.total_cells, dtype=torch.uint8, device=dev)
@@ -329,11 +508,19 @@ def main() -> int:
     k2_plain_ms = graph_ms(torch, k2_plain, REPS_PLAIN)
     k2_eager = eager_ms(torch, k2, REPS_KERNEL)
     k2_plain_eager = eager_ms(torch, k2_plain, REPS_PLAIN)
+    k2_gated_ms = graph_ms(torch, lambda: fill.update_maps(
+        mt, marks, k2_scan.points, k2_scan.valid, pose, zero3, no, cfg),
+        REPS_KERNEL)
+    k2_bound = bound(*fill_work(cfg, k2_cells["bootstrapped"],
+                                k2_scan.points.shape[0], 1, 1))
     say(f"[K2] 3 levels x (bootstrapped, random) agree with the plain version: "
         f"identical occupied increments, worst level {k2_worst:.4%} cells "
-        f"differ (each by |lof|={abs(lof):.4f}), do_update=0 bit-exact; "
-        f"device {k2_ms:.4f} ms/scan vs plain {k2_plain_ms:.4f} ms (CUDA "
-        f"graph); eager {k2_eager:.4f} ms vs plain {k2_plain_eager:.4f} ms")
+        f"differ (each by |lof|={abs(lof):.4f}), do_update=0 bit-exact "
+        f"({k2_cells} cells changed); "
+        f"device {k2_ms:.4f} ms/scan firing (bound {k2_bound[0]:.6f} ms by "
+        f"{k2_bound[1]}), {k2_gated_ms:.4f} gated, vs plain "
+        f"{k2_plain_ms:.4f} ms (CUDA graph); eager {k2_eager:.4f} ms vs plain "
+        f"{k2_plain_eager:.4f} ms")
 
     # ---- 5. the slice end to end -------------------------------------------
     t0 = time.perf_counter()
@@ -439,6 +626,13 @@ def main() -> int:
         check(float(np.median(dist)) < 0.05,
               f"K5 did not converge: median distance to truth {np.median(dist)}")
     fhints = k5_outs[0][1]
+    deep = deep_free(torch, fmaps)
+    k5_deep_err, k5_deep = check_deep(
+        "K5 deep free cells", deep,
+        match.match_batch(deep, fpts, fval, fhints, fcfg),
+        match.match_batch_plain(deep, fpts, fval, fhints, fcfg), fpts, fval,
+        fhints, fcfg, 2e-3, 0.05)
+    del deep
 
     def k5():
         return match.match_batch(fmaps, fpts, fval, fhints, fcfg)
@@ -447,13 +641,16 @@ def main() -> int:
         return match.match_batch_plain(fmaps, fpts, fval, fhints, fcfg)
 
     k5_ms = graph_ms(torch, k5, REPS_KERNEL)
+    k5_bound = bound(*match_work(fmaps, fpts, fval, fhints, fcfg))
     k5_plain_ms = graph_ms(torch, k5_plain, REPS_PLAIN)
     k5_eager = eager_ms(torch, k5, REPS_KERNEL)
     k5_plain_eager = eager_ms(torch, k5_plain, REPS_PLAIN)
     say(f"[K5] {len(k5_cases)} x {fb} matches (robot {empty_inst} with no "
         f"valid beam returns its hint) agree with the plain version: max "
         f"|pose err| {k5_err:.3g} (tol 2e-3/3e-3), equal solve failures, "
-        f"residual within rtol 0.05; equal bit for bit to {fb} K1 calls; "
+        f"residual within rtol 0.05, and on maps whose free cells hold -100 "
+        f"and -1e4 ({k5_deep} cells read below {EXPF_OVERFLOW}; |pose err| "
+        f"{k5_deep_err:.3g}); equal bit for bit to {fb} K1 calls; "
         f"device {k5_ms:.4f} ms/batch vs plain {k5_plain_ms:.4f} ms (CUDA "
         f"graph; one K1 {k1_ms:.4f} ms); eager {k5_eager:.4f} ms vs plain "
         f"{k5_plain_eager:.4f} ms")
@@ -487,6 +684,55 @@ def main() -> int:
         + f" vs K5 {k5_ms:.4f} and plain {k5_plain_ms:.4f}")
 
     # ---- 8. batched K2 vs its plain version --------------------------------
+    def fill_batch_case(what, base, pts, val, poses, fire_np, c):
+        """One batched K2 call against its plain version; returns the worst
+        instance-level fraction of differing cells, the max |error| and how
+        many cells the call changed."""
+        b = pts.shape[0]
+        fire = torch.as_tensor(fire_np, device=dev)
+        zeros = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+        marks = torch.zeros(b * c.total_cells, dtype=torch.uint8, device=dev)
+        mk = base.clone()
+        fill.update_maps_batch(mk, marks, pts, val, poses, zeros, fire, c)
+        mp = fill.update_maps_batch_plain(base, pts, val, poses, zeros, fire, c)
+        check(bool(torch.isfinite(mk).all()), f"{what}: maps not finite")
+        check(int(marks.sum()) == 0, f"{what}: marks not zero")
+        b2 = base.view(b, c.total_cells)
+        mk2, mp2 = mk.view(b, c.total_cells), mp.view(b, c.total_cells)
+        check(torch.equal(mk2[~fire], b2[~fire]),
+              f"{what}: a non-firing robot's maps changed")
+        worst = 0.0
+        for level in range(c.num_levels):
+            off, w = c.level_offsets[level], c.level_sizes[level]
+            sl = slice(off, off + w * w)
+            k_, p_, b_ = mk2[fire, sl], mp2[fire, sl], b2[fire, sl]
+            occ_k, occ_p = k_ - b_ > 0, p_ - b_ > 0
+            check(torch.equal(occ_k, occ_p)
+                  and torch.equal(k_[occ_k], p_[occ_p]),
+                  f"{what} level {level}: occupied increments differ")
+            diff = k_ != p_
+            if diff.numel():
+                frac = float(diff.float().mean(dim=1).max())
+                worst = max(worst, frac)
+                check(frac <= 1e-3, f"{what} level {level}: {frac:.2%} of "
+                      "an instance's cells differ (limit 0.1%)")
+            if bool(diff.any()):
+                gap = (k_[diff] - p_[diff]).abs()
+                check(bool(((gap - abs(lof)).abs() <= 1e-4).all()),
+                      f"{what} level {level}: a cell differs by other "
+                      f"than |lof|: {gap.max().item()}")
+            if bool(fire.any()):
+                check(bool((k_ - b_ < 0).any(dim=1).all()),
+                      f"{what} level {level}: a firing robot marked no "
+                      "free cell")
+        return worst, float((mk - mp).abs().max()), int((mk != base).sum())
+
+    def fire_masks(b, seed):
+        sparse = np.random.default_rng(seed).random(b) < 1.0 / 18.0
+        sparse[0], sparse[1] = True, False
+        return {"all": np.ones(b, bool), "none": np.zeros(b, bool),
+                "1-in-18": sparse}
+
     rng = np.random.default_rng(1)
     frand = torch.as_tensor(rng.uniform(-8.0, 60.0, fb * cells)
                             .astype(np.float32), device=dev)
@@ -499,55 +745,48 @@ def main() -> int:
     fpts_all, fval_all = fdlog.points[boot], fdlog.valid[boot]
     kb_err = 0.0
     kb_worst = 0.0
+    kb_cells = {}
     kb_before = fill.update_maps_batch.launches
     for name, base in (("fleet", fmaps), ("random", frand)):
-        b2 = base.view(fb, cells)
         for mname, m in masks.items():
-            fire = torch.as_tensor(m, device=dev)
-            marks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
-            mk = base.clone()
-            fill.update_maps_batch(mk, marks, fpts_all, fval_all, fposes,
-                                   fzero, fire, fcfg)
-            mp = fill.update_maps_batch_plain(base, fpts_all, fval_all, fposes,
-                                              fzero, fire, fcfg)
-            what = f"K2 batch {name}/{mname}"
-            check(bool(torch.isfinite(mk).all()), f"{what}: maps not finite")
-            check(int(marks.sum()) == 0, f"{what}: marks not cleared")
-            mk2, mp2 = mk.view(fb, cells), mp.view(fb, cells)
-            check(torch.equal(mk2[~fire], b2[~fire]),
-                  f"{what}: a non-firing robot's maps changed")
-            for level in range(fcfg.num_levels):
-                off, w = fcfg.level_offsets[level], fcfg.level_sizes[level]
-                sl = slice(off, off + w * w)
-                k_, p_, b_ = mk2[fire, sl], mp2[fire, sl], b2[fire, sl]
-                occ_k, occ_p = k_ - b_ > 0, p_ - b_ > 0
-                check(torch.equal(occ_k, occ_p)
-                      and torch.equal(k_[occ_k], p_[occ_p]),
-                      f"{what} level {level}: occupied increments differ")
-                diff = k_ != p_
-                if diff.numel():
-                    frac = float(diff.float().mean(dim=1).max())
-                    kb_worst = max(kb_worst, frac)
-                    check(frac <= 1e-3, f"{what} level {level}: {frac:.2%} of "
-                          "an instance's cells differ (limit 0.1%)")
-                if bool(diff.any()):
-                    gap = (k_[diff] - p_[diff]).abs()
-                    check(bool(((gap - abs(lof)).abs() <= 1e-4).all()),
-                          f"{what} level {level}: a cell differs by other "
-                          f"than |lof|: {gap.max().item()}")
-                if bool(fire.any()):
-                    check(bool((k_ - b_ < 0).any(dim=1).all()),
-                          f"{what} level {level}: a firing robot marked no "
-                          "free cell")
-            kb_err = max(kb_err, float((mk - mp).abs().max()))
+            worst, err, changed = fill_batch_case(
+                f"K2 batch {name}/{mname}", base, fpts_all, fval_all, fposes,
+                m, fcfg)
+            kb_worst, kb_err = max(kb_worst, worst), max(kb_err, err)
+            if name == "fleet":                     # the timed inputs
+                kb_cells[mname] = changed
+    # B = 300: the fleet's robots repeated (more work items than blocks)
+    big = 300
+    rep = torch.arange(big, device=dev) % fb
+    big_args = (fpts_all[rep].contiguous(), fval_all[rep].contiguous(),
+                fposes[rep].contiguous())
+    big_maps = fmaps.view(fb, cells)[rep].reshape(-1)
+    big_masks = fire_masks(big, 3)
+    for mname, m in big_masks.items():
+        worst, err, _ = fill_batch_case(f"K2 batch B={big}/{mname}", big_maps,
+                                        *big_args, m, fcfg)
+        kb_worst, kb_err = max(kb_worst, worst), max(kb_err, err)
+    # B = 5000 on a 64/32/16-px pyramid: more robots than a block ranks at
+    # once, so every block walks the fire flags chunk by chunk
+    huge = 5000
+    hcfg = fcfg.overlay({"map_size": 64, "map_resolution": 0.8})
+    hrep = torch.arange(huge, device=dev) % fb
+    huge_maps = torch.as_tensor(rng.uniform(-8.0, 60.0, huge * hcfg.total_cells)
+                                .astype(np.float32), device=dev)
+    for mname, m in fire_masks(huge, 4).items():
+        worst, err, _ = fill_batch_case(
+            f"K2 batch B={huge}/{mname}", huge_maps,
+            fpts_all[hrep].contiguous(), fval_all[hrep].contiguous(),
+            fposes[hrep].contiguous(), m, hcfg)
+        kb_worst, kb_err = max(kb_worst, worst), max(kb_err, err)
     torch.cuda.synchronize()
-    check(fill.update_maps_batch.launches - kb_before == 6,
+    check(fill.update_maps_batch.launches - kb_before == 12,
           "batched K2 launch count")
     fmarks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
     fmt = fmaps.clone()
     kb_ms = {}
     kb_plain_ms = {}
-    for mname in ("1-in-18", "all"):
+    for mname in ("1-in-18", "all", "none"):
         fire = torch.as_tensor(masks[mname], device=dev)
         kb_ms[mname] = graph_ms(torch, lambda fire=fire: fill.update_maps_batch(
             fmt, fmarks, fpts_all, fval_all, fposes, fzero, fire, fcfg),
@@ -555,14 +794,33 @@ def main() -> int:
         kb_plain_ms[mname] = graph_ms(
             torch, lambda fire=fire: fill.update_maps_batch_plain(
                 fmt, fpts_all, fval_all, fposes, fzero, fire, fcfg), REPS_PLAIN)
+    bmarks = torch.zeros(big * cells, dtype=torch.uint8, device=dev)
+    bmt = big_maps.clone()
+    bzero = torch.zeros((big, 3), dtype=torch.float32, device=dev)
+    big_ms = {}
+    for mname in ("1-in-18", "all"):
+        fire = torch.as_tensor(big_masks[mname], device=dev)
+        big_ms[mname] = graph_ms(torch, lambda fire=fire: fill.update_maps_batch(
+            bmt, bmarks, *big_args, bzero, fire, fcfg),
+            REPS_KERNEL)
+    del bmt, bmarks, big_maps, huge_maps
+    kb_bound = {m: bound(*fill_work(fcfg, kb_cells[m], fpts_all.shape[1],
+                                    int(masks[m].sum()), fb))
+                for m in ("1-in-18", "all")}
     say(f"[K2 batch] {fb} robots x 3 levels x (fleet, random) x fire masks "
-        f"{list(masks)} ({int(sparse.sum())} of {fb} fire in 1-in-18) agree "
-        f"with the plain version: identical occupied increments, worst "
-        f"instance-level {kb_worst:.4%} cells differ (each by |lof|), "
-        f"non-firing robots bit-exact, marks cleared; device ms/batch-scan "
+        f"{list(masks)} ({int(sparse.sum())} of {fb} fire in 1-in-18), "
+        f"{big} robots and {huge} robots ({hcfg.level_sizes} px) x the same "
+        f"masks agree with the plain version: identical occupied increments, "
+        f"worst instance-level {kb_worst:.4%} cells differ (each by |lof|), "
+        f"non-firing robots bit-exact, marks all zero (fleet maps: {kb_cells} "
+        f"cells changed); device ms/batch-scan "
         f"(CUDA graph) 1-in-18 {kb_ms['1-in-18']:.4f} vs plain "
-        f"{kb_plain_ms['1-in-18']:.4f}, all {kb_ms['all']:.4f} vs plain "
-        f"{kb_plain_ms['all']:.4f} (single K2 {k2_ms:.4f} ms)")
+        f"{kb_plain_ms['1-in-18']:.4f} (bound {kb_bound['1-in-18'][0]:.6f}), "
+        f"all {kb_ms['all']:.4f} vs plain {kb_plain_ms['all']:.4f} (bound "
+        f"{kb_bound['all'][0]:.6f}), none {kb_ms['none']:.4f}; {big} robots "
+        f"1-in-18 ({int(big_masks['1-in-18'].sum())} fire) "
+        f"{big_ms['1-in-18']:.4f}, all {big_ms['all']:.4f} (single K2 "
+        f"{k2_ms:.4f} ms)")
 
     # ---- 9. the fleet end to end -------------------------------------------
     counted = {"match": match.match, "fill": fill.update_maps,
@@ -690,11 +948,19 @@ def main() -> int:
                        x4.overlay({"matcher_mode": "pallas"}))
     check(torch.equal(o4k1[:3], hint4),
           f"K1 between-beams scan {o4k1[:3].tolist()} != hint")
+    hint = truth + torch.tensor((0.2, -0.15, 0.04), device=dev)
+    deep = deep_free(torch, xmaps)
+    od = match.match(deep, xscan.points, xscan.valid, hint, xcfg)
+    k3_calls += 1
+    k3_deep_err, k3_deep = check_deep(
+        "K3 deep free cells", deep, od,
+        match.match_plain(deep, xscan.points, xscan.valid, hint, xcfg),
+        xscan.points, xscan.valid, hint, xcfg, K3_POSE_TOL, K3_RESID_RTOL)
+    del deep
     torch.cuda.synchronize()
     check(match.match.launches_f32 - k3_before == k3_calls,
           f"K3 launch count rose by {match.match.launches_f32 - k3_before}, "
           f"expected {k3_calls}")
-    hint = truth + torch.tensor((0.2, -0.15, 0.04), device=dev)
 
     def k3():
         return match.match(xmaps, xscan.points, xscan.valid, hint, xcfg)
@@ -703,6 +969,8 @@ def main() -> int:
         return match.match_plain(xmaps, xscan.points, xscan.valid, hint, xcfg)
 
     k3_ms = graph_ms(torch, k3, REPS_KERNEL)
+    k3_bound = bound(*match_work(xmaps, xscan.points[None], xscan.valid[None],
+                                 hint[None], xcfg))
     k3_plain_ms = graph_ms(torch, k3_plain, REPS_PLAIN)
     k3_eager = eager_ms(torch, k3, REPS_KERNEL)
     k3_plain_eager = eager_ms(torch, k3_plain, REPS_PLAIN)
@@ -751,10 +1019,17 @@ def main() -> int:
         dist = np.linalg.norm(k[:, :2] - ftruth[:, :2].cpu().numpy(), axis=1)
         check(float(np.median(dist)) < 0.05, "batched K3 did not converge: "
               f"median distance to truth {np.median(dist)}")
-    torch.cuda.synchronize()
-    check(match.match_batch.launches_f32 - k3b_before == 3,
-          "batched K3 launch count")
     shints = (ftruth + torch.tensor((0.2, -0.15, 0.04), device=dev)).contiguous()
+    deep = deep_free(torch, smaps)
+    k3b_deep_err, k3b_deep = check_deep(
+        "batched K3 deep free cells", deep,
+        match.match_batch(deep, fpts, fval, shints, scfg),
+        match.match_batch_plain(deep, fpts, fval, shints, scfg), fpts, fval,
+        shints, scfg, K3_POSE_TOL, K3_RESID_RTOL)
+    del deep
+    torch.cuda.synchronize()
+    check(match.match_batch.launches_f32 - k3b_before == 4,
+          "batched K3 launch count")
 
     def k3b():
         return match.match_batch(smaps, fpts, fval, shints, scfg)
@@ -763,6 +1038,7 @@ def main() -> int:
         return match.match_batch_plain(smaps, fpts, fval, shints, scfg)
 
     k3b_ms = graph_ms(torch, k3b, REPS_KERNEL)
+    k3b_bound = bound(*match_work(smaps, fpts, fval, shints, scfg))
     k3b_plain_ms = graph_ms(torch, k3b_plain, REPS_PLAIN)
     say(f"[K3] {len(k3_cases)} matches + empty scan + between-beams scan "
         f"agree with the plain version: max |pose err| {k3_err:.3g} (tol "
@@ -772,7 +1048,10 @@ def main() -> int:
         f"residual; the "
         f"between-beams scan (subsample 4, heading 4.0) gives "
         f"{[round(float(x), 6) for x in o4[:3]]}, the plain version's bit for "
-        f"bit, and K1's rule the hint; device {k3_ms:.4f} ms/match vs plain "
+        f"bit, and K1's rule the hint; a map whose free cells hold -100 and "
+        f"-1e4 within the same bounds ({k3_deep} cells read below "
+        f"{EXPF_OVERFLOW}; |pose err| {k3_deep_err:.3g}); device "
+        f"{k3_ms:.4f} ms/match vs plain "
         f"{k3_plain_ms:.4f} ms (CUDA graph; K1 {k1_ms:.4f}); eager "
         f"{k3_eager:.4f} ms vs plain {k3_plain_eager:.4f} ms")
     say(f"[K3 batch] sub1 fleet of {fb} robots bootstrapped ({boot} "
@@ -781,6 +1060,9 @@ def main() -> int:
         f"bit and the plain version within max |pose err| {k3b_err:.3g} "
         f"(tol {K3_POSE_TOL}) and residual rel err {k3b_res:.3g} (rtol "
         f"{K3_RESID_RTOL}), K5's residuals outside the bound in each case; "
+        f"maps whose free cells hold -100 and -1e4 within the same bounds "
+        f"({k3b_deep} cells read below {EXPF_OVERFLOW}; |pose err| "
+        f"{k3b_deep_err:.3g}); "
         f"device {k3b_ms:.4f} ms/batch vs plain {k3b_plain_ms:.4f} ms (CUDA "
         f"graph; K5 {k5_ms:.4f})")
 
@@ -828,6 +1110,8 @@ def main() -> int:
             mp = line_ops.update_maps_line_batch_plain(base, fpts_all, fval_all,
                                                    fposes, fzero, fire, scfg)
             what = f"K4 batch {name}/{mname}"
+            if (name, mname) == ("fleet", "1-in-18"):      # the timed inputs
+                k4b_cells = int((mk != base).sum())
             check(int(marks.sum()) == 0, f"{what}: marks not cleared")
             check(torch.equal(mk, mp), f"{what}: "
                   f"{int((mk != mp).sum())} cells differ from the plain version")
@@ -1006,52 +1290,40 @@ def main() -> int:
           f"sub1 median instance ATE {smed} above FLEET_SUB1_JAX_REF_MEDIAN_M "
           "+ 2e-4")
 
+    k4_bound = bound(*line_work(k4_cells["fixed-mode"], 400, 1, 1))
+    k4b_bound = bound(*line_work(k4b_cells, 400, int(sparse.sum()), fb))
+
+    def entry(name, source, replaces, launches, err, ms, plain, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"slamnet_tpu_torch/csrc/{source}",
+                "replaces": f"slamnet_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "match", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/match.cu",
-         "replaces": "slamnet_tpu/ops/pallas_onehot.py:500",
-         "launches": launches["match"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fill", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/fill.cu",
-         "replaces": "slamnet_tpu/ops/pallas_fill.py:86",
-         "launches": launches["fill"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "match_batch", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/match.cu",
-         "replaces": "slamnet_tpu/ops/pallas_onehot.py:235",
-         "launches": flaunch["match_batch"], "max_abs_err": k5_err,
-         "ms": k5_ms, "plain_ms": k5_plain_ms},
-        {"name": "match_packed", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/match.cu",
-         "replaces": "slamnet_tpu/ops/pallas_onehot.py:460",
-         "launches": flaunch["match_packed"], "max_abs_err": k6_err,
-         "ms": k6_ms[K6_G_REPORTED], "plain_ms": k5_plain_ms},
-        {"name": "fill_batch", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/fill.cu",
-         "replaces": "slamnet_tpu/ops/pallas_fill.py:86",
-         "launches": flaunch["fill_batch"], "max_abs_err": kb_err,
-         "ms": kb_ms["1-in-18"], "plain_ms": kb_plain_ms["1-in-18"]},
-        {"name": "match_f32", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/match.cu",
-         "replaces": "slamnet_tpu/ops/pallas_gn.py:133",
-         "launches": xlaunch["match_f32"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "match_f32_batch", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/match.cu",
-         "replaces": "slamnet_tpu/ops/pallas_gn.py:133",
-         "launches": slaunch["match_batch_f32"], "max_abs_err": k3b_err,
-         "ms": k3b_ms, "plain_ms": k3b_plain_ms},
-        {"name": "line", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/line.cu",
-         "replaces": "slamnet_tpu/ops/pallas_scatter.py:71",
-         "launches": xlaunch["line"], "max_abs_err": k4_err,
-         "ms": k4_ms["fire"], "plain_ms": k4_plain_ms["fire"]},
-        {"name": "line_batch", "route": "cuda",
-         "source": "slamnet_tpu_torch/csrc/line.cu",
-         "replaces": "slamnet_tpu/ops/pallas_scatter.py:71",
-         "launches": slaunch["line_batch"], "max_abs_err": k4b_err,
-         "ms": k4b_ms["1-in-18"], "plain_ms": k4b_plain_ms["1-in-18"]}],
+        entry("match", "match.cu", "pallas_onehot.py:500", launches["match"],
+              k1_err, k1_ms, k1_plain_ms, k1_bound),
+        entry("fill", "fill.cu", "pallas_fill.py:86", launches["fill"], k2_err,
+              k2_ms, k2_plain_ms, k2_bound),
+        entry("match_batch", "match.cu", "pallas_onehot.py:235",
+              flaunch["match_batch"], k5_err, k5_ms, k5_plain_ms, k5_bound),
+        entry("match_packed", "match.cu", "pallas_onehot.py:460",
+              flaunch["match_packed"], k6_err, k6_ms[K6_G_REPORTED],
+              k5_plain_ms, k5_bound),
+        entry("fill_batch", "fill.cu", "pallas_fill.py:86",
+              flaunch["fill_batch"], kb_err, kb_ms["1-in-18"],
+              kb_plain_ms["1-in-18"], kb_bound["1-in-18"]),
+        entry("match_f32", "match.cu", "pallas_gn.py:133", xlaunch["match_f32"],
+              k3_err, k3_ms, k3_plain_ms, k3_bound),
+        entry("match_f32_batch", "match.cu", "pallas_gn.py:133",
+              slaunch["match_batch_f32"], k3b_err, k3b_ms, k3b_plain_ms,
+              k3b_bound),
+        entry("line", "line.cu", "pallas_scatter.py:71", xlaunch["line"],
+              k4_err, k4_ms["fire"], k4_plain_ms["fire"], k4_bound),
+        entry("line_batch", "line.cu", "pallas_scatter.py:71",
+              slaunch["line_batch"], k4b_err, k4b_ms["1-in-18"],
+              k4b_plain_ms["1-in-18"], k4b_bound)],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -1059,6 +1331,11 @@ def main() -> int:
         "fleet_plain_instance_scans_per_s": iscans / tf_plain,
         "fleet_ate_m": fate, "fleet_max_err_m": fmax,
         "fleet_ate_median_m": fmed, "k6_ms_by_g_pack": k6_ms,
+        "match_ms_per_iteration": per_it, "match_ms_intercept": icpt,
+        "match_ms_by_iterations": dict(zip(map(str, SLOPE_ITERS), slope_ms)),
+        "fill_gated_ms": k2_gated_ms, "fill_batch_none_ms": kb_ms["none"],
+        "fill_batch_all_fire_bound_ms": kb_bound["all"][0],
+        "fill_batch_300_ms": big_ms,
         "fill_batch_all_fire_ms": kb_ms["all"],
         "fill_batch_all_fire_plain_ms": kb_plain_ms["all"],
         "fixed_replay_scans_per_s": n / tx_kernel,

@@ -5,7 +5,8 @@ Makes the loop log, bootstraps, runs one warm-up replay, times one more replay
 without the profiler, then traces one replay with ``torch.profiler`` (CPU +
 CUDA).  Prints one JSON object: wall time per step, the device's busy share of
 the traced replay (the union of its kernels' intervals over the replay's span),
-and the device kernels by total time.  A step is a scan of the single-robot
+and the device kernels by total time, each with its calls and its mean,
+median, least and largest time a call.  A step is a scan of the single-robot
 replay (512 scans after a 10-scan fixed-mode bootstrap; ``--mode``
 ``pallas_dense``, the default, or ``fixed``), or with ``--fleet`` a
 batch-scan of the 64-robot fleet (64 batch-scans after a 10-batch-scan
@@ -16,6 +17,7 @@ bootstrap; ``--mode`` ``sub4_pallas_dense``, the default, or ``sub1``).
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -100,10 +102,8 @@ def main() -> int:
     window = (spans[-1][1] - spans[0][0]) if spans else 0.0
     by_name = {}
     for e in kernels:
-        d = by_name.setdefault(e.name, [0, 0.0])
-        d[0] += 1
-        d[1] += e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, f"trace_{mode}.json"))
@@ -118,8 +118,10 @@ def main() -> int:
         "device_busy_share_of_kernel_window": busy / window if window else 0.0,
         "device_busy_share_of_traced_wall": busy / (traced * 1e6),
         "kernels_by_total_us": [
-            {"name": k[:90], "calls": c, "total_us": t, "avg_us": t / c}
-            for k, (c, t) in top]}))
+            {"name": k[:90], "calls": len(d), "total_us": sum(d),
+             "avg_us": sum(d) / len(d), "median_us": statistics.median(d),
+             "min_us": min(d), "max_us": max(d)}
+            for k, d in top]}))
     return 0
 
 

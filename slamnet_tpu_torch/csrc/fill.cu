@@ -1,5 +1,5 @@
 // K2: the dense polar occupancy fill of every pyramid level of one robot or
-// of a fleet, two launches a scan or batch-scan.
+// of a fleet, one launch a scan or batch-scan.
 //
 // Replaces the TPU kernel slamnet_tpu/ops/pallas_fill.py::polar_fill_pallas
 // (body _fill_kernel) together with the beam-side prolog of its wrapper
@@ -10,44 +10,58 @@
 // single robot's lax.cond at models/hector.py:324, which is the batch = 1
 // case).
 //
-// What bounds it on an H100: the bytes of the maps.  Every cell of every
-// level of a firing instance (210,000 at 400/200/100 px) is read and written
-// at most once: about 1.7 MB of f32 for all levels, plus one byte of occupied
-// mark per cell.  A fleet fires ~1 in 18 instances a batch-scan; the blocks
-// of the others read one flag and return.  The beam side is 3 x 400 threads
-// of scalar math an instance.
+// What bounds it on an H100: the bytes of the firing instances' maps.  Every
+// cell of every level of a firing instance (210,000 at 400/200/100 px) is
+// read and written at most once: 840 KB of f32 each way.  A fleet fires ~1
+// in 18 instances a batch-scan, and the others must cost nothing.  A cell's
+// free test is a sqrtf and an atan2f, so one firing robot's 210,000 cells
+// are ~20 M operations: the card has to be filled to keep the fill near its
+// bytes.
 //
 // What the design does about it:
-//   * launch A, the beam side: one block per (level, instance), one thread
-//     per beam; a block whose instance does not fire returns at once.  It
-//     rounds the endpoint and robot cells half to even (__float2int_rn, as
-//     dotnet_round), bins each valid beam with atan2f, and takes the per-bin
-//     minimum range with atomicMin on the float bits in shared memory (exact:
-//     the bits of non-negative floats order as the floats do).  The 256-bin
-//     table starts at 1e9 in shared memory, so no global buffer needs a reset;
-//     an empty bin becomes 0 as in JAX.  Each valid endpoint stores a byte
-//     mark; __syncthreads_or gives the level's any-beam flag.
-//   * launch B, the cell side: every cell of all levels of all instances
-//     (grid: the blocks of one instance's levels x instances), each block
-//     4096 cells of one level (16 coalesced passes of 256 threads) with that
-//     level's table in shared memory.  A block whose instance does not fire
-//     returns after reading the flag (it has no marks to clear).  Blocks of
-//     4096 cells rather than 256 keep the fleet's non-firing blocks few: at
-//     64 robots, 256-cell blocks made 52,608 blocks a batch-scan, and
-//     dispatching them cost ~0.33 ms of device time however few robots fired
-//     (NVIDIA H100 80GB HBM3, 700 W); 4096-cell blocks make 3,392.  A cell reads its mark, clears it (so the next
-//     scan needs no memset), and applies the free test
-//     r_cell < table[bin] - margin (r_cell > 0, not occupied, any beam) and
-//     the occupied-below-cap increment in place.  Each cell is one coalesced
-//     read and at most one write: the pass is as wide as the firing maps.
-//   * the flags are read on the device, so the motion gates never sync the
-//     host, and no launch size depends on how many instances fire.
+//   * a work list on the device.  The grid comes from B and the card's SM
+//     count (ops/fill.py::grid_size), never from how many instances fire, so
+//     the launch is capture-safe and the host never waits.  Every block
+//     ranks the firing instances itself: each thread takes 8 flags, a block
+//     prefix sum gives each firing instance its rank, in instance order, in
+//     a shared list of up to kChunk instances (B above kChunk goes chunk by
+//     chunk, every block reading all B flags: meant for B up to kChunk,
+//     correct for every B the wrapper takes).  The work items are (firing
+//     instance, level, tile of kTile cells); block k of G takes the items
+//     [k*I/G, (k+1)*I/G) of the I, a contiguous even share, so the tiles of
+//     one (instance, level) fall mostly to one block in a row.  A block with
+//     no share returns at once: an instance that does not fire costs one
+//     flag read in each block;
+//   * one launch, no global scratch.  A block builds its (instance, level)'s
+//     256-bin minimum-range table in shared memory from the instance's
+//     beams (atomicMin on the float bits: the bits of non-negative floats
+//     order as the floats do; an empty bin reads as 0, as in JAX), and keeps
+//     it for the next tile of the same (instance, level).  With each tile it
+//     marks the tile's occupied endpoints in a shared byte map, so K2 needs
+//     no global marks, no bin tables and no robot cells in global memory;
+//   * one firing robot is 139 tiles of 1536 cells at 400/200/100 px, so its
+//     fill spreads over every block of the grid, 8 warps each, on all 132
+//     SMs.  Every block of a launch costs its dispatch however little it
+//     does (a gated launch took 2.32 us at 132 blocks, 3.09 at 207, on an
+//     NVIDIA H100 80GB HBM3 at 700 W), and a single robot's fill is gated
+//     off on ~95% of its scans, so the grid is one block an SM for one robot
+//     and up to 4 an SM for a fleet (ops/fill.py::grid_size);
+//   * sqrtf and atan2f are their IEEE fast paths written out (fastpath.cuh,
+//     bit for bit on these integer offsets): nvcc's test-and-call around
+//     each made every cell's root and bin a branch region, so a thread's
+//     cells ran one after another.  A tile's cells are read once, before
+//     its beam pass so that the loads' latency passes under it, and written
+//     where they change;
+//   * endpoints and robot cells round half to even (__float2int_rn, as
+//     dotnet_round); the free test is r_cell < table[bin] - margin.
 //
 // The TPU kernel's cross-product sweep over the bins replaced atan2, which
 // Mosaic lacks; here the bin comes from atan2f, as on JAX's CPU path.
 // Build without --use_fast_math and with -fmad=false (see ops/_build.py).
 
 #include <cuda_runtime.h>
+
+#include "fastpath.cuh"
 
 constexpr int kFillMaxLevels = 4;
 
@@ -57,9 +71,10 @@ struct FillParams {
   int n;                                  // beams per instance
   int cells;                              // map cells per instance
   int batch;                              // instances
+  int grid;                               // blocks of the launch
   int width[kFillMaxLevels];
   int offset[kFillMaxLevels];
-  int block_start[kFillMaxLevels + 1];    // launch B blocks of each level
+  int tile_start[kFillMaxLevels + 1];     // an instance's tiles of each level
   float scale[kFillMaxLevels];            // map pixels per meter
   float lof;                              // log-odds free
   float loo;                              // log-odds occupied
@@ -70,142 +85,217 @@ struct FillParams {
 namespace {
 
 constexpr int kBins = 256;
-constexpr int kCellThreads = 256;
-constexpr int kCellsPerThread = 16;   // a launch B block covers 4096 cells
+constexpr int kThreads = 256;
+constexpr int kTile = 1536;                          // ops/fill.py TILE
+constexpr int kCellsPerThread = kTile / kThreads;
+constexpr int kChunk = 2048;                         // instances ranked at once
+constexpr int kFlagsPerThread = kChunk / kThreads;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kBinScale = 40.74366543152520595f;   // 256 / (2 pi)
 constexpr float kEmpty = 1e9f;
 
+// atan2f's bin; dy and dx are integers, not both zero where the bin is used
 __device__ __forceinline__ int angle_bin(float dy, float dx) {
-  const int b = static_cast<int>((atan2f(dy, dx) + kPi) * kBinScale);
+  const int b = static_cast<int>((atan2_fast(dy, dx) + kPi) * kBinScale);
   return min(max(b, 0), kBins - 1);
 }
 
-__global__ void fill_beams(const float* __restrict__ points,
-                           const unsigned char* __restrict__ valid,
-                           const float* __restrict__ pose,
-                           const float* __restrict__ scan_pose,
-                           const unsigned char* __restrict__ fire,
-                           unsigned char* __restrict__ marks,
-                           float* __restrict__ tables,
-                           int* __restrict__ robot, FillParams p) {
-  __shared__ unsigned int s_tab[kBins];
-  const int level = blockIdx.x;
-  const size_t inst = blockIdx.y;
-  if (fire[inst] == 0) return;              // the whole block: no marks
-  points += inst * p.n * 2;
-  valid += inst * p.n;
-  pose += inst * 3;
-  scan_pose += inst * 3;
-  marks += inst * p.cells;
-  tables += (inst * p.num_levels + level) * kBins;
-  robot += (inst * p.num_levels + level) * 4;
-  const int w = p.width[level];
-  const float scale = p.scale[level];
-  for (int k = threadIdx.x; k < kBins; k += blockDim.x)
-    s_tab[k] = __float_as_uint(kEmpty);
-
-  const float c = cosf(pose[2]), s = sinf(pose[2]);
-  const float tx = pose[0], ty = pose[1];
-  const int bxi = __float2int_rn((c * scan_pose[0] - s * scan_pose[1] + tx) * scale);
-  const int byi = __float2int_rn((s * scan_pose[0] + c * scan_pose[1] + ty) * scale);
-  const bool robot_in = bxi >= 0 && bxi < w && byi >= 0 && byi < w;
+// Exclusive prefix sum of v over the block; *total gets the block's sum.
+// The caller passes a barrier before s_warp is written again.
+__device__ int block_scan(int v, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
   __syncthreads();
-
-  bool any_local = false;
-  for (int b = threadIdx.x; b < p.n; b += blockDim.x) {
-    const float X = points[2 * b], Y = points[2 * b + 1];
-    const int exi = __float2int_rn((c * X - s * Y + tx) * scale);
-    const int eyi = __float2int_rn((s * X + c * Y + ty) * scale);
-    const bool same = exi == bxi && eyi == byi;
-    const bool ok = valid[b] != 0 && !same && robot_in && exi >= 0 &&
-                    exi < w && eyi >= 0 && eyi < w;
-    if (!ok) continue;
-    any_local = true;
-    const float dx = static_cast<float>(exi - bxi);
-    const float dy = static_cast<float>(eyi - byi);
-    const float r = sqrtf(dx * dx + dy * dy);
-    atomicMin(&s_tab[angle_bin(dy, dx)], __float_as_uint(r));
-    marks[p.offset[level] + eyi * w + exi] = 1;
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int t = s_warp[w];
+    if (w < warp) before += t;
+    sum += t;
   }
-  const int any = __syncthreads_or(any_local);
-
-  for (int k = threadIdx.x; k < kBins; k += blockDim.x) {
-    const float t = __uint_as_float(s_tab[k]);
-    tables[k] = t >= kEmpty ? 0.0f : t;
-  }
-  if (threadIdx.x == 0) {
-    robot[0] = bxi;
-    robot[1] = byi;
-    robot[2] = any != 0;
-  }
+  *total = sum;
+  return before + x - v;
 }
 
-__global__ void fill_cells(float* __restrict__ maps,
-                           unsigned char* __restrict__ marks,
-                           const float* __restrict__ tables,
-                           const int* __restrict__ robot,
-                           const unsigned char* __restrict__ fire,
-                           FillParams p) {
-  __shared__ float s_tab[kBins];
-  const size_t inst = blockIdx.y;
-  if (fire[inst] == 0) return;              // the whole block
-  int level = 0;
-  while (level + 1 < p.num_levels &&
-         static_cast<int>(blockIdx.x) >= p.block_start[level + 1])
-    ++level;
-  maps += inst * p.cells;
-  marks += inst * p.cells;
-  tables += (inst * p.num_levels + level) * kBins;
-  robot += (inst * p.num_levels + level) * 4;
-  for (int k = threadIdx.x; k < kBins; k += blockDim.x)
-    s_tab[k] = tables[k];
+// Lists the firing instances of [c0, c0 + kChunk) in s_list in instance
+// order; returns how many fire.
+__device__ int rank_chunk(const unsigned char* __restrict__ fire, int c0,
+                          int batch, int* s_list, int* s_warp) {
+  __syncthreads();                      // s_list and s_warp are free again
+  const int first = c0 + threadIdx.x * kFlagsPerThread;
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < kFlagsPerThread; ++k)
+    if (first + k < batch && fire[first + k] != 0) bits |= 1u << k;
+  int total;
+  int pos = block_scan(__popc(bits), s_warp, &total);
+#pragma unroll
+  for (int k = 0; k < kFlagsPerThread; ++k)
+    if ((bits >> k) & 1u) s_list[pos++] = first + k;
   __syncthreads();
+  return total;
+}
 
-  const int w = p.width[level];
-  const int bxi = robot[0], byi = robot[1];
-  const bool any = robot[2] != 0;
-  const int first = (blockIdx.x - p.block_start[level]) * kCellThreads *
-                    kCellsPerThread + threadIdx.x;
-  for (int k = 0; k < kCellsPerThread; ++k) {
-    const int local = first + k * kCellThreads;   // coalesced in each pass
-    if (local >= w * w) return;
-    const int idx = p.offset[level] + local;
-    const bool occ = marks[idx] != 0;
-    if (occ) marks[idx] = 0;
+__global__ void __launch_bounds__(kThreads)
+fill_kernel(float* __restrict__ maps, const float* __restrict__ points,
+            const unsigned char* __restrict__ valid,
+            const float* __restrict__ pose,
+            const float* __restrict__ scan_pose,
+            const unsigned char* __restrict__ fire, FillParams p) {
+  __shared__ unsigned int s_tab[kBins];     // float bits; kEmpty: no beam
+  __shared__ unsigned int s_mark[kTile / 4];   // a byte a cell of the tile
+  __shared__ int s_list[kChunk];
+  __shared__ int s_warp[kThreads / 32];
+  unsigned char* const mark = reinterpret_cast<unsigned char*>(s_mark);
 
-    const float dx = static_cast<float>(local % w - bxi);
-    const float dy = static_cast<float>(local / w - byi);
-    const float r = sqrtf(dx * dx + dy * dy);
-    const bool is_free = r < s_tab[angle_bin(dy, dx)] - p.margin &&
-                         r > 0.0f && !occ && any;
-    const float v = maps[idx];
-    if (is_free)
-      maps[idx] = v + p.lof;
-    else if (occ && v < p.cap)
-      maps[idx] = v + p.loo;
+  // the firing instances, and this block's share of their work items
+  const int per_inst = p.tile_start[p.num_levels];
+  int n_chunk = 0;
+  long long n_fire;
+  if (p.batch <= kChunk) {
+    n_chunk = rank_chunk(fire, 0, p.batch, s_list, s_warp);
+    n_fire = n_chunk;
+  } else {
+    int cnt = 0;
+    for (int i = threadIdx.x; i < p.batch; i += kThreads) cnt += fire[i] != 0;
+    int total;
+    block_scan(cnt, s_warp, &total);
+    n_fire = total;
+  }
+  const long long items = n_fire * per_inst;
+  const long long lo = items * blockIdx.x / gridDim.x;
+  const long long hi = items * (blockIdx.x + 1) / gridDim.x;
+  if (lo >= hi) return;                     // the whole block
+
+  int key = -1;             // the (instance, level) whose table s_tab holds
+  bool any = false;
+  int bxi = 0, byi = 0;
+  bool robot_in = false;
+  float c = 0.0f, s = 0.0f, tx = 0.0f, ty = 0.0f;
+  long long base = 0;       // items of the chunks before this one
+  for (int c0 = 0; c0 < p.batch && base < hi; c0 += kChunk) {
+    if (p.batch > kChunk) n_chunk = rank_chunk(fire, c0, p.batch, s_list, s_warp);
+    const long long end = base + static_cast<long long>(n_chunk) * per_inst;
+    for (long long item = max(lo, base); item < min(hi, end); ++item) {
+      const int rank = static_cast<int>((item - base) / per_inst);
+      const int t = static_cast<int>(item - base - static_cast<long long>(rank) * per_inst);
+      int level = 0;
+      while (level + 1 < p.num_levels && t >= p.tile_start[level + 1]) ++level;
+      const size_t inst = s_list[rank];
+      const int w = p.width[level];
+      const float scale = p.scale[level];
+      const int tile0 = (t - p.tile_start[level]) * kTile;   // in the level
+      const int k = static_cast<int>(inst) * kFillMaxLevels + level;
+      const bool new_table = k != key;      // the same in every thread
+
+      // the tile's map values, loaded first so that their latency passes
+      // under the beam pass
+      float* m = maps + inst * p.cells + p.offset[level];
+      float v[kCellsPerThread];
+#pragma unroll
+      for (int q = 0; q < kCellsPerThread; ++q) {
+        const int cell = tile0 + q * kThreads + threadIdx.x;
+        v[q] = cell < w * w ? m[cell] : 0.0f;
+      }
+
+      __syncthreads();                      // the last tile is done
+      for (int i = threadIdx.x; i < kTile / 4; i += kThreads) s_mark[i] = 0u;
+      if (new_table) {
+        for (int b = threadIdx.x; b < kBins; b += kThreads)
+          s_tab[b] = __float_as_uint(kEmpty);
+        const float* ps = pose + inst * 3;
+        const float* sp = scan_pose + inst * 3;
+        c = cosf(ps[2]);
+        s = sinf(ps[2]);
+        tx = ps[0];
+        ty = ps[1];
+        bxi = __float2int_rn((c * sp[0] - s * sp[1] + tx) * scale);
+        byi = __float2int_rn((s * sp[0] + c * sp[1] + ty) * scale);
+        robot_in = bxi >= 0 && bxi < w && byi >= 0 && byi < w;
+        key = k;
+      }
+      __syncthreads();
+
+      // the beams: the tile's occupied endpoints and, for a new (instance,
+      // level), its bin table
+      const float* pts = points + inst * p.n * 2;
+      const unsigned char* val = valid + inst * p.n;
+      bool any_local = false;
+      for (int b = threadIdx.x; b < p.n; b += kThreads) {
+        const float X = pts[2 * b], Y = pts[2 * b + 1];
+        const int exi = __float2int_rn((c * X - s * Y + tx) * scale);
+        const int eyi = __float2int_rn((s * X + c * Y + ty) * scale);
+        const bool same = exi == bxi && eyi == byi;
+        const bool ok = val[b] != 0 && !same && robot_in && exi >= 0 &&
+                        exi < w && eyi >= 0 && eyi < w;
+        if (!ok) continue;
+        const int in_tile = eyi * w + exi - tile0;
+        if (in_tile >= 0 && in_tile < kTile) mark[in_tile] = 1;
+        if (new_table) {
+          any_local = true;
+          const float dx = static_cast<float>(exi - bxi);
+          const float dy = static_cast<float>(eyi - byi);
+          const float r = sqrt_fast(dx * dx + dy * dy);
+          atomicMin(&s_tab[angle_bin(dy, dx)], __float_as_uint(r));
+        }
+      }
+      if (new_table)
+        any = __syncthreads_or(any_local) != 0;
+      else
+        __syncthreads();
+
+      // the tile's cells, coalesced in each pass; (row, col) of the first
+      // by one division, then stepped by kThreads cells.  No branch around
+      // a cell's root and bin, so a thread's cells overlap
+      int row = (tile0 + threadIdx.x) / w;
+      int col = tile0 + threadIdx.x - row * w;
+#pragma unroll
+      for (int q = 0; q < kCellsPerThread; ++q) {
+        const int lc = q * kThreads + threadIdx.x;
+        const int cell = tile0 + lc;
+        if (cell >= w * w) break;
+        if (q > 0) {
+          col += kThreads;
+          while (col >= w) {
+            col -= w;
+            ++row;
+          }
+        }
+        const bool occ = mark[lc] != 0;
+        const float dx = static_cast<float>(col - bxi);
+        const float dy = static_cast<float>(row - byi);
+        const float r = sqrt_fast(dx * dx + dy * dy);
+        const float tb = __uint_as_float(s_tab[angle_bin(dy, dx)]);
+        const bool is_free = r < (tb >= kEmpty ? 0.0f : tb) - p.margin &&
+                             r > 0.0f && !occ && any;
+        if (is_free)
+          m[cell] = v[q] + p.lof;
+        else if (occ && v[q] < p.cap)
+          m[cell] = v[q] + p.loo;
+      }
+    }
+    base = end;
   }
 }
 
 }  // namespace
 
-// Launch A over (level, instance), then launch B over (cell blocks of one
-// instance's levels, instance); fire is u8/bool[batch].
-extern "C" int slamnet_fill(float* maps, unsigned char* marks,
-                            const float* points, const unsigned char* valid,
-                            const float* pose, const float* scan_pose,
-                            const unsigned char* fire, float* tables,
-                            int* robot, FillParams p, cudaStream_t stream) {
-  int threads = ((p.n + 31) / 32) * 32;
-  if (threads < 32) threads = 32;
-  if (threads > 1024) threads = 1024;
-  if (p.batch < 1 || p.batch > 65535)
+// One launch of p.grid blocks; fire is u8/bool[batch].
+extern "C" int slamnet_fill(float* maps, const float* points,
+                            const unsigned char* valid, const float* pose,
+                            const float* scan_pose, const unsigned char* fire,
+                            FillParams p, cudaStream_t stream) {
+  if (p.batch < 1 || p.batch > 65535 || p.n < 1 || p.grid < 1 ||
+      p.num_levels < 1 || p.num_levels > kFillMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
-  fill_beams<<<dim3(p.num_levels, p.batch), threads, 0, stream>>>(
-      points, valid, pose, scan_pose, fire, marks, tables, robot, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fill_cells<<<dim3(p.block_start[p.num_levels], p.batch), kCellThreads, 0,
-               stream>>>(maps, marks, tables, robot, fire, p);
+  fill_kernel<<<p.grid, kThreads, 0, stream>>>(maps, points, valid, pose,
+                                               scan_pose, fire, p);
   return static_cast<int>(cudaGetLastError());
 }

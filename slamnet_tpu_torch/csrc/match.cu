@@ -30,16 +30,47 @@
 // 4 neighbours for each of 100-400 beams.  One match is one block on one of
 // the card's 132 SMs, so a single match (K1) is latency-bound by design; the
 // fleet (K5) puts B matches in one launch, B blocks over the SMs, and the
-// card fills with independent chains.
-//
-// What the design does about it:
+// card fills with independent chains.  So the design shortens one
+// iteration (measurements: variants of this kernel as CUDA graphs of 200
+// calls on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6):
 //   * one instance's match is a group of whole warps, one thread per beam
 //     (4 warps for the 100 beams of match_subsample=4, 13 for 400), so each
-//     iteration is one pass over the beams with no loop inside a thread;
-//   * the 11 sums go through warp shuffles, then across the instance's warps
-//     in shared memory; the instance's thread 0 solves and publishes the pose
-//     through shared memory, and one __syncthreads() ends the iteration — two
-//     barriers per iteration, every level in the same launch;
+//     iteration is one pass over the beams with no loop inside a thread.
+//     Fewer warps, 2 or 4 beams a thread, were slower (1.83 and 2.49 us an
+//     iteration against 1.53); so was spreading one match over a thread
+//     block cluster of 2-8 SMs (the cluster barrier and the remote reads of
+//     the partials cost more than the spread saved);
+//   * a beam's four neighbours are read-only loads (__ldg) issued together,
+//     and stay in L1 from one iteration to the next; the sigmoid's
+//     reciprocal is the IEEE one's fast path (fastpath.cuh).  nvcc wraps
+//     1.0f / x in a range test and a call to its slow path, a branch region
+//     a division, and the four neighbours' loads and sigmoids then ran one
+//     after another: 1.53 us an iteration, 1.24 without.  The SFU's __expf
+//     and __fdividef (with __sincosf) were tried on the bf16 table: one of
+//     the fleet's 64 robots then converged elsewhere, its residual 10% from
+//     the plain version's (bound 5%);
+//   * each warp reduces its 11 sums with a transposed butterfly: each of 4
+//     rounds halves the slots a lane holds and doubles the lanes sharing a
+//     slot (16 shuffles in all, where 11 separate warp sums took 55); lane
+//     2j then holds the warp's sum j and writes it to shared memory;
+//   * ONE __syncthreads an iteration: the partials are double-buffered by the
+//     parity of a running iteration count, so a warp that runs ahead writes
+//     the other buffer, and it cannot come round to this one before every
+//     warp has passed the next barrier, i.e. finished reading;
+//   * after the barrier every warp of the instance reduces the instance's
+//     partials itself (lane (j, h) sums sum j over the warps of parity h, one
+//     shuffle joins the halves, 11 shuffles broadcast the totals) and solves
+//     the 3x3 system itself.  Every warp reads the same partials in the same
+//     fixed order, so every thread holds the same pose bit for bit: no
+//     publish through shared memory, no second barrier.  (The first warp
+//     alone solving, with a second barrier, measured the same.)
+//   * the one-instance launches (K1, K3, K5, the batched K3, K6 up to 512
+//     threads) are instantiated under __launch_bounds__(512) and built with
+//     -maxrregcount=128 (ops/_build.py): ptxas kept them to 64 registers and
+//     spilled otherwise (1.35 us an iteration against 1.24).  Blocks of up
+//     to 1024 threads (K6 at g_pack 8, or more than 512 beams) take the
+//     1024-thread instantiation and its 64-register cap.  Registers never
+//     change a result, so both compute the same bits;
 //   * K5: blockIdx.x is the instance.  Each block reads its own pyramid at
 //     maps + b*cells (size_t offsets), its own points, valid and hint, and
 //     writes out[b, 0:6].  K1 is the launch with batch = 1;
@@ -75,11 +106,16 @@
 // f32[6] per instance: x, y, theta (world), solve failures, and the residual
 // sum and in-bounds beam count of the last iteration of the finest level.
 //
-// Build without --use_fast_math (sinf, cosf, expf and the division stay
-// IEEE-accurate) and with -fmad=false (see ops/_build.py).
+// Build without --use_fast_math (sincosf, expf and the division stay
+// IEEE-accurate) and with -fmad=false (see ops/_build.py): allowing FMAs
+// here took 4% off an iteration (1.469 us against 1.531, measured before the
+// reciprocal's fast path), too little for a second rounding regime beside
+// the plain version's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "fastpath.cuh"
 
 constexpr int kMatchMaxLevels = 4;
 
@@ -108,17 +144,28 @@ struct MatchParams {
 namespace {
 
 constexpr int kSums = 11;          // dTr[3], H upper triangle[6], resid, n_in
+constexpr int kSlots = 16;         // kSums padded to the butterfly's 2^4
 constexpr int kBeamsPerThread = 4;
 constexpr int kMaxPack = 8;
+constexpr int kSmallBlock = 512;   // the one-instance launches' bound
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
 // A table entry as the matcher reads it: through bf16 rounding (K1, K5, K6)
-// or as it is (K3), then the occupancy probability 1 / (1 + e^-v).
+// or as it is (K3), then the occupancy probability 1 / (1 + e^-v).  The
+// reciprocal is the IEEE one's fast path (fastpath.cuh), which agrees with
+// the division while 1 + e^-v <= 2^126, i.e. for every map value above
+// -87.3.  Below, it gives 0 where the division gives a subnormal under
+// 1.2e-38, and below -88.72 e^-v overflows to +inf, whose fast-path
+// reciprocal would be NaN: the operand is clamped to 2^127, whose
+// reciprocal is 0, as 1 / inf is.  Nothing bounds a free cell's log-odds
+// from below, so long runs reach that range.  (A NaN map value, never
+// written by the map updates, gives 0 here and NaN in the plain version.)
 template <bool kF32Table>
 __device__ __forceinline__ float prob(float v) {
   const float t = kF32Table ? v : __bfloat162float(__float2bfloat16_rn(v));
-  return 1.0f / (1.0f + expf(-t));
+  return recip_fast(fminf(1.0f + expf(-t), 0x1p127f));
 }
 
 // jnp.clip semantics: a NaN stays NaN.
@@ -133,21 +180,26 @@ __device__ __forceinline__ float floor_mod(float x, float y) {
   return r;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+// One butterfly round over the low 2*h slots: the lanes with bit `o` set
+// keep the upper half, the others the lower, and each adds its partner's.
+template <int h>
+__device__ __forceinline__ void fold(float (&a)[kSlots], int lane, int o) {
+  const bool up = (lane & o) != 0;
+#pragma unroll
+  for (int i = 0; i < h; ++i) {
+    const float send = up ? a[i] : a[i + h];
+    const float keep = up ? a[i + h] : a[i];
+    a[i] = keep + __shfl_xor_sync(kFull, send, o);
+  }
 }
 
-// 1024 threads (K6 at g_pack 8, or K1 above 992 beams) may run only when a
-// thread keeps to 64 registers: the bound makes the compiler keep to them.
-template <bool kF32Table>
-__global__ void __launch_bounds__(1024)
+template <bool kF32Table, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
 match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
              const unsigned char* __restrict__ valid,
              const float* __restrict__ pose0, float* __restrict__ out,
              MatchParams p) {
-  __shared__ float s_part[32][kSums];
-  __shared__ float s_pose[kMaxPack][3];
+  __shared__ float s_part[2][32][kSums];   // [iteration parity][warp][sum]
   __shared__ int s_any[32];
 
   // this thread's instance g of the block's g_pack, and its place in it
@@ -182,12 +234,15 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
     any_local = false;
     for (int i = tid; i < p.n_points; i += lthreads) any_local |= valid[i] != 0;
   }
-  const bool any_warp = __any_sync(0xffffffffu, any_local);
+  const bool any_warp = __any_sync(kFull, any_local);
   if (lane == 0) s_any[warp] = any_warp;
-  __syncthreads();
 
+  // every thread of the instance carries the same pose and stats
   float px = pose0[0], py = pose0[1], th = pose0[2];
-  float fails = 0.0f, resid = 0.0f, n_in = 0.0f;   // kept by tid 0
+  float fails = 0.0f, resid = 0.0f, n_in = 0.0f;
+  int parity = 0;
+  const float* __restrict__ part = &s_part[0][g * wpi][0];
+  const int j_sum = lane >> 1;       // the sum this lane reduces across warps
 
   for (int level = p.num_levels - 1; level >= 0; --level) {
     const int w = p.width[level];
@@ -197,12 +252,15 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
     float ex = px * scale;
     float ey = py * scale;
 
-    for (int it = 0; it < p.iters[level]; ++it) {
-      const float sr = sinf(th) * scale;
-      const float cr = cosf(th) * scale;
-      float acc[kSums];
+    const int iters = p.iters[level];
+    for (int it = 0; it < iters; ++it, parity ^= 1) {
+      float sn, cs;
+      sincosf(th, &sn, &cs);
+      const float sr = sn * scale;
+      const float cr = cs * scale;
+      float a[kSlots];
 #pragma unroll
-      for (int j = 0; j < kSums; ++j) acc[j] = 0.0f;
+      for (int j = 0; j < kSlots; ++j) a[j] = 0.0f;
 
 #pragma unroll
       for (int k = 0; k < kBeamsPerThread; ++k) {
@@ -216,10 +274,12 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
         const int xi = min(max(static_cast<int>(mx), 0), w - 2);
         const int yi = min(max(static_cast<int>(my), 0), w - 2);
         const float* c = tab + yi * w + xi;
-        const float v0 = prob<kF32Table>(c[0]);
-        const float v1 = prob<kF32Table>(c[1]);
-        const float v2 = prob<kF32Table>(c[w]);
-        const float v3 = prob<kF32Table>(c[w + 1]);
+        const float t0 = __ldg(c), t1 = __ldg(c + 1);
+        const float t2 = __ldg(c + w), t3 = __ldg(c + w + 1);
+        const float v0 = prob<kF32Table>(t0);
+        const float v1 = prob<kF32Table>(t1);
+        const float v2 = prob<kF32Table>(t2);
+        const float v3 = prob<kF32Table>(t3);
         const float fx = mx - static_cast<float>(xi);
         const float fy = my - static_cast<float>(yi);
         const float xf = 1.0f - fx;
@@ -229,82 +289,86 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
         const float gy = ok ? -((v0 - v2) * yf + (v1 - v3) * fy) : 0.0f;
         const float fun = ok ? 1.0f - val : 0.0f;
         const float rot = (-sr * X - cr * Y) * gx + (cr * X - sr * Y) * gy;
-        acc[0] += gx * fun;
-        acc[1] += gy * fun;
-        acc[2] += rot * fun;
-        acc[3] += gx * gx;
-        acc[4] += gx * gy;
-        acc[5] += gx * rot;
-        acc[6] += gy * gy;
-        acc[7] += gy * rot;
-        acc[8] += rot * rot;
-        acc[9] += fun * fun;
-        acc[10] += ok ? 1.0f : 0.0f;
+        a[0] += gx * fun;
+        a[1] += gy * fun;
+        a[2] += rot * fun;
+        a[3] += gx * gx;
+        a[4] += gx * gy;
+        a[5] += gx * rot;
+        a[6] += gy * gy;
+        a[7] += gy * rot;
+        a[8] += rot * rot;
+        a[9] += fun * fun;
+        a[10] += ok ? 1.0f : 0.0f;
       }
 
-#pragma unroll
-      for (int j = 0; j < kSums; ++j) {
-        const float v = warp_sum(acc[j]);
-        if (lane == 0) s_part[warp][j] = v;
-      }
+      // the warp's 11 sums: after the rounds over lane bits 4, 3, 2, 1,
+      // lanes 2j and 2j+1 hold halves of slot j; bit 0 joins them
+      fold<8>(a, lane, 16);
+      fold<4>(a, lane, 8);
+      fold<2>(a, lane, 4);
+      fold<1>(a, lane, 2);
+      a[0] += __shfl_xor_sync(kFull, a[0], 1);
+      if ((lane & 1) == 0 && j_sum < kSums) s_part[parity][warp][j_sum] = a[0];
       __syncthreads();
 
-      if (tid < 32) {   // the instance's first warp sums over its warps
-        float r[kSums];
+      // the instance's sums, the same order in every warp: lane (j, h) adds
+      // sum j of warps h, h+2, ...; the halves join, then every lane takes
+      // every total
+      const float* pp = part + parity * (32 * kSums);
+      float t = 0.0f;
+      if (j_sum < kSums)
+        for (int wv = lane & 1; wv < wpi; wv += 2) t += pp[wv * kSums + j_sum];
+      t += __shfl_xor_sync(kFull, t, 1);
+      float r[kSums];
 #pragma unroll
-        for (int j = 0; j < kSums; ++j)
-          r[j] = warp_sum(lane < wpi ? s_part[g * wpi + lane][j] : 0.0f);
-        if (tid == 0) {
-          const float d0 = r[0], d1 = r[1], d2 = r[2];
-          float H00 = r[3], H01 = r[4], H02 = r[5];
-          float H11 = r[6], H12 = r[7], H22 = r[8];
-          if (p.damping > 0.0f) {
-            H00 = H00 * (1.0f + p.damping);
-            H11 = H11 * (1.0f + p.damping);
-            H22 = H22 * (1.0f + p.damping);
-          }
-          const float a0 = H11 * H22 - H12 * H12;
-          const float a1 = H02 * H12 - H01 * H22;
-          const float a2 = H01 * H12 - H02 * H11;
-          const float det = H00 * a0 + H01 * a1 + H02 * a2;
-          const float b1 = H00 * H22 - H02 * H02;
-          const float b2 = H01 * H02 - H00 * H12;
-          const float c2 = H00 * H11 - H01 * H01;
-          const bool ok = H00 != 0.0f && H11 != 0.0f && det != 0.0f &&
-                          isfinite(det);
-          const float inv = ok ? 1.0f / det : 0.0f;
-          float s0 = (a0 * d0 + a1 * d1 + a2 * d2) * inv;
-          float s1 = (a1 * d0 + b1 * d1 + b2 * d2) * inv;
-          if (p.xy_clamp > 0.0f) {
-            s0 = clip(s0, -p.xy_clamp, p.xy_clamp);
-            s1 = clip(s1, -p.xy_clamp, p.xy_clamp);
-          }
-          const float s2 = clip((a2 * d0 + b2 * d1 + c2 * d2) * inv,
-                                -p.deriv_clamp, p.deriv_clamp);
-          s_pose[g][0] = ex + s0;
-          s_pose[g][1] = ey + s1;
-          s_pose[g][2] = th + s2;
-          fails += ok ? 0.0f : 1.0f;
-          resid = r[9];
-          n_in = r[10];
-        }
+      for (int j = 0; j < kSums; ++j) r[j] = __shfl_sync(kFull, t, 2 * j);
+
+      const float d0 = r[0], d1 = r[1], d2 = r[2];
+      float H00 = r[3], H01 = r[4], H02 = r[5];
+      float H11 = r[6], H12 = r[7], H22 = r[8];
+      if (p.damping > 0.0f) {
+        H00 = H00 * (1.0f + p.damping);
+        H11 = H11 * (1.0f + p.damping);
+        H22 = H22 * (1.0f + p.damping);
       }
-      __syncthreads();
-      ex = s_pose[g][0];
-      ey = s_pose[g][1];
-      th = s_pose[g][2];
+      const float a0 = H11 * H22 - H12 * H12;
+      const float a1 = H02 * H12 - H01 * H22;
+      const float a2 = H01 * H12 - H02 * H11;
+      const float det = H00 * a0 + H01 * a1 + H02 * a2;
+      const float b1 = H00 * H22 - H02 * H02;
+      const float b2 = H01 * H02 - H00 * H12;
+      const float c2 = H00 * H11 - H01 * H01;
+      const bool ok = H00 != 0.0f && H11 != 0.0f && det != 0.0f &&
+                      isfinite(det);
+      const float inv = ok ? 1.0f / det : 0.0f;
+      float s0 = (a0 * d0 + a1 * d1 + a2 * d2) * inv;
+      float s1 = (a1 * d0 + b1 * d1 + b2 * d2) * inv;
+      if (p.xy_clamp > 0.0f) {
+        s0 = clip(s0, -p.xy_clamp, p.xy_clamp);
+        s1 = clip(s1, -p.xy_clamp, p.xy_clamp);
+      }
+      const float s2 = clip((a2 * d0 + b2 * d1 + c2 * d2) * inv,
+                            -p.deriv_clamp, p.deriv_clamp);
+      ex += s0;
+      ey += s1;
+      th += s2;
+      fails += ok ? 0.0f : 1.0f;
+      resid = r[9];
+      n_in = r[10];
     }
 
     // heading wrap to (-pi, pi] (MathEx.NormalizeAngle), map px -> world
-    const float a = floor_mod(floor_mod(th, kTwoPi) + kTwoPi, kTwoPi);
-    th = a > kPi ? a - kTwoPi : a;
+    const float wrapped = floor_mod(floor_mod(th, kTwoPi) + kTwoPi, kTwoPi);
+    th = wrapped > kPi ? wrapped - kTwoPi : wrapped;
     px = ex / scale;
     py = ey / scale;
   }
 
+  __syncthreads();   // s_any, even when no level iterates
   if (tid == 0) {
     bool any_valid = false;
-    for (int w = 0; w < wpi; ++w) any_valid |= s_any[g * wpi + w] != 0;
+    for (int wv = 0; wv < wpi; ++wv) any_valid |= s_any[g * wpi + wv] != 0;
     // empty scan: the hint comes back (ScanMatcher.cs:82-83)
     out[0] = any_valid ? px : pose0[0];
     out[1] = any_valid ? py : pose0[1];
@@ -315,10 +379,25 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
   }
 }
 
+template <bool kF32Table>
+cudaError_t launch(int blocks, int threads, const float* maps,
+                   const float* points, const unsigned char* valid,
+                   const float* pose0, float* out, const MatchParams& p,
+                   cudaStream_t stream) {
+  if (threads <= kSmallBlock)
+    match_kernel<kF32Table, kSmallBlock><<<blocks, threads, 0, stream>>>(
+        maps, points, valid, pose0, out, p);
+  else
+    match_kernel<kF32Table, 1024><<<blocks, threads, 0, stream>>>(
+        maps, points, valid, pose0, out, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of batch / g_pack blocks, each of g_pack instances' threads;
-// the f32 instantiation (K3) when p.table_f32, else the bf16 one.
+// the f32 instantiation (K3) when p.table_f32, else the bf16 one; the
+// 512-thread bound when the block allows it, else the 1024-thread one.
 extern "C" int slamnet_match(const float* maps, const float* points,
                              const unsigned char* valid, const float* pose0,
                              float* out, MatchParams p, cudaStream_t stream) {
@@ -328,12 +407,11 @@ extern "C" int slamnet_match(const float* maps, const float* points,
   if (p.g_pack < 1 || p.g_pack > kMaxPack || p.batch < 1 ||
       p.batch % p.g_pack != 0 || threads * p.g_pack > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(p.batch / p.g_pack), block(threads * p.g_pack);
-  if (p.table_f32)
-    match_kernel<true><<<grid, block, 0, stream>>>(maps, points, valid, pose0,
-                                                   out, p);
-  else
-    match_kernel<false><<<grid, block, 0, stream>>>(maps, points, valid,
-                                                    pose0, out, p);
-  return static_cast<int>(cudaGetLastError());
+  const int blocks = p.batch / p.g_pack;
+  const cudaError_t err =
+      p.table_f32 ? launch<true>(blocks, threads * p.g_pack, maps, points,
+                                 valid, pose0, out, p, stream)
+                  : launch<false>(blocks, threads * p.g_pack, maps, points,
+                                  valid, pose0, out, p, stream);
+  return static_cast<int>(err);
 }

@@ -32,6 +32,15 @@ LIB_NAME = "libslamnet_kernels.so"
 # agree between the kernels and their plain versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+# per source: the match kernel's 512-thread instantiation uses up to 128
+# registers (ptxas otherwise keeps it to 64 and spills); its 1024-thread one
+# stays at 64 by its launch bounds
+SOURCE_FLAGS = {"match.cu": ("-maxrregcount=128",)}
+
+
+def flags(src: Path) -> tuple[str, ...]:
+    """nvcc's flags for one source."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(src.name, ())
 
 
 def _nvcc() -> str:
@@ -58,6 +67,10 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels unless this exact build exists; returns the
     library path and nvcc's output (``-Xptxas=-v`` register/shared-memory
@@ -65,8 +78,10 @@ def build() -> tuple[Path, str]:
     _check_device()
     nvcc = _nvcc()
     srcs = sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
     for src in srcs:
+        h.update(" ".join(flags(src)).encode())
+    for src in srcs + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -77,7 +92,7 @@ def build() -> tuple[Path, str]:
     tag = f"{os.getpid()}.tmp"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     tmp = out_dir / f"{LIB_NAME}.{tag}"
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+    cmds = [[nvcc, *flags(s), "-c", "-o", str(o), str(s)]
             for s, o in zip(srcs, objs)]
     link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     try:

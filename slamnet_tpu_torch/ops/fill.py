@@ -7,13 +7,18 @@ applies one scan to every level of the concatenated pyramid ``maps`` IN
 PLACE, gated by the device-side flag ``do_update`` (the JAX pipeline's
 ``lax.cond`` at ``models/hector.py:324``); ``update_maps_batch`` does the
 same for a fleet's flat f32[B*C] maps, instance b gated by ``fire[b]`` (the
-fleet's scan-over-instances ``lax.cond``, ``models/fleet.py:244-266``).  Two
-launches a scan or batch-scan, the single robot being the batch of one, and
+fleet's scan-over-instances ``lax.cond``, ``models/fleet.py:244-266``).  One
+launch a scan or batch-scan, the single robot being the batch of one, and
 the host never waits.
 
-``marks`` u8 (one byte a cell) is the kernel's occupied-endpoint scratch:
-all zero between scans (launch A sets a firing instance's marks, launch B
-reads and clears them).
+The launch is a work list on the device: ``grid_size`` blocks, from B and
+the card's SM count, rank the firing instances themselves and split the
+(firing instance, level, tile of ``TILE`` cells) items between them in
+contiguous, even shares; ``tile_starts`` numbers an instance's
+tiles level by level.  Bin tables and occupied marks live in each block's
+shared memory, so K2 uses no global scratch: ``marks`` is K4's scratch
+(``ops/line.py``), taken here so that both map updates have one signature,
+and left as it is.
 
 ``update_maps_batch_plain`` is the plain version: the ported
 ``ops/logodds.py::update_occupancy_dense`` applied per level, vectorized over
@@ -32,10 +37,10 @@ from . import _build
 from .logodds import update_occupancy_dense
 
 MAX_LEVELS = 4
-MAX_BATCH = 65535         # gridDim.y of both launches
+MAX_BATCH = 65535         # instances a launch (and K4's gridDim.y)
 ANGLE_BINS = 256          # logodds.update_occupancy_dense's default
-CELL_BLOCK = 256 * 16     # launch B cells a block (csrc/fill.cu kCellThreads
-                          # x kCellsPerThread)
+TILE = 1536               # cells a work item (csrc/fill.cu kTile)
+BLOCKS_PER_SM = 4         # blocks a launch gives each SM at most
 
 
 class _FillParams(ctypes.Structure):
@@ -43,23 +48,46 @@ class _FillParams(ctypes.Structure):
 
     _fields_ = [("num_levels", ctypes.c_int), ("n", ctypes.c_int),
                 ("cells", ctypes.c_int), ("batch", ctypes.c_int),
+                ("grid", ctypes.c_int),
                 ("width", ctypes.c_int * MAX_LEVELS),
                 ("offset", ctypes.c_int * MAX_LEVELS),
-                ("block_start", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("tile_start", ctypes.c_int * (MAX_LEVELS + 1)),
                 ("scale", ctypes.c_float * MAX_LEVELS),
                 ("lof", ctypes.c_float), ("loo", ctypes.c_float),
                 ("cap", ctypes.c_float), ("margin", ctypes.c_float)]
 
 
+def tile_starts(level_sizes) -> list[int]:
+    """An instance's work items level by level: level l's tiles of ``TILE``
+    cells are items ``[starts[l], starts[l+1])``, tile k covering the
+    level's cells ``[k*TILE, min((k+1)*TILE, w*w))``."""
+    starts = [0]
+    for w in level_sizes:
+        starts.append(starts[-1] + -(-w * w // TILE))
+    return starts
+
+
+def grid_size(batch: int, items_per_instance: int, sms: int) -> int:
+    """Blocks of a launch: one an SM a robot, up to BLOCKS_PER_SM an SM, and
+    no more than B instances have items; never a function of how many fire.
+    Every block costs its dispatch on every call, firing or not, so one
+    robot (gated off on most scans) gets one block an SM."""
+    return max(1, min(batch * items_per_instance,
+                      min(batch, BLOCKS_PER_SM) * sms))
+
+
 @functools.cache
-def _params(cfg: HectorConfig, n: int, batch: int) -> _FillParams:
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _params(cfg: HectorConfig, n: int, batch: int, sms: int) -> _FillParams:
     nl = cfg.num_levels
     pad = [0] * (MAX_LEVELS - nl)
-    starts = [0]
-    for w in cfg.level_sizes:
-        starts.append(starts[-1] + -(-w * w // CELL_BLOCK))
+    starts = tile_starts(cfg.level_sizes)
     return _FillParams(
-        nl, n, cfg.total_cells, batch,
+        nl, n, cfg.total_cells, batch, grid_size(batch, starts[-1], sms),
         (ctypes.c_int * MAX_LEVELS)(*cfg.level_sizes, *pad),
         (ctypes.c_int * MAX_LEVELS)(*cfg.level_offsets, *pad),
         (ctypes.c_int * (MAX_LEVELS + 1))(*starts, *pad),
@@ -73,7 +101,7 @@ def _params(cfg: HectorConfig, n: int, batch: int) -> _FillParams:
 def _launcher():
     lib = _build.library()[0]
     fn = lib.slamnet_fill
-    fn.argtypes = [ctypes.c_void_p] * 9 + [_FillParams, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [_FillParams, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -84,18 +112,14 @@ def _check_levels(cfg: HectorConfig, kernel: str = "K2") -> None:
                          f"{cfg.num_levels}")
 
 
-def _launch(what: str, maps, marks, points, valid, poses, scan_poses, fire,
+def _launch(what: str, maps, points, valid, poses, scan_poses, fire,
             cfg: HectorConfig, batch: int) -> None:
     dev = maps.device
-    tables = torch.empty((batch, cfg.num_levels, ANGLE_BINS),
-                         dtype=torch.float32, device=dev)
-    robot = torch.empty((batch, cfg.num_levels, 4), dtype=torch.int32,
-                        device=dev)
-    code = _launcher()(maps.data_ptr(), marks.data_ptr(), points.data_ptr(),
-                       valid.data_ptr(), poses.data_ptr(),
-                       scan_poses.data_ptr(), fire.data_ptr(),
-                       tables.data_ptr(), robot.data_ptr(),
-                       _params(cfg, points.shape[-2], batch),
+    code = _launcher()(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
+                       poses.data_ptr(), scan_poses.data_ptr(),
+                       fire.data_ptr(),
+                       _params(cfg, points.shape[-2], batch,
+                               _sm_count(dev.index)),
                        _build.stream_handle(dev))
     _build.raise_on_error(code, what)
 
@@ -123,8 +147,7 @@ def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
         ("do_update", do_update, torch.bool, ())))
     if n < 1:
         raise ValueError("K2 needs at least one beam")
-    _launch("K2 fill", maps, marks, points, valid, pose, scan_pose, do_update,
-            cfg, 1)
+    _launch("K2 fill", maps, points, valid, pose, scan_pose, do_update, cfg, 1)
     update_maps.launches += 1
     return maps
 
@@ -174,8 +197,8 @@ def update_maps_batch(maps: torch.Tensor, marks: torch.Tensor,
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_batch_plain(maps, points, valid, poses,
                                                   scan_poses, fire, cfg))
-    _launch("K2 fill_batch", maps, marks, points, valid, poses, scan_poses,
-            fire, cfg, b)
+    _launch("K2 fill_batch", maps, points, valid, poses, scan_poses, fire,
+            cfg, b)
     update_maps_batch.launches += 1
     return maps
 

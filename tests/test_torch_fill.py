@@ -115,3 +115,64 @@ def test_update_maps_all_levels_matches_jax_update_maps():
     again = maps.clone()
     fill.update_maps(maps, marks, *args, torch.tensor(False), cfg)
     assert torch.equal(maps, again)
+
+
+@pytest.mark.parametrize("sizes", [(400, 200, 100), (65, 33, 17)])
+@pytest.mark.parametrize("batch", [1, 64, 300])
+def test_fill_work_items_cover_every_cell_once(sizes, batch):
+    # the wrapper's schedule (_params): an instance's tiles cover each
+    # level's cells once, and the grid stays within the items of B robots
+    # and BLOCKS_PER_SM an SM
+    starts = fill.tile_starts(sizes)
+    for level, w in enumerate(sizes):
+        cover = np.zeros(w * w, int)
+        for t in range(starts[level], starts[level + 1]):
+            k = t - starts[level]
+            cover[k * fill.TILE:min((k + 1) * fill.TILE, w * w)] += 1
+        assert (cover == 1).all(), (level, w)
+    per = starts[-1]
+    grid = fill.grid_size(batch, per, sms=132)
+    assert 1 <= grid <= min(batch * per, fill.BLOCKS_PER_SM * 132)
+    cfg = pallas_dense_config()
+    p = fill._params(cfg, 400, batch, 132)
+    nl = cfg.num_levels
+    assert list(p.tile_start)[:nl + 1] == fill.tile_starts(cfg.level_sizes)
+    assert p.grid == fill.grid_size(batch, p.tile_start[nl], 132)
+
+
+def test_one_firing_robot_fills_the_card():
+    # one robot at 400/200/100 px has at least as many work items as blocks,
+    # one block on each of the H100's 132 SMs, so every block takes an item
+    per = fill.tile_starts((400, 200, 100))[-1]
+    grid = fill.grid_size(1, per, sms=132)
+    assert 132 == grid <= per
+
+
+def test_cpu_wrappers_never_build_the_kernels(monkeypatch):
+    # CPU tensors take the plain versions: no nvcc, no library is asked for
+    from slamnet_tpu_torch.ops import _build, line, match
+
+    def refuse():
+        raise AssertionError("a CPU call reached the kernel build")
+    monkeypatch.setattr(_build, "library", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    cfg = pallas_dense_config(map_size=64, map_resolution=0.8, num_levels=2,
+                              estimate_iterations=(2, 2))
+    _, pts, valid, _ = _case(8, 64, n=40)
+    b = 2
+    maps = torch.zeros(b * cfg.total_cells)
+    marks = torch.zeros(b * cfg.total_cells, dtype=torch.uint8)
+    p = torch.from_numpy(np.stack([pts, pts]))
+    v = torch.from_numpy(np.stack([valid, valid]))
+    poses = torch.tensor([[25.0, 25.0, 0.1], [26.0, 24.0, -0.2]])
+    zeros, fire = torch.zeros(b, 3), torch.tensor([True, False])
+    fill.update_maps(maps[:cfg.total_cells], marks[:cfg.total_cells], p[0],
+                     v[0], poses[0], zeros[0], torch.tensor(True), cfg)
+    fill.update_maps_batch(maps, marks, p, v, poses, zeros, fire, cfg)
+    line.update_maps_line_batch(maps, marks, p, v, poses, zeros, fire,
+                                cfg.overlay({"dense_free_fill": False}))
+    assert match.match(maps[:cfg.total_cells], p[0], v[0], poses[0],
+                       cfg).shape == (6,)
+    assert match.match_batch(maps, p, v, poses, cfg).shape == (b, 6)
+    assert match.match_packed(maps, p, v, poses, cfg, 2).shape == (b, 6)
+    assert torch.isfinite(maps).all() and (maps != 0).any()
