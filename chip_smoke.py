@@ -26,8 +26,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 a bootstrapped map and of random maps: identical occupied
                 increments, at most 0.1% of cells per level differing, each
                 by |log_odds_free|; do_update=0 leaves the maps bit for bit;
-                the marks (K4's scratch) stay all zero; timed firing and
-                gated;
+                timed firing and gated;
   5. slice    — the pallas_dense replay of 10 + 512 loop scans through the
                 kernels (the 10 bootstrap scans in the fixed config, as the
                 bench does): one K1 and one K2 call per replayed scan (launch
@@ -45,7 +44,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
   8. K2 batch — the batched fill against its plain version on the fleet's
                 maps and random maps, fire masks all / none / ~1 in 18: the
                 K2 checks per instance and level, non-firing robots
-                untouched bit for bit, marks all zero; the same at B = 300
+                untouched bit for bit; the same at B = 300
                 robots (the fleet's robots repeated, 252 MB of maps: more
                 work items than blocks) and at B = 5000 robots on a
                 64/32/16-px pyramid (more robots than one block ranks at
@@ -71,12 +70,20 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 within the same tolerances (on its maps with free cells at
                 -100 and -1e4 too), and K5 on the same inputs outside the
                 residual bound on some robot of each case;
- 11. K4       — the line update against its plain version on all 3 levels of
-                the fixed-mode map and of random maps, bit for bit;
-                do_update=0 leaves the maps bit for bit; marks all zero after
-                every call; the batched K4 on the fleet's and random maps,
-                fire masks all / none / ~1 in 18, bit for bit, non-firing
-                robots untouched;
+ 11. K4       — no global scratch (no map update takes a marks tensor, the
+                state carries none); the line update against its plain
+                version on all 3 levels of the fixed-mode map and of random
+                maps, of a scan whose beams run along the axes and the
+                tiles' edges (from a tile corner and a tile's last column)
+                and of a robot outside the map, bit for bit, its other
+                inputs untouched; do_update=0 leaves the maps bit for bit;
+                the batched K4 on the fleet's and random maps, fire masks
+                all / none / ~1 in 18, a robot outside the map, B = 300
+                robots (more work items than blocks) and B = 5000 robots on
+                a 64/32/16-px pyramid (more robots than one block ranks at
+                once) x the same masks, bit for bit, non-firing robots
+                untouched; timed firing / gated, and at 64 robots none /
+                ~1 in 18 / all firing;
  12. fixed    — the fixed replay of 10 + 512 loop scans: one K3 and one K4
                 call per replayed scan (no K1, no K2), ATE <=
                 JAX_FIXED_REF_ATE_M + 1e-4 (bench.py:256's slack) and max
@@ -96,6 +103,7 @@ cells it changes) over 3.35 TB/s and its
 f32 operations over 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W), and
 library_ms null: no single PyTorch call computes any of these functions.
 """
+import inspect
 import json
 import subprocess
 import sys
@@ -456,14 +464,12 @@ def main() -> int:
     k2_scan = sim_scan(pose)
     k2_before = fill.update_maps.launches
     for name, base in (("bootstrapped", maps), ("random", rand_maps)):
-        marks = torch.zeros(cfg.total_cells, dtype=torch.uint8, device=dev)
         mk = base.clone()
-        fill.update_maps(mk, marks, k2_scan.points, k2_scan.valid, pose,
-                         zero3, yes, cfg)
+        fill.update_maps(mk, k2_scan.points, k2_scan.valid, pose, zero3, yes,
+                         cfg)
         mp = fill.update_maps_plain(base, k2_scan.points, k2_scan.valid, pose,
                                     zero3, yes, cfg)
         check(bool(torch.isfinite(mk).all()), f"K2 {name}: maps not finite")
-        check(int(marks.sum()) == 0, f"K2 {name}: marks not zero")
         dk, dp = mk - base, mp - base
         for level in range(cfg.num_levels):
             off, w = cfg.level_offsets[level], cfg.level_sizes[level]
@@ -485,20 +491,18 @@ def main() -> int:
         check(bool((dk < 0).any()), f"K2 {name}: no free cell marked")
         k2_cells[name] = int((mk != base).sum())
         k2_err = max(k2_err, float((mk - mp).abs().max()))
-        # do_update = 0: maps unchanged bit for bit, marks cleared all the same
+        # do_update = 0: maps unchanged bit for bit
         mz = base.clone()
-        fill.update_maps(mz, marks, k2_scan.points, k2_scan.valid, pose, zero3,
-                         no, cfg)
+        fill.update_maps(mz, k2_scan.points, k2_scan.valid, pose, zero3, no,
+                         cfg)
         check(torch.equal(mz, base), f"K2 {name}: do_update=0 changed the maps")
-        check(int(marks.sum()) == 0, f"K2 {name}: marks not zero (gated)")
     torch.cuda.synchronize()
     check(fill.update_maps.launches - k2_before == 4, "K2 launch count")
-    marks = torch.zeros(cfg.total_cells, dtype=torch.uint8, device=dev)
     mt = maps.clone()
 
     def k2():
-        return fill.update_maps(mt, marks, k2_scan.points, k2_scan.valid, pose,
-                                zero3, yes, cfg)
+        return fill.update_maps(mt, k2_scan.points, k2_scan.valid, pose, zero3,
+                                yes, cfg)
 
     def k2_plain():
         return fill.update_maps_plain(mt, k2_scan.points, k2_scan.valid, pose,
@@ -509,8 +513,7 @@ def main() -> int:
     k2_eager = eager_ms(torch, k2, REPS_KERNEL)
     k2_plain_eager = eager_ms(torch, k2_plain, REPS_PLAIN)
     k2_gated_ms = graph_ms(torch, lambda: fill.update_maps(
-        mt, marks, k2_scan.points, k2_scan.valid, pose, zero3, no, cfg),
-        REPS_KERNEL)
+        mt, k2_scan.points, k2_scan.valid, pose, zero3, no, cfg), REPS_KERNEL)
     k2_bound = bound(*fill_work(cfg, k2_cells["bootstrapped"],
                                 k2_scan.points.shape[0], 1, 1))
     say(f"[K2] 3 levels x (bootstrapped, random) agree with the plain version: "
@@ -691,12 +694,10 @@ def main() -> int:
         b = pts.shape[0]
         fire = torch.as_tensor(fire_np, device=dev)
         zeros = torch.zeros((b, 3), dtype=torch.float32, device=dev)
-        marks = torch.zeros(b * c.total_cells, dtype=torch.uint8, device=dev)
         mk = base.clone()
-        fill.update_maps_batch(mk, marks, pts, val, poses, zeros, fire, c)
+        fill.update_maps_batch(mk, pts, val, poses, zeros, fire, c)
         mp = fill.update_maps_batch_plain(base, pts, val, poses, zeros, fire, c)
         check(bool(torch.isfinite(mk).all()), f"{what}: maps not finite")
-        check(int(marks.sum()) == 0, f"{what}: marks not zero")
         b2 = base.view(b, c.total_cells)
         mk2, mp2 = mk.view(b, c.total_cells), mp.view(b, c.total_cells)
         check(torch.equal(mk2[~fire], b2[~fire]),
@@ -782,28 +783,24 @@ def main() -> int:
     torch.cuda.synchronize()
     check(fill.update_maps_batch.launches - kb_before == 12,
           "batched K2 launch count")
-    fmarks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
     fmt = fmaps.clone()
     kb_ms = {}
     kb_plain_ms = {}
     for mname in ("1-in-18", "all", "none"):
         fire = torch.as_tensor(masks[mname], device=dev)
         kb_ms[mname] = graph_ms(torch, lambda fire=fire: fill.update_maps_batch(
-            fmt, fmarks, fpts_all, fval_all, fposes, fzero, fire, fcfg),
-            REPS_KERNEL)
+            fmt, fpts_all, fval_all, fposes, fzero, fire, fcfg), REPS_KERNEL)
         kb_plain_ms[mname] = graph_ms(
             torch, lambda fire=fire: fill.update_maps_batch_plain(
                 fmt, fpts_all, fval_all, fposes, fzero, fire, fcfg), REPS_PLAIN)
-    bmarks = torch.zeros(big * cells, dtype=torch.uint8, device=dev)
     bmt = big_maps.clone()
     bzero = torch.zeros((big, 3), dtype=torch.float32, device=dev)
     big_ms = {}
     for mname in ("1-in-18", "all"):
         fire = torch.as_tensor(big_masks[mname], device=dev)
         big_ms[mname] = graph_ms(torch, lambda fire=fire: fill.update_maps_batch(
-            bmt, bmarks, *big_args, bzero, fire, fcfg),
-            REPS_KERNEL)
-    del bmt, bmarks, big_maps, huge_maps
+            bmt, *big_args, bzero, fire, fcfg), REPS_KERNEL)
+    del bmt, big_maps, huge_maps
     kb_bound = {m: bound(*fill_work(fcfg, kb_cells[m], fpts_all.shape[1],
                                     int(masks[m].sum()), fb))
                 for m in ("1-in-18", "all")}
@@ -812,7 +809,7 @@ def main() -> int:
         f"{big} robots and {huge} robots ({hcfg.level_sizes} px) x the same "
         f"masks agree with the plain version: identical occupied increments, "
         f"worst instance-level {kb_worst:.4%} cells differ (each by |lof|), "
-        f"non-firing robots bit-exact, marks all zero (fleet maps: {kb_cells} "
+        f"non-firing robots bit-exact (fleet maps: {kb_cells} "
         f"cells changed); device ms/batch-scan "
         f"(CUDA graph) 1-in-18 {kb_ms['1-in-18']:.4f} vs plain "
         f"{kb_plain_ms['1-in-18']:.4f} (bound {kb_bound['1-in-18'][0]:.6f}), "
@@ -1067,102 +1064,207 @@ def main() -> int:
         f"graph; K5 {k5_ms:.4f})")
 
     # ---- 11. K4 and the batched K4 vs their plain versions ----------------
+    # no global scratch: the map updates take none, the state carries none
+    for f in (line_ops.update_maps_line, line_ops.update_maps_line_batch,
+              fill.update_maps, fill.update_maps_batch):
+        check("marks" not in inspect.signature(f).parameters,
+              f"{f.__name__} takes a marks scratch")
+    check("marks" not in hector.HectorState._fields,
+          "HectorState carries a marks scratch")
     k4_before = (line_ops.update_maps_line.launches,
                  line_ops.update_maps_line_batch.launches)
-    k4_err = 0.0
-    k4_cells = {}
-    for name, base in (("fixed-mode", xmaps), ("random", rand_maps)):
-        marks = torch.zeros(xcfg.total_cells, dtype=torch.uint8, device=dev)
+    k4_err = {"single": 0.0, "batch": 0.0}
+
+    def line_case(what, base, pts, val, pose_, gate, c):
+        """One K4 call against its plain version, bit for bit, its inputs
+        other than the maps untouched; returns the kernel's maps."""
+        ins = [t.clone() for t in (pts, val, pose_, gate)]
         mk = base.clone()
-        line_ops.update_maps_line(mk, marks, k2_scan.points, k2_scan.valid, pose,
-                              zero3, yes, xcfg)
-        mp = line_ops.update_maps_line_plain(base, k2_scan.points, k2_scan.valid,
-                                         pose, zero3, yes, xcfg)
-        check(int(marks.sum()) == 0, f"K4 {name}: marks not cleared")
-        check(bool(torch.isfinite(mk).all()), f"K4 {name}: maps not finite")
-        for level in range(xcfg.num_levels):
-            off, w = xcfg.level_offsets[level], xcfg.level_sizes[level]
+        line_ops.update_maps_line(mk, pts, val, pose_, zero3, gate, c)
+        mp = line_ops.update_maps_line_plain(base, pts, val, pose_, zero3,
+                                             gate, c)
+        check(all(torch.equal(a, t) for a, t in zip(ins, (pts, val, pose_,
+                                                          gate))),
+              f"{what}: an input other than the maps changed")
+        check(bool(torch.isfinite(mk).all()), f"{what}: maps not finite")
+        for level in range(c.num_levels):
+            off, w = c.level_offsets[level], c.level_sizes[level]
             sl = slice(off, off + w * w)
             check(torch.equal(mk[sl], mp[sl]),
-                  f"K4 {name} level {level}: {int((mk[sl] != mp[sl]).sum())} "
+                  f"{what} level {level}: {int((mk[sl] != mp[sl]).sum())} "
                   "cells differ from the plain version")
-            d = mk[sl] - base[sl]
+        k4_err["single"] = max(k4_err["single"], float((mk - mp).abs().max()))
+        return mk
+
+    k4_cells = {}
+    for name, base in (("fixed-mode", xmaps), ("random", rand_maps)):
+        mk = line_case(f"K4 {name}", base, k2_scan.points, k2_scan.valid,
+                       pose, yes, xcfg)
+        for level in range(xcfg.num_levels):
+            off, w = xcfg.level_offsets[level], xcfg.level_sizes[level]
+            d = mk[off:off + w * w] - base[off:off + w * w]
             check(bool((d < 0).any()) and bool((d > 0).any()),
                   f"K4 {name} level {level}: no free or no occupied cell")
         k4_cells[name] = int((mk != base).sum())
-        k4_err = max(k4_err, float((mk - mp).abs().max()))
-        mz = base.clone()
-        line_ops.update_maps_line(mz, marks, k2_scan.points, k2_scan.valid, pose,
-                              zero3, no, xcfg)
+        mz = line_case(f"K4 {name} gated", base, k2_scan.points,
+                       k2_scan.valid, pose, no, xcfg)
         check(torch.equal(mz, base), f"K4 {name}: do_update=0 changed the maps")
-        check(int(marks.sum()) == 0, f"K4 {name}: marks not zero (gated)")
+    # beams along the axes and the tiles' edges: the robot on a tile corner
+    # and on a tile's last column of the 400-px level (0.1 m cells);
+    # endpoints on tiles' first and last columns and rows, one cell away,
+    # and along the diagonals
+    edge_rng = np.random.default_rng(5)
+    tile = line_ops.TILE
+    edge_px = [k * tile + e for k in range(2, 8) for e in (-1, 0)]
+    ry = 4 * tile
+    for rx in (ry, ry + tile - 1):
+        ends = [(rx + sx * d, ry + sy * d)
+                for d in (1, 2, tile - 1, tile, tile + 1, 2 * tile, 150)
+                for sx, sy in ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1),
+                               (-1, 1), (1, -1), (-1, -1))]
+        ends += [(e, int(edge_rng.integers(40, 360))) for e in edge_px]
+        ends += [(int(edge_rng.integers(40, 360)), e) for e in edge_px]
+        robot = torch.tensor([rx / 10.0, ry / 10.0, 0.0], device=dev)
+        pts_e = torch.tensor([(x / 10.0 - rx / 10.0, y / 10.0 - ry / 10.0)
+                              for x, y in ends], dtype=torch.float32,
+                             device=dev)
+        val_e = torch.ones(len(ends), dtype=torch.bool, device=dev)
+        what = f"K4 edges from ({rx}, {ry})"
+        mk = line_case(what, rand_maps, pts_e, val_e, robot, yes, xcfg)
+        k4_cells[f"edges {rx}"] = int((mk != rand_maps).sum())
+        check(k4_cells[f"edges {rx}"] > 2000,
+              f"{what}: only {k4_cells[f'edges {rx}']} cells changed")
+    # a robot outside the map: no beam counts, on any level
+    outside = torch.tensor([-5.0, 20.0, 0.3], device=dev)
+    mo = line_case("K4 robot outside the map", rand_maps, k2_scan.points,
+                   k2_scan.valid, outside, yes, xcfg)
+    check(torch.equal(mo, rand_maps), "K4: a robot outside the map changed it")
+    k4_single = 7
+
+    def line_batch_case(what, base, pts, val, poses, fire_np, c):
+        """One batched K4 call against its plain version, bit for bit, its
+        inputs other than the maps untouched, non-firing robots untouched;
+        returns the kernel's and the base's maps f32[B, C] and how many
+        cells changed."""
+        fire = torch.as_tensor(fire_np, device=dev)
+        b = pts.shape[0]
+        zeros = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+        ins = [t.clone() for t in (pts, val, poses, fire)]
+        mk = base.clone()
+        line_ops.update_maps_line_batch(mk, pts, val, poses, zeros, fire, c)
+        mp = line_ops.update_maps_line_batch_plain(base, pts, val, poses,
+                                                   zeros, fire, c)
+        check(all(torch.equal(a, t) for a, t in zip(ins, (pts, val, poses,
+                                                          fire))),
+              f"{what}: an input other than the maps changed")
+        check(torch.equal(mk, mp), f"{what}: "
+              f"{int((mk != mp).sum())} cells differ from the plain version")
+        k4_err["batch"] = max(k4_err["batch"], float((mk - mp).abs().max()))
+        mk2, b2 = mk.view(b, c.total_cells), base.view(b, c.total_cells)
+        check(torch.equal(mk2[~fire], b2[~fire]),
+              f"{what}: a non-firing robot's maps changed")
+        return mk2, b2, int((mk != base).sum())
+
     srand = torch.as_tensor(np.random.default_rng(2).uniform(
         -8.0, 60.0, fb * cells).astype(np.float32), device=dev)
-    k4b_err = 0.0
+    k4b_cells = {}
     for name, base in (("fleet", smaps), ("random", srand)):
-        b2 = base.view(fb, cells)
         for mname, m in masks.items():
+            mk2, b2, changed = line_batch_case(
+                f"K4 batch {name}/{mname}", base, fpts_all, fval_all, fposes,
+                m, scfg)
             fire = torch.as_tensor(m, device=dev)
-            marks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
-            mk = base.clone()
-            line_ops.update_maps_line_batch(mk, marks, fpts_all, fval_all, fposes,
-                                        fzero, fire, scfg)
-            mp = line_ops.update_maps_line_batch_plain(base, fpts_all, fval_all,
-                                                   fposes, fzero, fire, scfg)
-            what = f"K4 batch {name}/{mname}"
-            if (name, mname) == ("fleet", "1-in-18"):      # the timed inputs
-                k4b_cells = int((mk != base).sum())
-            check(int(marks.sum()) == 0, f"{what}: marks not cleared")
-            check(torch.equal(mk, mp), f"{what}: "
-                  f"{int((mk != mp).sum())} cells differ from the plain version")
-            mk2 = mk.view(fb, cells)
-            check(torch.equal(mk2[~fire], b2[~fire]),
-                  f"{what}: a non-firing robot's maps changed")
             if bool(fire.any()):
                 check(bool((mk2[fire] != b2[fire]).any(dim=1).all()),
-                      f"{what}: a firing robot's maps did not change")
-            k4b_err = max(k4b_err, float((mk - mp).abs().max()))
+                      f"K4 batch {name}/{mname}: a firing robot's maps did "
+                      "not change")
+            if name == "fleet":                     # the timed inputs
+                k4b_cells[mname] = changed
+    del srand
+    # robot 0 outside the map, every robot firing
+    out_poses = fposes.clone()
+    out_poses[0] = outside
+    mk2, b2, _ = line_batch_case("K4 batch, robot 0 outside the map", smaps,
+                                 fpts_all, fval_all, out_poses,
+                                 masks["all"], scfg)
+    check(torch.equal(mk2[0], b2[0])
+          and bool((mk2[1:] != b2[1:]).any(dim=1).all()),
+          "K4 batch: robot 0 outside the map changed, or another did not")
+    # B = 300: the fleet's robots repeated (more work items than blocks)
+    big_line = (fpts_all[rep].contiguous(), fval_all[rep].contiguous(),
+                fposes[rep].contiguous())
+    big_smaps = smaps.view(fb, cells)[rep].reshape(-1)
+    for mname, m in big_masks.items():
+        line_batch_case(f"K4 batch B={big}/{mname}", big_smaps, *big_line, m,
+                        scfg)
+    del big_smaps
+    # B = 5000 on a 64/32/16-px pyramid: more robots than a block ranks at
+    # once, so every block walks the fire flags chunk by chunk
+    hscfg = scfg.overlay({"map_size": 64, "map_resolution": 0.8})
+    hs_maps = torch.as_tensor(np.random.default_rng(6).uniform(
+        -8.0, 60.0, huge * hscfg.total_cells).astype(np.float32), device=dev)
+    for mname, m in fire_masks(huge, 4).items():
+        line_batch_case(f"K4 batch B={huge}/{mname}", hs_maps,
+                        fpts_all[hrep].contiguous(),
+                        fval_all[hrep].contiguous(),
+                        fposes[hrep].contiguous(), m, hscfg)
+    del hs_maps
     torch.cuda.synchronize()
     k4_calls = (line_ops.update_maps_line.launches - k4_before[0],
                 line_ops.update_maps_line_batch.launches - k4_before[1])
-    check(k4_calls == (4, 6), f"K4 launch counts {k4_calls}, want (4, 6)")
-    marks = torch.zeros(xcfg.total_cells, dtype=torch.uint8, device=dev)
+    check(k4_calls == (k4_single, 13),
+          f"K4 launch counts {k4_calls}, want ({k4_single}, 13)")
     mt = xmaps.clone()
     k4_ms, k4_plain_ms = {}, {}
     for gname, gate in (("fire", yes), ("gated", no)):
         k4_ms[gname] = graph_ms(torch, lambda gate=gate: line_ops.update_maps_line(
-            mt, marks, k2_scan.points, k2_scan.valid, pose, zero3, gate, xcfg),
+            mt, k2_scan.points, k2_scan.valid, pose, zero3, gate, xcfg),
             REPS_KERNEL)
         k4_plain_ms[gname] = graph_ms(
             torch, lambda gate=gate: line_ops.update_maps_line_plain(
                 mt, k2_scan.points, k2_scan.valid, pose, zero3, gate, xcfg),
             REPS_PLAIN)
     k4_eager = eager_ms(torch, lambda: line_ops.update_maps_line(
-        mt, marks, k2_scan.points, k2_scan.valid, pose, zero3, yes, xcfg),
+        mt, k2_scan.points, k2_scan.valid, pose, zero3, yes, xcfg),
         REPS_KERNEL)
-    fmarks = torch.zeros(fb * cells, dtype=torch.uint8, device=dev)
     smt = smaps.clone()
     k4b_ms, k4b_plain_ms = {}, {}
-    for mname in ("1-in-18", "all"):
+    for mname in ("1-in-18", "all", "none"):
         fire = torch.as_tensor(masks[mname], device=dev)
         k4b_ms[mname] = graph_ms(
             torch, lambda fire=fire: line_ops.update_maps_line_batch(
-                smt, fmarks, fpts_all, fval_all, fposes, fzero, fire, scfg),
+                smt, fpts_all, fval_all, fposes, fzero, fire, scfg),
             REPS_KERNEL)
         k4b_plain_ms[mname] = graph_ms(
             torch, lambda fire=fire: line_ops.update_maps_line_batch_plain(
                 smt, fpts_all, fval_all, fposes, fzero, fire, scfg), REPS_PLAIN)
-    say(f"[K4] 3 levels x (fixed-mode, random) equal the plain version bit "
-        f"for bit ({k4_cells} cells changed), do_update=0 bit-exact, marks "
-        f"cleared; device {k4_ms['fire']:.4f} ms/scan firing, "
-        f"{k4_ms['gated']:.4f} gated vs plain {k4_plain_ms['fire']:.4f} / "
-        f"{k4_plain_ms['gated']:.4f} ms (CUDA graph; K2 {k2_ms:.4f}); eager "
-        f"firing {k4_eager:.4f} ms")
-    say(f"[K4 batch] {fb} robots x (fleet, random) x fire masks {list(masks)} "
-        f"equal the plain version bit for bit, non-firing robots untouched, "
-        f"marks cleared; device ms/batch-scan (CUDA graph) 1-in-18 "
-        f"{k4b_ms['1-in-18']:.4f} vs plain {k4b_plain_ms['1-in-18']:.4f}, all "
-        f"{k4b_ms['all']:.4f} vs plain {k4b_plain_ms['all']:.4f}")
+    del smt
+    k4_bound = bound(*line_work(k4_cells["fixed-mode"], 400, 1, 1))
+    k4b_bound = {m: bound(*line_work(k4b_cells[m], 400, int(masks[m].sum()),
+                                     fb))
+                 for m in ("1-in-18", "all")}
+    say(f"[K4] 3 levels x (fixed-mode, random, beams along the axes and "
+        f"tile edges from 2 robot cells, a robot outside the map) equal the "
+        f"plain version bit for bit ({k4_cells} cells changed), do_update=0 "
+        f"bit-exact, inputs other than the maps untouched, no marks scratch; "
+        f"device {k4_ms['fire']:.4f} ms/scan firing (bound "
+        f"{k4_bound[0]:.6f} ms by {k4_bound[1]}), {k4_ms['gated']:.4f} gated "
+        f"vs plain {k4_plain_ms['fire']:.4f} / {k4_plain_ms['gated']:.4f} ms "
+        f"(CUDA graph; K2 {k2_ms:.4f}); eager firing {k4_eager:.4f} ms")
+    grids = [line_ops._params(c, 400, b, fill.sm_count(0),
+                              line_ops._resident()).grid
+             for c, b in ((xcfg, 1), (scfg, fb))]
+    say(f"[K4] grid {grids[0]} blocks for one robot, {grids[1]} for {fb} "
+        f"({line_ops._resident()} an SM held at once)")
+    say(f"[K4 batch] {fb} robots x (fleet, random) x fire masks {list(masks)}, "
+        f"a robot outside the map, {big} robots and {huge} robots "
+        f"({hscfg.level_sizes} px) x the same masks equal the plain version "
+        f"bit for bit, non-firing robots untouched (fleet maps: {k4b_cells} "
+        f"cells changed); device ms/batch-scan (CUDA graph) 1-in-18 "
+        f"{k4b_ms['1-in-18']:.4f} vs plain {k4b_plain_ms['1-in-18']:.4f} "
+        f"(bound {k4b_bound['1-in-18'][0]:.6f}), all {k4b_ms['all']:.4f} vs "
+        f"plain {k4b_plain_ms['all']:.4f} (bound {k4b_bound['all'][0]:.6f}), "
+        f"none {k4b_ms['none']:.4f} vs plain {k4b_plain_ms['none']:.4f}")
 
     # ---- 12. the fixed replay end to end ------------------------------------
     counted = {"match": match.match, "fill": fill.update_maps,
@@ -1290,9 +1392,6 @@ def main() -> int:
           f"sub1 median instance ATE {smed} above FLEET_SUB1_JAX_REF_MEDIAN_M "
           "+ 2e-4")
 
-    k4_bound = bound(*line_work(k4_cells["fixed-mode"], 400, 1, 1))
-    k4b_bound = bound(*line_work(k4b_cells, 400, int(sparse.sum()), fb))
-
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -1320,10 +1419,10 @@ def main() -> int:
               slaunch["match_batch_f32"], k3b_err, k3b_ms, k3b_plain_ms,
               k3b_bound),
         entry("line", "line.cu", "pallas_scatter.py:71", xlaunch["line"],
-              k4_err, k4_ms["fire"], k4_plain_ms["fire"], k4_bound),
+              k4_err["single"], k4_ms["fire"], k4_plain_ms["fire"], k4_bound),
         entry("line_batch", "line.cu", "pallas_scatter.py:71",
-              slaunch["line_batch"], k4b_err, k4b_ms["1-in-18"],
-              k4b_plain_ms["1-in-18"], k4b_bound)],
+              slaunch["line_batch"], k4_err["batch"], k4b_ms["1-in-18"],
+              k4b_plain_ms["1-in-18"], k4b_bound["1-in-18"])],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -1346,8 +1445,11 @@ def main() -> int:
         "sub1_plain_instance_scans_per_s": iscans / ts_plain,
         "sub1_ate_m": sate, "sub1_max_err_m": smax, "sub1_ate_median_m": smed,
         "line_gated_ms": k4_ms["gated"],
+        "line_batch_none_ms": k4b_ms["none"],
         "line_batch_all_fire_ms": k4b_ms["all"],
         "line_batch_all_fire_plain_ms": k4b_plain_ms["all"],
+        "line_batch_all_fire_bound_ms": k4b_bound["all"][0],
+        "line_cells_changed": k4_cells, "line_batch_cells_changed": k4b_cells,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

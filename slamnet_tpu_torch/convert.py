@@ -5,7 +5,7 @@
 ``np.asarray(jax_state.maps)``) and builds this package's state on
 ``device``; ``hector_state_to_numpy`` gives back a dict with the same three
 names, so ``slamnet_tpu.models.hector.HectorState(**d)`` rebuilds the JAX
-state.  The K2 scratch ``marks`` has no JAX counterpart and starts at zero.
+state.
 
 ``fleet_state_from_numpy`` / ``fleet_state_to_numpy`` do the same for a
 fleet's state (``slamnet_tpu.models.fleet``): flat maps f32[B*C] and poses
@@ -29,9 +29,7 @@ def hector_state_from_numpy(maps, match_pose, last_update_pose,
     maps_t = t(maps)
     if maps_t.dim() != 1:
         raise ValueError(f"maps must be flat f32[total_cells], got {maps_t.shape}")
-    return HectorState(maps_t, t(match_pose), t(last_update_pose),
-                       torch.zeros(maps_t.shape, dtype=torch.uint8,
-                                   device=device))
+    return HectorState(maps_t, t(match_pose), t(last_update_pose))
 
 
 def hector_state_to_numpy(state: HectorState) -> dict[str, np.ndarray]:

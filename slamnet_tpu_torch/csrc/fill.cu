@@ -19,19 +19,10 @@
 // bytes.
 //
 // What the design does about it:
-//   * a work list on the device.  The grid comes from B and the card's SM
-//     count (ops/fill.py::grid_size), never from how many instances fire, so
-//     the launch is capture-safe and the host never waits.  Every block
-//     ranks the firing instances itself: each thread takes 8 flags, a block
-//     prefix sum gives each firing instance its rank, in instance order, in
-//     a shared list of up to kChunk instances (B above kChunk goes chunk by
-//     chunk, every block reading all B flags: meant for B up to kChunk,
-//     correct for every B the wrapper takes).  The work items are (firing
-//     instance, level, tile of kTile cells); block k of G takes the items
-//     [k*I/G, (k+1)*I/G) of the I, a contiguous even share, so the tiles of
-//     one (instance, level) fall mostly to one block in a row.  A block with
-//     no share returns at once: an instance that does not fire costs one
-//     flag read in each block;
+//   * a work list on the device (worklist.cuh, shared with K4): every block
+//     ranks the fire flags itself and takes a contiguous even share of the
+//     (firing instance, level, tile of kTile cells) items; a block with no
+//     share returns after the ranking;
 //   * one launch, no global scratch.  A block builds its (instance, level)'s
 //     256-bin minimum-range table in shared memory from the instance's
 //     beams (atomicMin on the float bits: the bits of non-negative floats
@@ -62,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "fastpath.cuh"
+#include "worklist.cuh"
 
 constexpr int kFillMaxLevels = 4;
 
@@ -88,9 +80,7 @@ constexpr int kBins = 256;
 constexpr int kThreads = 256;
 constexpr int kTile = 1536;                          // ops/fill.py TILE
 constexpr int kCellsPerThread = kTile / kThreads;
-constexpr int kChunk = 2048;                         // instances ranked at once
-constexpr int kFlagsPerThread = kChunk / kThreads;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = worklist::kChunk;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kBinScale = 40.74366543152520595f;   // 256 / (2 pi)
 constexpr float kEmpty = 1e9f;
@@ -99,48 +89,6 @@ constexpr float kEmpty = 1e9f;
 __device__ __forceinline__ int angle_bin(float dy, float dx) {
   const int b = static_cast<int>((atan2_fast(dy, dx) + kPi) * kBinScale);
   return min(max(b, 0), kBins - 1);
-}
-
-// Exclusive prefix sum of v over the block; *total gets the block's sum.
-// The caller passes a barrier before s_warp is written again.
-__device__ int block_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  int before = 0, sum = 0;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    const int t = s_warp[w];
-    if (w < warp) before += t;
-    sum += t;
-  }
-  *total = sum;
-  return before + x - v;
-}
-
-// Lists the firing instances of [c0, c0 + kChunk) in s_list in instance
-// order; returns how many fire.
-__device__ int rank_chunk(const unsigned char* __restrict__ fire, int c0,
-                          int batch, int* s_list, int* s_warp) {
-  __syncthreads();                      // s_list and s_warp are free again
-  const int first = c0 + threadIdx.x * kFlagsPerThread;
-  unsigned bits = 0;
-#pragma unroll
-  for (int k = 0; k < kFlagsPerThread; ++k)
-    if (first + k < batch && fire[first + k] != 0) bits |= 1u << k;
-  int total;
-  int pos = block_scan(__popc(bits), s_warp, &total);
-#pragma unroll
-  for (int k = 0; k < kFlagsPerThread; ++k)
-    if ((bits >> k) & 1u) s_list[pos++] = first + k;
-  __syncthreads();
-  return total;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -157,22 +105,11 @@ fill_kernel(float* __restrict__ maps, const float* __restrict__ points,
 
   // the firing instances, and this block's share of their work items
   const int per_inst = p.tile_start[p.num_levels];
-  int n_chunk = 0;
-  long long n_fire;
-  if (p.batch <= kChunk) {
-    n_chunk = rank_chunk(fire, 0, p.batch, s_list, s_warp);
-    n_fire = n_chunk;
-  } else {
-    int cnt = 0;
-    for (int i = threadIdx.x; i < p.batch; i += kThreads) cnt += fire[i] != 0;
-    int total;
-    block_scan(cnt, s_warp, &total);
-    n_fire = total;
-  }
-  const long long items = n_fire * per_inst;
-  const long long lo = items * blockIdx.x / gridDim.x;
-  const long long hi = items * (blockIdx.x + 1) / gridDim.x;
-  if (lo >= hi) return;                     // the whole block
+  int n_chunk;
+  long long lo, hi;
+  if (!worklist::block_share<kThreads>(fire, p.batch, per_inst, s_list,
+                                       s_warp, &n_chunk, &lo, &hi))
+    return;                                 // the whole block
 
   int key = -1;             // the (instance, level) whose table s_tab holds
   bool any = false;
@@ -181,7 +118,9 @@ fill_kernel(float* __restrict__ maps, const float* __restrict__ points,
   float c = 0.0f, s = 0.0f, tx = 0.0f, ty = 0.0f;
   long long base = 0;       // items of the chunks before this one
   for (int c0 = 0; c0 < p.batch && base < hi; c0 += kChunk) {
-    if (p.batch > kChunk) n_chunk = rank_chunk(fire, c0, p.batch, s_list, s_warp);
+    if (p.batch > kChunk)
+      n_chunk = worklist::rank_chunk<kThreads>(fire, c0, p.batch, s_list,
+                                               s_warp);
     const long long end = base + static_cast<long long>(n_chunk) * per_inst;
     for (long long item = max(lo, base); item < min(hi, end); ++item) {
       const int rank = static_cast<int>((item - base) / per_inst);

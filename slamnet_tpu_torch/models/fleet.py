@@ -7,8 +7,7 @@ the dense fill (``sub4_pallas_dense``), or with the gather matcher and line
 updates (``sub1``, the fleet's accuracy anchor).  The state is a
 ``hector.HectorState`` with an instance axis: ``maps`` is ONE flat f32[B*C]
 table (C = ``fleet_cells(cfg)``, each instance's pyramid finest level first,
-as in JAX), ``marks`` the matching u8[B*C] update scratch, and the poses
-f32[B, 3].
+as in JAX), and the poses f32[B, 3].
 
 One batch-scan costs one match launch for all B robots (K5, or the batched
 K3 for ``gather`` / ``onehot_highest``; ``ops/match.py``), a few small
@@ -44,7 +43,7 @@ def fleet_cells(cfg: HectorConfig) -> int:
 
 def init_fleet(cfg: HectorConfig, start_poses,
                device: torch.device | str = "cpu") -> HectorState:
-    """Zeroed maps f32[B*C] and marks u8[B*C], match poses at ``start_poses``
+    """Zeroed maps f32[B*C], match poses at ``start_poses``
     f32[B, 3], last-update poses at float.MinValue (hector.init per
     instance)."""
     _check_cfg(cfg)
@@ -56,8 +55,7 @@ def init_fleet(cfg: HectorConfig, start_poses,
     return HectorState(
         maps=torch.zeros(n, dtype=torch.float32, device=device),
         match_pose=poses,
-        last_update_pose=torch.full_like(poses, FLOAT_MIN),
-        marks=torch.zeros(n, dtype=torch.uint8, device=device))
+        last_update_pose=torch.full_like(poses, FLOAT_MIN))
 
 
 def _force(map_without_matching, b: int, device) -> torch.Tensor:
@@ -136,14 +134,13 @@ def update_fleet(states: HectorState, points: torch.Tensor,
     else:
         fn = (fill.update_maps_batch if cfg.dense_free_fill
               else line.update_maps_line_batch)
-        maps = fn(states.maps, states.marks, points, valid, match_pose, zero,
-                  fire, cfg)
+        maps = fn(states.maps, points, valid, match_pose, zero, fire, cfg)
     new_last = torch.where(fire[:, None], match_pose, last)
     info = HectorInfo(map_updated=fire,
                       residual=out[:, 4] / out[:, 5].clamp(min=1.0),
                       gn_iterations=sum(cfg.estimate_iterations[:cfg.num_levels]),
                       solve_failures=out[:, 3].to(torch.int32))
-    return HectorState(maps, match_pose, new_last, states.marks), info
+    return HectorState(maps, match_pose, new_last), info
 
 
 def replay_fleet(states: HectorState, points: torch.Tensor,
@@ -154,8 +151,7 @@ def replay_fleet(states: HectorState, points: torch.Tensor,
     Runs on a copy of ``states``' maps, so the caller's state can be replayed
     again.  Returns the final states and the match poses f32[T, B, 3] (on the
     device; the host waits for nothing)."""
-    states = states._replace(maps=states.maps.clone(),
-                             marks=states.marks.clone())
+    states = states._replace(maps=states.maps.clone())
     poses = []
     for t in range(points.shape[0]):
         states, _ = update_fleet(states, points[t], valid[t], cfg, False,

@@ -49,7 +49,6 @@ class HectorState(NamedTuple):
     maps: torch.Tensor              # f32[total_cells], all levels, finest first
     match_pose: torch.Tensor        # f32[3] world
     last_update_pose: torch.Tensor  # f32[3] world
-    marks: torch.Tensor             # u8[total_cells] K2/K4 scratch, zero between scans
 
 
 class HectorInfo(NamedTuple):
@@ -88,8 +87,7 @@ def init(cfg: HectorConfig, start_pose,
         match_pose=torch.as_tensor(start_pose, dtype=torch.float32,
                                    device=device).clone(),
         last_update_pose=torch.full((3,), FLOAT_MIN, dtype=torch.float32,
-                                    device=device),
-        marks=torch.zeros(cfg.total_cells, dtype=torch.uint8, device=device))
+                                    device=device))
 
 
 def level_view(maps: torch.Tensor, cfg: HectorConfig, level: int) -> torch.Tensor:
@@ -168,8 +166,8 @@ def update_maps(state: HectorState, scan: Scan, pose_world: torch.Tensor,
         return state.maps.copy_(plain_fn(state.maps, scan.points, scan.valid,
                                          pose_world, scan.pose, do_update, cfg))
     fn = fill.update_maps if cfg.dense_free_fill else line.update_maps_line
-    return fn(state.maps, state.marks, scan.points, scan.valid, pose_world,
-              scan.pose, do_update, cfg)
+    return fn(state.maps, scan.points, scan.valid, pose_world, scan.pose,
+              do_update, cfg)
 
 
 def update(state: HectorState, scan: Scan, pose_hint_world: torch.Tensor,
@@ -214,7 +212,7 @@ def update(state: HectorState, scan: Scan, pose_hint_world: torch.Tensor,
 
     maps = update_maps(state, scan, match_pose, do_update, cfg, plain)
     new_last = torch.where(do_update, match_pose, last)
-    return (HectorState(maps, match_pose, new_last, state.marks),
+    return (HectorState(maps, match_pose, new_last),
             HectorInfo(map_updated=do_update, residual=mstats.residual,
                        gn_iterations=mstats.iterations,
                        solve_failures=mstats.solve_failures))
@@ -234,12 +232,10 @@ class HectorSLAM(nn.Module):
         self.register_buffer("maps", st.maps)
         self.register_buffer("match_pose", st.match_pose)
         self.register_buffer("last_update_pose", st.last_update_pose)
-        self.register_buffer("marks", st.marks, persistent=False)
 
     @property
     def state(self) -> HectorState:
-        return HectorState(self.maps, self.match_pose, self.last_update_pose,
-                           self.marks)
+        return HectorState(self.maps, self.match_pose, self.last_update_pose)
 
     def forward(self, scan: Scan, pose_hint_world: torch.Tensor | None = None,
                 map_without_matching: bool | torch.Tensor = False) -> HectorInfo:

@@ -16,9 +16,8 @@ the card's SM count, rank the firing instances themselves and split the
 (firing instance, level, tile of ``TILE`` cells) items between them in
 contiguous, even shares; ``tile_starts`` numbers an instance's
 tiles level by level.  Bin tables and occupied marks live in each block's
-shared memory, so K2 uses no global scratch: ``marks`` is K4's scratch
-(``ops/line.py``), taken here so that both map updates have one signature,
-and left as it is.
+shared memory, so K2 uses no global scratch.  K4 (``ops/line.py``) takes
+the same arguments and the same work list.
 
 ``update_maps_batch_plain`` is the plain version: the ported
 ``ops/logodds.py::update_occupancy_dense`` applied per level, vectorized over
@@ -37,7 +36,7 @@ from . import _build
 from .logodds import update_occupancy_dense
 
 MAX_LEVELS = 4
-MAX_BATCH = 65535         # instances a launch (and K4's gridDim.y)
+MAX_BATCH = 65535         # instances a launch
 ANGLE_BINS = 256          # logodds.update_occupancy_dense's default
 TILE = 1536               # cells a work item (csrc/fill.cu kTile)
 BLOCKS_PER_SM = 4         # blocks a launch gives each SM at most
@@ -67,17 +66,18 @@ def tile_starts(level_sizes) -> list[int]:
     return starts
 
 
-def grid_size(batch: int, items_per_instance: int, sms: int) -> int:
-    """Blocks of a launch: one an SM a robot, up to BLOCKS_PER_SM an SM, and
-    no more than B instances have items; never a function of how many fire.
-    Every block costs its dispatch on every call, firing or not, so one
-    robot (gated off on most scans) gets one block an SM."""
+def grid_size(batch: int, items_per_instance: int, sms: int,
+              blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """Blocks of a launch: one an SM a robot, up to ``blocks_per_sm`` an SM,
+    and no more than B instances have items; never a function of how many
+    fire.  Every block costs its dispatch on every call, firing or not, so
+    one robot (gated off on most scans) gets one block an SM."""
     return max(1, min(batch * items_per_instance,
-                      min(batch, BLOCKS_PER_SM) * sms))
+                      min(batch, blocks_per_sm) * sms))
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -119,15 +119,14 @@ def _launch(what: str, maps, points, valid, poses, scan_poses, fire,
                        poses.data_ptr(), scan_poses.data_ptr(),
                        fire.data_ptr(),
                        _params(cfg, points.shape[-2], batch,
-                               _sm_count(dev.index)),
+                               sm_count(dev.index)),
                        _build.stream_handle(dev))
     _build.raise_on_error(code, what)
 
 
-def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
-                valid: torch.Tensor, pose: torch.Tensor,
-                scan_pose: torch.Tensor, do_update: torch.Tensor,
-                cfg: HectorConfig) -> torch.Tensor:
+def update_maps(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
+                pose: torch.Tensor, scan_pose: torch.Tensor,
+                do_update: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
     """Dense-fill every level of ``maps`` f32[total_cells] in place with the
     scan (``points`` f32[N, 2], ``valid`` bool[N], cloud pose ``scan_pose``
     f32[3]) seen from ``pose`` f32[3] (world), where the 0-dim bool
@@ -139,7 +138,6 @@ def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
     n = points.shape[0]
     _build.check_tensors("K2", maps.device, (
         ("maps", maps, torch.float32, (cfg.total_cells,)),
-        ("marks", marks, torch.uint8, (cfg.total_cells,)),
         ("points", points, torch.float32, (n, 2)),
         ("valid", valid, torch.bool, (n,)),
         ("pose", pose, torch.float32, (3,)),
@@ -155,13 +153,13 @@ def update_maps(maps: torch.Tensor, marks: torch.Tensor, points: torch.Tensor,
 update_maps.launches = 0
 
 
-def check_update_inputs(kernel: str, maps: torch.Tensor, marks: torch.Tensor,
-                        points: torch.Tensor, valid: torch.Tensor,
-                        poses: torch.Tensor, scan_poses: torch.Tensor,
-                        fire: torch.Tensor, cfg: HectorConfig) -> int:
+def check_update_inputs(kernel: str, maps: torch.Tensor, points: torch.Tensor,
+                        valid: torch.Tensor, poses: torch.Tensor,
+                        scan_poses: torch.Tensor, fire: torch.Tensor,
+                        cfg: HectorConfig) -> int:
     """Raise ValueError, naming ``kernel``, unless the fleet inputs fit a
     batched map update (K2 here, K4 in ``ops/line.py``): contiguous maps
-    f32[B*C], marks u8[B*C], points f32[B, N, 2] with N >= 1, valid
+    f32[B*C], points f32[B, N, 2] with N >= 1, valid
     bool[B, N], poses and scan_poses f32[B, 3], fire bool[B] on one device.
     Returns B."""
     _check_levels(cfg, kernel)
@@ -174,7 +172,6 @@ def check_update_inputs(kernel: str, maps: torch.Tensor, marks: torch.Tensor,
     cells = b * cfg.total_cells
     _build.check_tensors(kernel, maps.device, (
         ("maps", maps, torch.float32, (cells,)),
-        ("marks", marks, torch.uint8, (cells,)),
         ("points", points, torch.float32, (b, n, 2)),
         ("valid", valid, torch.bool, (b, n)),
         ("poses", poses, torch.float32, (b, 3)),
@@ -183,16 +180,16 @@ def check_update_inputs(kernel: str, maps: torch.Tensor, marks: torch.Tensor,
     return b
 
 
-def update_maps_batch(maps: torch.Tensor, marks: torch.Tensor,
-                      points: torch.Tensor, valid: torch.Tensor,
-                      poses: torch.Tensor, scan_poses: torch.Tensor,
-                      fire: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
+def update_maps_batch(maps: torch.Tensor, points: torch.Tensor,
+                      valid: torch.Tensor, poses: torch.Tensor,
+                      scan_poses: torch.Tensor, fire: torch.Tensor,
+                      cfg: HectorConfig) -> torch.Tensor:
     """Dense-fill every level of every firing instance of the fleet table
     ``maps`` f32[B*C] in place: instance b with its scan (``points[b]``,
     ``valid[b]``, cloud pose ``scan_poses[b]``) seen from ``poses[b]``
     (world), where the device flag ``fire[b]`` is set; the other instances'
     maps stay as they are, bit for bit.  Returns ``maps``."""
-    b = check_update_inputs("K2 batch", maps, marks, points, valid, poses,
+    b = check_update_inputs("K2 batch", maps, points, valid, poses,
                             scan_poses, fire, cfg)
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_batch_plain(maps, points, valid, poses,

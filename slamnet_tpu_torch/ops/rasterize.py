@@ -4,8 +4,9 @@ Port of ``slamnet_tpu/ops/rasterize.py::hector_line_cells`` (:67-97), the
 vectorised form of Bresenham2D (OccGridMap.cs:155-239): the cell at step k of
 a beam is a pure function of k, so a scan rasterizes as one dense
 ``[beams, max_steps]`` computation.  It is K4's plain version's geometry
-(``ops/logodds.py::update_occupancy``); the kernel (``csrc/line.cu``) walks
-the same formula one beam a thread.
+(``ops/logodds.py::update_occupancy``); the kernel (``csrc/line.cu``)
+inverts the same formula for the steps of a beam that fall in each square
+map tile and walks only those (``ops/line.py::tile_walk``).
 """
 from __future__ import annotations
 

@@ -208,7 +208,7 @@ def replay(state: hector.HectorState, dlog: DeviceLog, start: int,
     again; returns the final state and per-scan outputs on the device (the
     host waits for nothing)."""
     dev = dlog.points.device
-    state = state._replace(maps=state.maps.clone(), marks=state.marks.clone())
+    state = state._replace(maps=state.maps.clone())
     zero = torch.zeros(3, dtype=torch.float32, device=dev)
     poses, upd, resid, fails = [], [], [], []
     for t in range(start, dlog.points.shape[0]):

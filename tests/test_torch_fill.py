@@ -102,18 +102,17 @@ def test_update_maps_all_levels_matches_jax_update_maps():
                                  jnp.zeros(3, jnp.float32)),
         jnp.asarray(pose), jcfg))
     maps = torch.from_numpy(base.copy())
-    marks = torch.zeros(cfg.total_cells, dtype=torch.uint8)
     args = (torch.from_numpy(pts), torch.from_numpy(valid),
             torch.from_numpy(pose), torch.zeros(3))
     before = fill.update_maps.launches
-    out = fill.update_maps(maps, marks, *args, torch.tensor(True), cfg)
+    out = fill.update_maps(maps, *args, torch.tensor(True), cfg)
     assert out is maps and fill.update_maps.launches == before
     for off, w in zip(cfg.level_offsets, cfg.level_sizes):
         sl = slice(off, off + w * w)
         _assert_fill_agrees(maps.numpy()[sl], want[sl], base[sl])
     # do_update = False leaves the maps bit for bit
     again = maps.clone()
-    fill.update_maps(maps, marks, *args, torch.tensor(False), cfg)
+    fill.update_maps(maps, *args, torch.tensor(False), cfg)
     assert torch.equal(maps, again)
 
 
@@ -161,15 +160,14 @@ def test_cpu_wrappers_never_build_the_kernels(monkeypatch):
     _, pts, valid, _ = _case(8, 64, n=40)
     b = 2
     maps = torch.zeros(b * cfg.total_cells)
-    marks = torch.zeros(b * cfg.total_cells, dtype=torch.uint8)
     p = torch.from_numpy(np.stack([pts, pts]))
     v = torch.from_numpy(np.stack([valid, valid]))
     poses = torch.tensor([[25.0, 25.0, 0.1], [26.0, 24.0, -0.2]])
     zeros, fire = torch.zeros(b, 3), torch.tensor([True, False])
-    fill.update_maps(maps[:cfg.total_cells], marks[:cfg.total_cells], p[0],
-                     v[0], poses[0], zeros[0], torch.tensor(True), cfg)
-    fill.update_maps_batch(maps, marks, p, v, poses, zeros, fire, cfg)
-    line.update_maps_line_batch(maps, marks, p, v, poses, zeros, fire,
+    fill.update_maps(maps[:cfg.total_cells], p[0], v[0], poses[0], zeros[0],
+                     torch.tensor(True), cfg)
+    fill.update_maps_batch(maps, p, v, poses, zeros, fire, cfg)
+    line.update_maps_line_batch(maps, p, v, poses, zeros, fire,
                                 cfg.overlay({"dense_free_fill": False}))
     assert match.match(maps[:cfg.total_cells], p[0], v[0], poses[0],
                        cfg).shape == (6,)

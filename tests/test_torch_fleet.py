@@ -158,7 +158,7 @@ def test_one_robot_fleet_equals_hector_update(flog):
                                single.match_pose.numpy(), atol=1e-5)
     assert torch.equal(batch.maps, single.maps)
     assert torch.equal(batch.last_update_pose[0], single.last_update_pose)
-    assert not batch.marks.any()
+    assert batch._fields == single._fields == convert.FIELDS   # no scratch
 
 
 def test_match_batch_plain_matches_jax_k5(flog, jax_boot):
@@ -288,11 +288,10 @@ def test_update_maps_batch_plain_equals_per_instance(flog):
         assert fire[i] or torch.equal(one, base[i * c:(i + 1) * c])
     assert not torch.equal(got, base)
     maps = base.clone()
-    marks = torch.zeros(B * c, dtype=torch.uint8)
     before = fill.update_maps_batch.launches
-    out = fill.update_maps_batch(maps, marks, p, vv, poses, zero, fire, cfg)
+    out = fill.update_maps_batch(maps, p, vv, poses, zero, fire, cfg)
     assert out is maps and torch.equal(maps, got)
-    assert fill.update_maps_batch.launches == before and not marks.any()
+    assert fill.update_maps_batch.launches == before
 
 
 def test_fleet_convert_round_trip(jax_boot):
@@ -301,7 +300,7 @@ def test_fleet_convert_round_trip(jax_boot):
     st = convert.fleet_state_from_numpy(**arrays)
     assert st.maps.shape == (B * port_cfg().total_cells,)
     assert st.match_pose.shape == st.last_update_pose.shape == (B, 3)
-    assert st.marks.dtype == torch.uint8 and not st.marks.any()
+    assert st._fields == convert.FIELDS              # no update scratch
     back = convert.fleet_state_to_numpy(st)
     for k in convert.FIELDS:
         np.testing.assert_array_equal(back[k], arrays[k])
@@ -347,9 +346,10 @@ def _refusals():
                               torch.zeros(8, 3), wide, 2)),
         "fill_fire_dtype": (ValueError, "K2 batch fire",
                             lambda: fill.update_maps_batch(
-                                maps, marks, pts, v, h, h,
-                                fire.to(torch.uint8), cfg)),
-        "fill_marks_shape": (ValueError, "K2 batch marks",
+                                maps, pts, v, h, h, fire.to(torch.uint8),
+                                cfg)),
+        # K2 takes no global scratch: a marks tensor is refused
+        "fill_marks_shape": (TypeError, "positional",
                              lambda: fill.update_maps_batch(
                                  maps, marks[:c], pts, v, h, h, fire, cfg)),
         "k3_batch_valid_dtype": (ValueError, "K3 batch valid",
@@ -460,7 +460,7 @@ def test_one_robot_sub1_fleet_equals_hector_update(flog):
     assert torch.equal(batch.match_pose[0], single.match_pose)
     assert torch.equal(batch.maps, single.maps)
     assert torch.equal(batch.last_update_pose[0], single.last_update_pose)
-    assert not batch.marks.any()
+    assert batch._fields == single._fields == convert.FIELDS   # no scratch
 
 
 @pytest.mark.parametrize("mode", ["gather", "onehot_bf16", "pallas"])
