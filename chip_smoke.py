@@ -94,7 +94,37 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 10 + 64 batch-scans: one batched K3 and one batched K4 call a
                 batch-scan (74 each, no K5, no batched K2), RMS / max /
                 median-instance ATE within FLEET_SUB1_JAX_REF_* + 5e-4 / 0.01
-                / 2e-4; instance-scans/s beside the plain path (best of 1).
+                / 2e-4; instance-scans/s beside the plain path (best of 1);
+ 14. exit     — K1's table (onehot_bf16) and K3 with early_exit_tol 1e-3 and
+                0.3 px (where every match leaves a level early) against
+                their plain versions at the hints of phases 3 and 10: pose
+                within K3_POSE_TOL, the same iterations run and solve
+                failures; the bench's default candidate onehot_bf16_dense
+                replayed over 10 + 512 loop scans through K1 (with the exit)
+                and K2: 512 launches each, ATE <= the port's fixed ATE +
+                1e-4 (bench.py:256) and <= JAX_EXIT_REF_ATE_M + 2e-4, fewer
+                than 15 x 512 GN iterations (the exit fired);
+ 15. frontend — K1-K4 at the graph frontend's shape (one 128-px level at
+                0.25 m, 20 iterations, 400 beams, a fresh zero grid, the
+                fire flag set): K4 bit for bit on a simulated scan and on
+                beams to the 45-cell tiles' edges, K2 at margin 0.5 with at
+                most 0.1% of cells differing, K3 (pose within K3_POSE_TOL)
+                and K1 (2e-3) with 20 iterations each; timed, with bounds;
+ 16. graph    — graph-SLAM replays of the 512-scan turning revisit
+                (make_graph_log(7), 12 forced) in gather (K3 + K4) and
+                pallas_full (K1 + K2): one match and one map update a scan
+                and one of each a loop search (launch counts), a host read a
+                scan, one more a keyframe event and one more a search, the
+                bench's graph gate (same keyframes, closures
+                >= ref - 2, ATE <= 1.15 x ref, max error <= ref + 0.01)
+                against GRAPH_JAX_REF_* / GRAPH_ONEHOT_JAX_REF_* and
+                pallas_full against gather; scans/s (best of 3, each
+                replay's poses the first's bit for bit); the final graph's
+                normal equations assembled twice, equal bit for bit; the host
+                us a scan of the Hector-only fixed replay of the same log
+                without and with one read a scan beside the graph replay's;
+                rebuild_maps after the gather replay (256 K4 launches) equal
+                to its plain version bit for bit.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -102,6 +132,9 @@ counts each distinct table cell its beams read, a map update (K2, K4) the
 cells it changes) over 3.35 TB/s and its
 f32 operations over 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W), and
 library_ms null: no single PyTorch call computes any of these functions.
+The frontend entries' launches are a graph replay's count less its 512
+Hector launches (one a scan): the loop searches'.  Phases 3 and 10 print
+K1's and K3's answers at their hints as f32 bits, to compare two trees' runs.
 """
 import inspect
 import json
@@ -130,6 +163,9 @@ MATCH_OPS_PER_BEAM = 90   # f32 operations of one beam in one GN iteration
 FILL_OPS_PER_CELL = 30    # a firing cell's distance, bin and free test
 LINE_OPS_PER_CELL = 10    # a Bresenham step and its update
 EXPF_OVERFLOW = -88.73    # log-odds below which e^-v overflows a float
+EXIT_TOL = 1e-3           # bench.py:215's early_exit_tol
+EXIT_TOL_FIRES = 0.3      # px: a tolerance at which every match exits early
+EXIT_HINTS = ((0.2, -0.15, 0.04), (-0.1, 0.12, -0.03), (0.05, 0.2, 0.06))
 
 
 def say(msg: str) -> None:
@@ -158,6 +194,14 @@ def k3_readings(out, plain, bf16):
             float(np.abs(out[:, :3] - bf16[:, :3]).max()), rel(out, bf16))
 
 
+def f32_bits(out) -> str:
+    """A match's first six outputs (x, y, theta, solve failures, residual
+    sum, in-bounds beams) as the hex of their f32 bits."""
+    import numpy as np
+    return " ".join(f"{b:08x}" for b in
+                    np.asarray(out[:6], np.float32).view(np.uint32))
+
+
 def bound(nbytes: float, ops: float) -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take
     for ``nbytes`` moved and ``ops`` f32 operations done."""
@@ -180,6 +224,7 @@ def cells_read(maps, points, valid, hints, cfg):
     table = (maps if match.table_f32(cfg)
              else maps.to(torch.bfloat16).to(torch.float32))
     inst = torch.arange(b, device=maps.device)[:, None] * cfg.total_cells
+    tol2 = match._tol2(cfg)
     seen = []
     pose = hints
     for level in range(cfg.num_levels - 1, -1, -1):
@@ -188,28 +233,36 @@ def cells_read(maps, points, valid, hints, cfg):
         row0 = inst + cfg.level_offsets[level]
         est = torch.stack([pose[:, 0] * scale, pose[:, 1] * scale, pose[:, 2]],
                           dim=1)
+        live = torch.ones(b, dtype=torch.bool, device=maps.device)
         for _ in range(cfg.estimate_iterations[level]):
             sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
             base = row0 + (yi * w + xi).long()
             idx = torch.stack([base, base + 1, base + w, base + w + 1])
-            seen.append(idx.reshape(-1))
-            est = _gn_tail(torch.sigmoid(table[idx]), mx, my, xi, yi, ok, X,
+            seen.append(idx[:, live].reshape(-1))   # the iterations that run
+            new = _gn_tail(torch.sigmoid(table[idx]), mx, my, xi, yi, ok, X,
                            Y, sr, cr, est, cfg.deriv_clamp,
                            cfg.xy_step_clamp_px, cfg.gn_damping)[0]
+            d = new - est
+            est = torch.where(live[:, None], new, est)
+            if tol2 > 0.0:
+                live = live & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                               + d[:, 2] * d[:, 2] > tol2)
         pose = torch.stack([est[:, 0] / scale, est[:, 1] / scale,
                             normalize_angle(est[:, 2])], dim=1)
     return torch.unique(torch.cat(seen))
 
 
-def match_work(maps, points, valid, hints, cfg) -> tuple:
+def match_work(maps, points, valid, hints, cfg, iters=None) -> tuple:
     """Bytes and f32 operations of a batched match on these inputs: each
     distinct table cell its beams read (4 B), the matcher beams' points and
-    flags, the hints, the f32[6] outputs; MATCH_OPS_PER_BEAM a
-    beam-iteration."""
+    flags, the hints, the f32[7] outputs; MATCH_OPS_PER_BEAM a
+    beam-iteration, over ``iters`` iterations an instance (the GN
+    iterations the run made; default the fixed counts)."""
     cells = int(cells_read(maps, points, valid, hints, cfg).numel())
     beams = valid[:, ::cfg.match_subsample].numel()
-    iters = sum(cfg.estimate_iterations[:cfg.num_levels])
-    return (4 * cells + 9 * beams + 36 * points.shape[0],
+    if iters is None:
+        iters = sum(cfg.estimate_iterations[:cfg.num_levels])
+    return (4 * cells + 9 * beams + 40 * points.shape[0],
             MATCH_OPS_PER_BEAM * iters * beams)
 
 
@@ -227,13 +280,15 @@ def deep_free(torch, maps):
 
 def check_deep(what, deep, out, plain, points, valid, hints, cfg, pose_tol,
                resid_rtol) -> tuple:
-    """A match kernel's f32[6] or f32[B, 6] ``out`` on ``deep`` (from
+    """A match kernel's f32[7] or f32[B, 7] ``out`` on ``deep`` (from
     deep_free) against its plain version's ``plain``: cells below
     EXPF_OVERFLOW under the beams, finite, the pose within ``pose_tol``,
     equal solve failures, the residual within ``resid_rtol``.  Returns the
     max |pose err| and how many cells read lie below EXPF_OVERFLOW."""
     import numpy as np
-    k, p = out.reshape(-1, 6).cpu().numpy(), plain.reshape(-1, 6).cpu().numpy()
+    from slamnet_tpu_torch.ops import match
+    k = out.reshape(-1, match.OUT).cpu().numpy()
+    p = plain.reshape(-1, match.OUT).cpu().numpy()
     b = k.shape[0]
     read = cells_read(deep, points.reshape(b, -1, 2), valid.reshape(b, -1),
                       hints.reshape(b, 3), cfg)
@@ -334,7 +389,8 @@ def main() -> int:
 
     from slamnet_tpu_torch import replay
     from slamnet_tpu_torch.core.scan import Scan
-    from slamnet_tpu_torch.models import fleet, hector
+    from slamnet_tpu_torch.graph import frontend, posegraph
+    from slamnet_tpu_torch.models import fleet, graph_slam, hector
     from slamnet_tpu_torch.ops import _build, fill, match
     from slamnet_tpu_torch.ops import line as line_ops
     from slamnet_tpu_torch.sim import default_field, revolution_angles
@@ -384,6 +440,7 @@ def main() -> int:
     k1_before = match.match.launches
     k1_calls = 0
     k1_err = 0.0
+    k1_bits = []
     cases = [(cfg, (0.2, -0.15, 0.04), 2e-3), (cfg, (-0.1, 0.12, -0.03), 2e-3),
              (cfg, (0.05, 0.2, 0.06), 2e-3),
              (cfg.overlay({"xy_step_clamp_px": 10.0, "gn_damping": 0.1,
@@ -394,6 +451,7 @@ def main() -> int:
         k1_calls += 1
         op = match.match_plain(maps, scan.points, scan.valid, hint, c)
         ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
+        k1_bits.append(f32_bits(ok_))
         err = float(np.abs(ok_[:3] - op[:3]).max())
         k1_err = max(k1_err, err)
         check(np.isfinite(ok_).all(), f"K1 output not finite: {ok_}")
@@ -442,7 +500,7 @@ def main() -> int:
         f"{k1_deep_err:.3g}); device {k1_ms:.4f} ms/match vs plain "
         f"{k1_plain_ms:.4f} ms (CUDA graph; bound {k1_bound[0]:.6f} ms by "
         f"{k1_bound[1]}); eager {k1_eager:.4f} ms vs plain "
-        f"{k1_plain_eager:.4f} ms")
+        f"{k1_plain_eager:.4f} ms; answers' f32 bits {k1_bits}")
     slope_ms, per_it, icpt = iteration_slope(torch, lambda c: match.match(
         maps, scan.points, scan.valid, hint, c), cfg)
     say(f"[K1] iteration slope: {per_it * 1e3:.4f} us a GN iteration, "
@@ -889,6 +947,7 @@ def main() -> int:
     k3_before = match.match.launches_f32
     k3_calls = 0
     k3_err = k3_res = k3_gap = k3_res_gap = 0.0
+    k3_bits = []
     k3_cases = [(xcfg, (0.2, -0.15, 0.04)), (xcfg, (-0.1, 0.12, -0.03)),
                 (xcfg, (0.05, 0.2, 0.06)),
                 (xcfg.overlay({"xy_step_clamp_px": 10.0, "gn_damping": 0.1,
@@ -903,11 +962,12 @@ def main() -> int:
                          c.overlay({"matcher_mode": "pallas"}))
         ok_, op, o1 = ok_.cpu().numpy(), op.cpu().numpy(), o1.cpu().numpy()
         err, res, gap, res_gap = k3_readings(ok_[None], op[None], o1[None])
+        k3_bits.append(f32_bits(ok_))
         k3_err, k3_res = max(k3_err, err), max(k3_res, res)
         k3_gap, k3_res_gap = max(k3_gap, gap), max(k3_res_gap, res_gap)
         say(f"[K3] case {i}: vs plain |pose err| {err:.3g}, residual rel err "
             f"{res:.3g}; vs K1 (bf16 table) |pose diff| {gap:.3g}, residual "
-            f"rel diff {res_gap:.3g}")
+            f"rel diff {res_gap:.3g}; f32 bits {k3_bits[-1]}")
         check(np.isfinite(ok_).all(), f"K3 output not finite: {ok_}")
         check(err <= K3_POSE_TOL,
               f"K3 pose {ok_[:3]} vs plain {op[:3]} (tol {K3_POSE_TOL})")
@@ -1392,6 +1452,357 @@ def main() -> int:
           f"sub1 median instance ATE {smed} above FLEET_SUB1_JAX_REF_MEDIAN_M "
           "+ 2e-4")
 
+    # ---- 14. the early exit: K1's table and K3 with early_exit_tol -------
+    # against their plain versions at the hints of phases 3 and 10: the
+    # pose within K3_POSE_TOL and the same iterations run; then the bench's
+    # default candidate onehot_bf16_dense replayed through K1 with the exit
+    ecfg = replay.onehot_bf16_dense_config()
+    x_exit = xcfg.overlay({"early_exit_tol": EXIT_TOL})
+    exit_err, exit_iters = 0.0, {}
+    exit_before = (match.match.launches, match.match.launches_f32)
+    for name, c0, m in (("K1", ecfg, maps), ("K3", x_exit, xmaps)):
+        sc = scan if name == "K1" else xscan
+        its = []
+        # bench's tolerance, then a looser one at which every hint's match
+        # leaves some level early (on these 6-scan maps the finest level's
+        # steps stay above 1e-3 px: the replay shows the exit at 1e-3)
+        for c, off in [(c0, off) for off in EXIT_HINTS] + [
+                (c0.overlay({"early_exit_tol": EXIT_TOL_FIRES}), off)
+                for off in EXIT_HINTS]:
+            h = truth + torch.tensor(off, device=dev)
+            ok_ = match.match(m, sc.points, sc.valid, h, c)
+            op = match.match_plain(m, sc.points, sc.valid, h, c)
+            fixed = match.match(m, sc.points, sc.valid, h,
+                                c.overlay({"early_exit_tol": 0.0}))
+            ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
+            err = float(np.abs(ok_[:3] - op[:3]).max())
+            exit_err = max(exit_err, err)
+            check(np.isfinite(ok_).all(), f"{name} exit output not finite")
+            check(err <= K3_POSE_TOL, f"{name} exit pose {ok_[:3]} vs plain "
+                  f"{op[:3]} (tol {K3_POSE_TOL})")
+            check(ok_[6] == op[6], f"{name} exit ran {ok_[6]} iterations, "
+                  f"the plain version {op[6]}")
+            check(ok_[3] == op[3], f"{name} exit solve failures {ok_[3]} vs "
+                  f"plain {op[3]}")
+            check(float(fixed[6]) == 15.0 and 3 <= ok_[6] <= 15,
+                  f"{name}: {ok_[6]} iterations with the exit, "
+                  f"{float(fixed[6])} without")
+            its.append(int(ok_[6]))
+        check(max(its[len(EXIT_HINTS):]) < 15,
+              f"{name}: the exit at {EXIT_TOL_FIRES} did not fire: {its}")
+        exit_iters[name] = its
+    torch.cuda.synchronize()
+    check((match.match.launches - exit_before[0],
+           match.match.launches_f32 - exit_before[1])
+          == (4 * len(EXIT_HINTS), 4 * len(EXIT_HINTS)),
+          "exit-phase launch counts")
+    h_exit = truth + torch.tensor(EXIT_HINTS[0], device=dev)
+
+    def k1_exit():
+        return match.match(maps, scan.points, scan.valid, h_exit, ecfg)
+
+    def k1_exit_plain():
+        return match.match_plain(maps, scan.points, scan.valid, h_exit, ecfg)
+
+    k1x_ms = graph_ms(torch, k1_exit, REPS_KERNEL)
+    k1x_plain_ms = graph_ms(torch, k1_exit_plain, REPS_PLAIN)
+    k3x_ms = graph_ms(torch, lambda: match.match(
+        xmaps, xscan.points, xscan.valid, h_exit, x_exit), REPS_KERNEL)
+    k1x_bound = bound(*match_work(maps, scan.points[None], scan.valid[None],
+                                  h_exit[None], ecfg, exit_iters["K1"][0]))
+
+    est0 = replay.bootstrap(hector.init(ecfg, log.traj[0], dev), dlog,
+                            log.bootstrap, ecfg)
+    zero_counts()
+    estf, eout = replay.replay(est0, dlog, log.bootstrap, ecfg)
+    torch.cuda.synchronize()
+    elaunch = read_counts()
+    want = dict.fromkeys(elaunch, 0)
+    want.update(match=n, fill=n)
+    check(elaunch == want, f"launches in the onehot_bf16_dense replay: "
+          f"{elaunch}, want {want}")
+    eposes = eout.poses.cpu().numpy()
+    check(eposes.shape == (n, 3) and np.isfinite(eposes).all(),
+          "onehot_bf16_dense poses")
+    check(bool(torch.isfinite(estf.maps).all()), "onehot_bf16_dense maps")
+    eate, emax = replay.ate_of(eposes, log.traj[log.bootstrap:])
+    e_iters = int(eout.gn_iterations.sum())
+
+    def best_exit(plain: bool) -> float:
+        replay.replay(est0, dlog, log.bootstrap, ecfg, plain)   # warm-up
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(TIMED_REPLAYS if not plain else 1):
+            t = time.perf_counter()
+            replay.replay(est0, dlog, log.bootstrap, ecfg, plain)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    te_kernel = best_exit(False)
+    te_plain = best_exit(True)
+    say(f"[exit] K1's table and K3 with early_exit_tol {EXIT_TOL} at "
+        f"{len(EXIT_HINTS)} hints agree with their plain versions: max |pose "
+        f"err| {exit_err:.3g} (tol {K3_POSE_TOL}), equal iterations run "
+        f"{exit_iters} (15 without the exit; the last {len(EXIT_HINTS)} at "
+        f"tol {EXIT_TOL_FIRES}), equal solve failures; device "
+        f"K1 {k1x_ms:.4f} ms vs plain {k1x_plain_ms:.4f} (bound "
+        f"{k1x_bound[0]:.6f} ms by {k1x_bound[1]}), K3 {k3x_ms:.4f} (CUDA "
+        f"graph; fixed K1 {k1_ms:.4f}, K3 {k3_ms:.4f})")
+    say(f"[exit] onehot_bf16_dense replay of {n} scans: ATE {eate:.6f} m "
+        f"(port fixed {xate:.6f}, gate +1e-4; JAX ref "
+        f"{replay.JAX_EXIT_REF_ATE_M:.6f}, gate +2e-4), max err {emax:.4f} m, "
+        f"GN iterations {e_iters} (< 15 x {n} = {15 * n}), map updates "
+        f"{int(eout.map_updated.sum())}, launches "
+        f"{ {k: v for k, v in elaunch.items() if v} } (all others 0); kernels "
+        f"{n / te_kernel:.1f} scans/s vs plain {n / te_plain:.1f} "
+        f"(pallas_dense {n / t_kernel:.1f})")
+    check(eate <= xate + 1e-4, f"onehot_bf16_dense ATE {eate} above the "
+          f"port's fixed ATE {xate} + 1e-4")
+    check(eate <= replay.JAX_EXIT_REF_ATE_M + 2e-4, f"onehot_bf16_dense ATE "
+          f"{eate} above JAX_EXIT_REF_ATE_M + 2e-4")
+    check(emax <= 0.05, f"onehot_bf16_dense max error {emax} above 0.05 m")
+    check(e_iters < 15 * n, f"{e_iters} GN iterations: the exit never fired")
+
+    # ---- 15. K1-K4 at the graph frontend's shapes ---------------------------
+    # the local grid: one 128-px level at 0.25 m, 20 GN iterations, all 400
+    # beams; a fresh zero grid a keyframe event, the fire flag set
+    gcfg_l = frontend.ScanMatchConfig()
+    gcfg_d = frontend.ScanMatchConfig(matcher_mode="pallas", dense_fill=True)
+    h_l, h_d = frontend.grid_config(gcfg_l), frontend.grid_config(gcfg_d)
+    center = frontend._center(gcfg_l, dev)
+    ref_scan = sim_scan(truth)
+    fr_before = (line_ops.update_maps_line.launches, fill.update_maps.launches)
+    grid_l = frontend.rasterize_scan(ref_scan, gcfg_l)
+    grid_lp = frontend.rasterize_scan(ref_scan, gcfg_l, plain=True)
+    check(torch.equal(grid_l, grid_lp), f"K4 at 128 px: "
+          f"{int((grid_l != grid_lp).sum())} cells differ from the plain version")
+    fr_line_cells = int((grid_l != 0).sum())
+    # beams to the 45-cell tiles' edges of the 128-px grid, the robot at its
+    # centre (64, 64): endpoints on tiles' first and last columns and rows,
+    # along the axes and the diagonals
+    tile = line_ops.TILE
+    edges = [0, tile - 1, tile, 2 * tile - 1, 2 * tile, 127]
+    ends = [(x, y) for x in edges for y in edges]
+    ends += [(64 + sx * d, 64 + sy * d) for d in (1, 2, 19, 25, 26, 63)
+             for sx, sy in ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1),
+                            (-1, 1), (1, -1), (-1, -1)) if 0 <= 64 + sx * d < 128
+             and 0 <= 64 + sy * d < 128]
+    e_pts = torch.tensor([((x - 64) * 0.25, (y - 64) * 0.25) for x, y in ends],
+                         dtype=torch.float32, device=dev)
+    e_scan = Scan(e_pts, torch.ones(len(ends), dtype=torch.bool, device=dev),
+                  zero3)
+    g_e = frontend.rasterize_scan(e_scan, gcfg_l)
+    check(torch.equal(g_e, frontend.rasterize_scan(e_scan, gcfg_l, True)),
+          "K4 at 128 px, tile-edge beams: differs from the plain version")
+    check(int((g_e > 0).sum()) >= len(set(ends)) - 1,
+          "K4 at 128 px: tile-edge endpoints not marked")
+    grid_d = frontend.rasterize_scan(ref_scan, gcfg_d)
+    grid_dp = frontend.rasterize_scan(ref_scan, gcfg_d, plain=True)
+    occ_k, occ_p = grid_d > 0, grid_dp > 0
+    check(torch.equal(occ_k, occ_p) and torch.equal(grid_d[occ_k],
+                                                    grid_dp[occ_p]),
+          "K2 at 128 px: occupied cells differ")
+    fr_fill_frac = float((grid_d != grid_dp).float().mean())
+    fr_fill_err = float((grid_d - grid_dp).abs().max())
+    check(fr_fill_frac <= 1e-3, f"K2 at 128 px: {fr_fill_frac:.2%} of cells "
+          "differ (limit 0.1%)")
+    fr_fill_cells = int((grid_d != 0).sum())
+    torch.cuda.synchronize()
+    check((line_ops.update_maps_line.launches - fr_before[0],
+           fill.update_maps.launches - fr_before[1]) == (2, 1),
+          "frontend map update launch counts")
+    # the query: a scan 0.3 m and 0.05 rad on, matched from the odometry
+    qpose = truth + torch.tensor((0.3, -0.2, 0.05), device=dev)
+    q_scan = sim_scan(qpose)
+    fr_hint = torch.tensor((0.3 + 0.06, -0.2 - 0.04, 0.05 + 0.02),
+                           device=dev) + center
+    fr_err = {}
+    for name, c, grid, tol in (("K3", h_l, grid_l, K3_POSE_TOL),
+                               ("K1", h_d, grid_d, 2e-3)):
+        ok_ = match.match(grid, q_scan.points, q_scan.valid, fr_hint, c)
+        op = match.match_plain(grid, q_scan.points, q_scan.valid, fr_hint, c)
+        ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
+        err = float(np.abs(ok_[:3] - op[:3]).max())
+        fr_err[name] = err
+        check(np.isfinite(ok_).all() and err <= tol,
+              f"{name} at 128 px: pose {ok_[:3]} vs plain {op[:3]} (tol {tol})")
+        check(ok_[3] == op[3] and ok_[6] == op[6] == 20.0,
+              f"{name} at 128 px: failures / iterations {ok_[3:]} vs {op[3:]}")
+        rel = ok_[:3] - center.cpu().numpy()
+        check(np.abs(rel[:2] - [0.3, -0.2]).max() < 0.1,
+              f"{name} at 128 px did not converge: rel {rel}")
+    fr = {}
+    for name, c, grid in (("K3", h_l, grid_l), ("K1", h_d, grid_d)):
+        fr[name] = (
+            graph_ms(torch, lambda c=c, g=grid: match.match(
+                g, q_scan.points, q_scan.valid, fr_hint, c), REPS_KERNEL),
+            graph_ms(torch, lambda c=c, g=grid: match.match_plain(
+                g, q_scan.points, q_scan.valid, fr_hint, c), REPS_PLAIN),
+            bound(*match_work(grid, q_scan.points[None], q_scan.valid[None],
+                              fr_hint[None], c)))
+    gt_l = torch.zeros(h_l.total_cells, device=dev)
+    gt_d = torch.zeros(h_d.total_cells, device=dev)
+    fr["K4"] = (
+        graph_ms(torch, lambda: line_ops.update_maps_line(
+            gt_l, ref_scan.points, ref_scan.valid, center, zero3, yes, h_l),
+            REPS_KERNEL),
+        graph_ms(torch, lambda: line_ops.update_maps_line_plain(
+            gt_l, ref_scan.points, ref_scan.valid, center, zero3, yes, h_l),
+            REPS_PLAIN),
+        bound(*line_work(fr_line_cells, 400, 1, 1)))
+    fr["K2"] = (
+        graph_ms(torch, lambda: fill.update_maps(
+            gt_d, ref_scan.points, ref_scan.valid, center, zero3, yes, h_d),
+            REPS_KERNEL),
+        graph_ms(torch, lambda: fill.update_maps_plain(
+            gt_d, ref_scan.points, ref_scan.valid, center, zero3, yes, h_d),
+            REPS_PLAIN),
+        bound(*fill_work(h_d, fr_fill_cells, 400, 1, 1)))
+    del gt_l, gt_d
+    say(f"[frontend] the {h_l.map_size}-px local grid ({h_l.map_resolution} "
+        f"m, 1 level, 20 iterations, 400 beams): K4 equals its plain version "
+        f"bit for bit ({fr_line_cells} cells; {len(ends)} beams to the "
+        f"{tile}-cell tiles' edges too), K2 {fr_fill_frac:.4%} of cells "
+        f"differ, max |err| {fr_fill_err:.3g} (margin "
+        f"{h_d.dense_free_margin_px}); K3 |pose err| "
+        f"{fr_err['K3']:.3g} (tol {K3_POSE_TOL}), K1 {fr_err['K1']:.3g} (tol "
+        f"2e-3), 20 iterations each; device ms (CUDA graph) "
+        + ", ".join(f"{k} {v[0]:.4f} vs plain {v[1]:.4f} (bound "
+                    f"{v[2][0]:.6f} by {v[2][1]})" for k, v in fr.items()))
+
+    # ---- 16. graph-SLAM: the gather and pallas_full replays ---------------
+    glog = replay.make_graph_log()
+    gdlog = replay.to_device(glog, dev)
+    gn = gdlog.points.shape[0]
+    graph_runs = {}
+    for gmode, (hc, mc), ref in (
+            ("gather", replay.graph_gather_config(),
+             replay.graph_reference()),
+            ("pallas_full", replay.graph_pallas_full_config(),
+             replay.graph_reference(onehot=True))):
+        zero_counts()
+        syncs0 = graph_slam.update.syncs
+        searches0 = graph_slam.update.searches
+        gst, gout = replay.graph_replay(gdlog, hc, mc)
+        torch.cuda.synchronize()
+        glaunch = read_counts()
+        gsyncs = graph_slam.update.syncs - syncs0
+        searches = graph_slam.update.searches - searches0
+        events = int(gout.keyframe_added.sum())
+        mkey, ukey = (("match_f32", "line") if gmode == "gather"
+                      else ("match", "fill"))
+        want = dict.fromkeys(glaunch, 0)
+        want.update({mkey: gn + searches, ukey: gn + searches})
+        check(glaunch == want, f"launches in the {gmode} graph replay: "
+              f"{glaunch}, want {want} ({searches} loop searches)")
+        check(gsyncs == gn + events + searches, f"{gmode}: {gsyncs} host "
+              f"reads, want {gn} + {events} + {searches}")
+        gposes = gout.poses.cpu().numpy()
+        check(gposes.shape == (gn, 3) and np.isfinite(gposes).all(),
+              f"{gmode} graph poses")
+        res = replay.graph_ate_of(gst, gposes, glog.traj)
+        check(res["keyframes"] == events + 1,
+              f"{gmode}: {res['keyframes']} keyframes, {events} events")
+        check(res["loop_closures"] <= searches <= events,
+              f"{gmode}: {searches} loop searches, {events} events, "
+              f"{res['loop_closures']} closures")
+        fails = replay.graph_gate(res, ref)
+        check(not fails, f"{gmode} graph gate vs JAX: {fails}")
+        if gmode == "pallas_full":
+            fails = replay.graph_gate(res, graph_runs["gather"]["res"])
+            check(not fails, f"pallas_full graph gate vs gather: {fails}")
+
+        def best_graph(hc=hc, mc=mc, first=gout.poses) -> float:
+            # each timed replay gives the first one's poses bit for bit: the
+            # graph's assembly, solves and kernels are deterministic
+            best = float("inf")
+            for _ in range(TIMED_REPLAYS):
+                t = time.perf_counter()
+                _, again = replay.graph_replay(gdlog, hc, mc)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t)
+                check(torch.equal(again.poses, first), f"{gmode}: a second "
+                      "graph replay gave other poses")
+            return best
+        graph_runs[gmode] = {"res": res, "launches": glaunch, "events": events,
+                             "searches": searches, "syncs": gsyncs,
+                             "s": best_graph(), "state": gst}
+        say(f"[graph] {gmode} replay of {gn} scans ({glog.bootstrap} forced): "
+            f"ATE {res['ate_m']:.6f} m (JAX ref {ref['ate_m']:.6f}, gate x1.15), "
+            f"max err {res['max_err_m']:.4f} m (ref {ref['max_err_m']:.4f}), "
+            f"keyframes {res['keyframes']} (ref {ref['keyframes']}), loop "
+            f"closures {res['loop_closures']} (ref {ref['loop_closures']}); "
+            f"launches { {k: v for k, v in glaunch.items() if v} } (all "
+            f"others 0: {gn} a scan + {searches} loop searches in {events} "
+            f"keyframe events); host reads {gsyncs} a replay ({gn} + {events} "
+            f"+ {searches}); {gn / graph_runs[gmode]['s']:.1f} scans/s "
+            f"(best of {TIMED_REPLAYS}, each replay's poses the first's bit "
+            "for bit)")
+    # the cost of the keyframe branch's read: the Hector-only fixed replay
+    # over the same graph log, without and with one read of the device a
+    # scan, beside the gather graph replay, each best of TIMED_REPLAYS
+    hc = replay.fixed_config()
+    zero_g = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    def hector_only(read: bool) -> float:
+        best = float("inf")
+        for _ in range(TIMED_REPLAYS):
+            st = hector.init(hc, gdlog.traj[0], dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(gn):
+                st, _ = hector.update(
+                    st, Scan(gdlog.points[i], gdlog.valid[i], zero_g),
+                    st.match_pose, hc, i < glog.bootstrap)
+                if read:
+                    bool(st.match_pose[0] > -1e9)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    t_h = hector_only(False)
+    t_hr = hector_only(True)
+    us = {k: v * 1e6 / gn for k, v in (("hector", t_h), ("hector_read", t_hr),
+                                        ("graph", graph_runs["gather"]["s"]))}
+    say(f"[graph] host us a scan over the graph log: Hector-only fixed "
+        f"{us['hector']:.1f}, with one read of the device a scan "
+        f"{us['hector_read']:.1f} (the read costs "
+        f"{us['hector_read'] - us['hector']:.1f}), graph gather "
+        f"{us['graph']:.1f} (+{us['graph'] - us['hector']:.1f} over "
+        f"Hector-only)")
+    # the normal equations of the gather replay's final graph, assembled
+    # twice on the card: the same H and b bit for bit (no atomics)
+    gst = graph_runs["gather"]["state"]
+    ak = posegraph.bucket(gst.graph.poses.shape[0], gst.nodes)
+    h1, b1 = posegraph.build_normal_equations(gst.graph, active_k=ak)
+    h2, b2 = posegraph.build_normal_equations(gst.graph, active_k=ak)
+    check(torch.equal(h1, h2) and torch.equal(b1, b2),
+          "two assemblies of the normal equations differ")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matrix products are on: the assembly needs full f32")
+    say(f"[graph] the final graph's normal equations ({3 * ak} x {3 * ak}, "
+        f"{gst.nodes} nodes, {int(gst.graph.num_edges)} edges) assembled "
+        "twice on the card: equal bit for bit")
+    del h1, b1, h2, b2
+    # map finalization after the gather replay: every keyframe slot through
+    # K4, equal to the plain version bit for bit
+    zero_counts()
+    rebuilt = graph_slam.rebuild_maps(gst, hc)
+    torch.cuda.synchronize()
+    rl = read_counts()["line"]
+    rebuilt_p = graph_slam.rebuild_maps(gst, hc, plain=True)
+    check(torch.equal(rebuilt, rebuilt_p), f"rebuild_maps: "
+          f"{int((rebuilt != rebuilt_p).sum())} cells differ from the plain "
+          "version")
+    check(rl == gst.kf_points.shape[0], f"rebuild_maps launched K4 {rl} times")
+    l0 = rebuilt[:hc.map_size ** 2]
+    say(f"[graph] rebuild_maps of {gst.nodes} keyframes in "
+        f"{gst.kf_points.shape[0]} slots ({rl} K4 launches) equals its plain "
+        f"version bit for bit ({int((l0 > 0).sum())} occupied, "
+        f"{int((l0 < 0).sum())} free cells at the finest level)")
+    del graph_runs["gather"]["state"], graph_runs["pallas_full"]["state"], gst
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -1422,7 +1833,23 @@ def main() -> int:
               k4_err["single"], k4_ms["fire"], k4_plain_ms["fire"], k4_bound),
         entry("line_batch", "line.cu", "pallas_scatter.py:71",
               slaunch["line_batch"], k4_err["batch"], k4b_ms["1-in-18"],
-              k4b_plain_ms["1-in-18"], k4b_bound["1-in-18"])],
+              k4b_plain_ms["1-in-18"], k4b_bound["1-in-18"]),
+        entry("match_exit", "match.cu", "pallas_onehot.py:500",
+              elaunch["match"], exit_err, k1x_ms, k1x_plain_ms, k1x_bound),
+        # the frontend's launches: a graph replay's count less its n Hector
+        # launches (one a scan)
+        entry("match_frontend", "match.cu", "pallas_onehot.py:500",
+              graph_runs["pallas_full"]["launches"]["match"] - gn,
+              fr_err["K1"], *fr["K1"]),
+        entry("fill_frontend", "fill.cu", "pallas_fill.py:86",
+              graph_runs["pallas_full"]["launches"]["fill"] - gn, fr_fill_err,
+              *fr["K2"]),
+        entry("match_f32_frontend", "match.cu", "pallas_gn.py:133",
+              graph_runs["gather"]["launches"]["match_f32"] - gn,
+              fr_err["K3"], *fr["K3"]),
+        entry("line_frontend", "line.cu", "pallas_scatter.py:71",
+              graph_runs["gather"]["launches"]["line"] - gn, 0.0,
+              *fr["K4"])],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -1450,6 +1877,17 @@ def main() -> int:
         "line_batch_all_fire_plain_ms": k4b_plain_ms["all"],
         "line_batch_all_fire_bound_ms": k4b_bound["all"][0],
         "line_cells_changed": k4_cells, "line_batch_cells_changed": k4b_cells,
+        "exit_replay_scans_per_s": n / te_kernel,
+        "exit_replay_plain_scans_per_s": n / te_plain,
+        "exit_ate_m": eate, "exit_max_err_m": emax,
+        "exit_gn_iterations": e_iters, "exit_iterations_at_hints": exit_iters,
+        "match_f32_exit_ms": k3x_ms, "fill_frontend_cells_differing": fr_fill_frac,
+        "graph": {m: {**r["res"], "keyframe_events": r["events"],
+                      "loop_searches": r["searches"], "host_reads": r["syncs"], "scans_per_s": gn / r["s"],
+                      "launches": {k: v for k, v in r["launches"].items() if v}}
+                  for m, r in graph_runs.items()},
+        "graph_host_us_per_scan": us,
+        "match_bits": {"K1": k1_bits, "K3": k3_bits},
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -8,11 +8,15 @@ the traced replay (the union of its kernels' intervals over the replay's span),
 and the device kernels by total time, each with its calls and its mean,
 median, least and largest time a call.  A step is a scan of the single-robot
 replay (512 scans after a 10-scan fixed-mode bootstrap; ``--mode``
-``pallas_dense``, the default, or ``fixed``), or with ``--fleet`` a
-batch-scan of the 64-robot fleet (64 batch-scans after a 10-batch-scan
-bootstrap; ``--mode`` ``sub4_pallas_dense``, the default, or ``sub1``).
+``pallas_dense``, the default, ``fixed`` or ``onehot_bf16_dense``), with
+``--fleet`` a batch-scan of the 64-robot fleet (64 batch-scans after a
+10-batch-scan bootstrap; ``--mode`` ``sub4_pallas_dense``, the default, or
+``sub1``), or with ``--graph`` a scan of the graph-SLAM replay (the 512
+scans of the turning revisit, the first 12 forced; ``--mode`` ``gather``,
+the default, or ``pallas_full``).
 
-    python3 scripts/torch_port_profile.py [--fleet] [--mode M] [--out DIR]
+    python3 scripts/torch_port_profile.py [--fleet | --graph] [--mode M]
+        [--out DIR]
 """
 import argparse
 import json
@@ -32,9 +36,12 @@ from slamnet_tpu_torch.models import fleet, hector  # noqa: E402
 
 
 SINGLE = {"pallas_dense": replay.pallas_dense_config,
-          "fixed": replay.fixed_config}
+          "fixed": replay.fixed_config,
+          "onehot_bf16_dense": replay.onehot_bf16_dense_config}
 FLEET = {"sub4_pallas_dense": replay.sub4_pallas_dense_config,
          "sub1": replay.sub1_config}
+GRAPH = {"gather": replay.graph_gather_config,
+         "pallas_full": replay.graph_pallas_full_config}
 
 
 def _single(dev, cfg):
@@ -57,24 +64,35 @@ def _fleet(dev, cfg):
                                        cfg))
 
 
+def _graph(dev, cfgs):
+    dlog = replay.to_device(replay.make_graph_log(), dev)
+    return (dlog.points.shape[0],
+            lambda: replay.graph_replay(dlog, *cfgs))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the Chrome trace")
-    ap.add_argument("--fleet", action="store_true",
-                    help="the 64-robot fleet instead of the single robot")
-    ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET}),
-                    help="the configuration (default pallas_dense, or "
-                         "sub4_pallas_dense with --fleet)")
+    path = ap.add_mutually_exclusive_group()
+    path.add_argument("--fleet", action="store_true",
+                      help="the 64-robot fleet instead of the single robot")
+    path.add_argument("--graph", action="store_true",
+                      help="graph-SLAM instead of the single robot")
+    ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH}),
+                    help="the configuration (default pallas_dense, "
+                         "sub4_pallas_dense with --fleet, gather with "
+                         "--graph)")
     args = ap.parse_args()
-    modes = FLEET if args.fleet else SINGLE
+    kind = "fleet" if args.fleet else "graph" if args.graph else "single"
+    modes = {"fleet": FLEET, "graph": GRAPH, "single": SINGLE}[kind]
     mode = args.mode or next(iter(modes))
     if mode not in modes:
-        path = "fleet" if args.fleet else "single-robot"
-        ap.error(f"--mode {mode} is not a {path} mode: {sorted(modes)}")
+        ap.error(f"--mode {mode} is not a {kind} mode: {sorted(modes)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    n, run = (_fleet if args.fleet else _single)(dev, modes[mode]())
+    make = {"fleet": _fleet, "graph": _graph, "single": _single}[kind]
+    n, run = make(dev, modes[mode]())
     run()                                                  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -109,7 +127,7 @@ def main() -> int:
         prof.export_chrome_trace(os.path.join(args.out, f"trace_{mode}.json"))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "path": "fleet" if args.fleet else "single", "mode": mode, "steps": n,
+        "path": kind, "mode": mode, "steps": n,
         "wall_us_per_step": wall / n * 1e6,
         "traced_wall_us_per_step": traced / n * 1e6,
         "device_kernels": len(kernels),

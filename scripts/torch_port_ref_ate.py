@@ -17,6 +17,19 @@ Modes (single robot):
     selection K1 makes, and the port's dense fill.  Its ATE is
     ``JAX_REF_ATE_M``.
 
+``--exit`` runs bench's default candidate ``onehot_bf16_dense``
+(``bench.py:214-217``: ``early_exit_tol=1e-3``, ``matcher_mode=
+"onehot_bf16"``, dense fill) on the same log and flow; its ATE is
+``JAX_EXIT_REF_ATE_M``.
+
+``--graph`` runs graph-SLAM (``models/graph_slam.update``) over
+``make_graph_log(7)`` with bench's graph flow (``bench.py:613-647``: every
+scan from the live match pose, the first 12 forced in the mode's own config;
+the ATE over the scans after them): ``--mode gather`` (the bench's
+parity mode, ``replay.GRAPH_JAX_REF_*``) or ``onehot_full`` (``bench.py:
+669-674``, ``replay.GRAPH_ONEHOT_JAX_REF_*``): ATE, max error, keyframes
+and loop closures.
+
 ``--fleet`` runs the fleet instead: ``fleet.update_fleet`` over
 ``make_fleet_log``'s 64 phase-shifted slices of the same log, with bench's
 flow (``bench.py:462-493``: 10 forced batch-scans with ``match_pose`` set to
@@ -28,7 +41,8 @@ max and median instance ATE.
 
 Runs on the CPU (a few minutes); prints one JSON object.
 
-    python scripts/torch_port_ref_ate.py [--seed 0] [--fleet [--mode sub1]]
+    python scripts/torch_port_ref_ate.py [--seed 0] [--exit]
+        [--fleet [--mode sub1]] [--graph [--mode onehot_full]]
 """
 import argparse
 import json
@@ -46,11 +60,13 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from slamnet_tpu.core import HectorConfig  # noqa: E402
+from slamnet_tpu.core import HectorConfig, PoseGraphConfig  # noqa: E402
 from slamnet_tpu.core.scan import Scan  # noqa: E402
-from slamnet_tpu.models import fleet, hector  # noqa: E402
-from slamnet_tpu_torch.replay import (ate_of, fleet_ate_of,  # noqa: E402
-                                      make_fleet_log, make_log, sub1_config,
+from slamnet_tpu.graph import frontend  # noqa: E402
+from slamnet_tpu.models import fleet, graph_slam, hector  # noqa: E402
+from slamnet_tpu_torch.replay import (GRAPH_SEED, ate_of,  # noqa: E402
+                                      fleet_ate_of, make_fleet_log,
+                                      make_graph_log, make_log, sub1_config,
                                       sub4_pallas_dense_config)
 
 FLEET_FIELDS = ("num_levels", "estimate_iterations", "xy_step_clamp_px",
@@ -130,14 +146,75 @@ def run_fleet(cfg, flog):
             "solve_failures": int(np.asarray(fails).sum())}
 
 
+def run_graph(hcfg, mcfg, log):
+    """bench.py's graph flow (``bench.py:613-647``) over ``log``."""
+    angles = jnp.asarray(log.angles)
+    gcfg = PoseGraphConfig()
+    n = log.radii.shape[0]
+    force = jnp.arange(n) < log.bootstrap
+
+    @jax.jit
+    def replay(state, radii, valids, force):
+        def body(st, inp):
+            rr, vv, f = inp
+            pts = jnp.stack([rr * jnp.cos(angles), rr * jnp.sin(angles)], -1)
+            st, _ = graph_slam.update(
+                st, Scan(pts, vv, jnp.zeros(3, jnp.float32)), hcfg, gcfg,
+                mcfg=mcfg, map_without_matching=f)
+            return st, st.hector.match_pose
+        return jax.lax.scan(body, state, (radii, valids, force))
+
+    state = graph_slam.init(hcfg, gcfg, log.traj[0], int(angles.shape[0]))
+    stf, poses = replay(state, jnp.asarray(log.radii), jnp.asarray(log.valid),
+                        force)
+    b = log.bootstrap
+    ate, mx = ate_of(np.asarray(poses)[b:], log.traj[b:])
+    return {"ate_m": ate, "max_err_m": mx,
+            "keyframes": int(np.asarray(stf.graph.num_nodes)),
+            "loop_closures": int(np.asarray(stf.loop_count))}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the log's seed (default 0, or 7 with --graph)")
+    ap.add_argument("--exit", action="store_true",
+                    help="onehot_bf16_dense with early_exit_tol=1e-3")
     ap.add_argument("--fleet", action="store_true",
                     help="the 64-robot fleet instead of the single robot")
-    ap.add_argument("--mode", choices=("sub4_onehot_dense", "sub1"),
-                    default="sub4_onehot_dense", help="the fleet's mode")
+    ap.add_argument("--graph", action="store_true",
+                    help="graph-SLAM over the turning revisit log")
+    ap.add_argument("--mode", choices=("sub4_onehot_dense", "sub1", "gather",
+                                       "onehot_full"),
+                    help="the fleet's mode (default sub4_onehot_dense) or "
+                         "the graph's (default gather)")
     args = ap.parse_args()
+    if args.graph:
+        mode = args.mode or "gather"
+        if mode not in ("gather", "onehot_full"):
+            ap.error(f"--mode {mode} is not a graph mode")
+        seed = GRAPH_SEED if args.seed is None else args.seed
+        log = make_graph_log(seed=seed)
+        hcfg = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4))
+        mcfg = None
+        if mode == "onehot_full":
+            hcfg = hcfg.overlay({"matcher_mode": "onehot_bf16",
+                                 "dense_free_fill": True,
+                                 "dense_free_margin_px": 0.5})
+            mcfg = frontend.ScanMatchConfig(matcher_mode="onehot_bf16",
+                                            dense_fill=True)
+        out = {"seed": seed, "n_scans": int(log.radii.shape[0]),
+               "bootstrap": log.bootstrap, "jax": jax.__version__,
+               "device": str(jax.devices()[0])}
+        t0 = time.time()
+        out[f"graph_{mode}"] = run_graph(hcfg, mcfg, log)
+        out[f"graph_{mode}"]["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps(out))
+        return
+    if args.mode in ("gather", "onehot_full"):
+        ap.error(f"--mode {args.mode} needs --graph")
+    args.mode = args.mode or "sub4_onehot_dense"
+    args.seed = 0 if args.seed is None else args.seed
     log = make_log(seed=args.seed)
     base = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4))
     out = {"seed": args.seed, "n_scans": int(log.radii.shape[0] - log.bootstrap),
@@ -156,10 +233,16 @@ def main():
         out[name]["seconds"] = round(time.time() - t0, 1)
         print(json.dumps(out))
         return
-    for name, cfg in (("fixed", base),
-                      ("onehot_bf16_dense",
-                       base.overlay({"matcher_mode": "onehot_bf16",
-                                     "dense_free_fill": True}))):
+    modes = (("fixed", base),
+             ("onehot_bf16_dense",
+              base.overlay({"matcher_mode": "onehot_bf16",
+                            "dense_free_fill": True})))
+    if args.exit:
+        modes = (("onehot_bf16_dense_exit",
+                  base.overlay({"matcher_mode": "onehot_bf16",
+                                "dense_free_fill": True,
+                                "early_exit_tol": 1e-3})),)
+    for name, cfg in modes:
         t0 = time.time()
         out[name] = run_mode(cfg, base, log)
         out[name]["seconds"] = round(time.time() - t0, 1)

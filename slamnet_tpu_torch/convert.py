@@ -3,26 +3,39 @@
 ``hector_state_from_numpy`` takes the arrays of a ``slamnet_tpu``
 ``HectorState`` (``maps``, ``match_pose``, ``last_update_pose``, e.g.
 ``np.asarray(jax_state.maps)``) and builds this package's state on
-``device``; ``hector_state_to_numpy`` gives back a dict with the same three
+``device`` (the card unless the caller names another); ``hector_state_to_numpy`` gives back a dict with the same three
 names, so ``slamnet_tpu.models.hector.HectorState(**d)`` rebuilds the JAX
 state.
 
 ``fleet_state_from_numpy`` / ``fleet_state_to_numpy`` do the same for a
 fleet's state (``slamnet_tpu.models.fleet``): flat maps f32[B*C] and poses
 f32[B, 3].
+
+``graph_state_from_numpy`` / ``graph_state_to_numpy`` carry a graph-SLAM
+state (``slamnet_tpu.models.graph_slam.GraphSlamState``) as a dict of the
+same names: ``hector`` (the three Hector arrays), ``graph`` (the
+``PoseGraph`` arrays), ``kf_points``, ``kf_valid``, ``last_kf_pose`` and
+``loop_count``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .graph.posegraph import PoseGraph
+from .models.graph_slam import GraphSlamState
 from .models.hector import HectorState
 
 FIELDS = ("maps", "match_pose", "last_update_pose")
+GRAPH_FIELDS = PoseGraph._fields
+GRAPH_STATE_FIELDS = ("hector", "graph", "kf_points", "kf_valid",
+                      "last_kf_pose", "loop_count")
+_INT_FIELDS = ("num_nodes", "edge_i", "edge_j", "num_edges")
+_BOOL_FIELDS = ("node_valid", "edge_valid")
 
 
 def hector_state_from_numpy(maps, match_pose, last_update_pose,
-                            device: torch.device | str = "cpu") -> HectorState:
+                            device: torch.device | str = "cuda") -> HectorState:
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -38,7 +51,7 @@ def hector_state_to_numpy(state: HectorState) -> dict[str, np.ndarray]:
 
 
 def fleet_state_from_numpy(maps, match_pose, last_update_pose,
-                           device: torch.device | str = "cpu") -> HectorState:
+                           device: torch.device | str = "cuda") -> HectorState:
     """A fleet state from flat ``maps`` f32[B*C] and poses f32[B, 3]."""
     st = hector_state_from_numpy(maps, match_pose, last_update_pose, device)
     for name in ("match_pose", "last_update_pose"):
@@ -52,3 +65,48 @@ def fleet_state_from_numpy(maps, match_pose, last_update_pose,
 
 
 fleet_state_to_numpy = hector_state_to_numpy
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def graph_state_from_numpy(arrays: dict,
+                           device: torch.device | str = "cuda"
+                           ) -> GraphSlamState:
+    """A graph-SLAM state from ``arrays`` (the dict ``graph_state_to_numpy``
+    gives, e.g. made from a JAX state's arrays), on the card unless
+    ``device`` names another."""
+    missing = set(GRAPH_STATE_FIELDS) - set(arrays)
+    if missing:
+        raise ValueError(f"graph state arrays lack {sorted(missing)}")
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    g = arrays["graph"]
+    graph = PoseGraph(**{
+        k: t(g[k], torch.int32 if k in _INT_FIELDS else
+             torch.bool if k in _BOOL_FIELDS else torch.float32)
+        for k in GRAPH_FIELDS})
+    kf_points = t(arrays["kf_points"], torch.float32)
+    if kf_points.shape[0] != graph.poses.shape[0]:
+        raise ValueError(f"kf_points has {kf_points.shape[0]} slots, the "
+                         f"graph {graph.poses.shape[0]}")
+    return GraphSlamState(
+        hector=hector_state_from_numpy(**arrays["hector"], device=device),
+        graph=graph, kf_points=kf_points,
+        kf_valid=t(arrays["kf_valid"], torch.bool),
+        last_kf_pose=t(arrays["last_kf_pose"], torch.float32),
+        loop_count=t(arrays["loop_count"], torch.int32),
+        nodes=int(np.asarray(g["num_nodes"])))
+
+
+def graph_state_to_numpy(state: GraphSlamState) -> dict:
+    """``state`` as ``graph_state_from_numpy`` takes it."""
+    return {"hector": hector_state_to_numpy(state.hector),
+            "graph": {k: _np(getattr(state.graph, k)) for k in GRAPH_FIELDS},
+            "kf_points": _np(state.kf_points),
+            "kf_valid": _np(state.kf_valid),
+            "last_kf_pose": _np(state.last_kf_pose),
+            "loop_count": _np(state.loop_count)}

@@ -94,6 +94,17 @@
 //     Under the full-scan rule, valid beams that all fall between the
 //     subsampled ones give the GN estimate: the hint through x*scale/scale
 //     with its heading wrapped.
+//   * the early exit (early_exit_tol > 0, one instance a block: K1 and K3)
+//     is JAX's per-level rule (models/hector.py:227-244): a level stops once
+//     an iteration moved the pixel-frame pose by no more than the tolerance,
+//     moved2 = dx*dx + dy*dy + dth*dth summed in that order on the
+//     difference of the updated and the previous pose.  Every thread holds
+//     the same pose after the solve, so the test is a uniform branch and the
+//     whole block leaves the level together.  The break skips the loop's
+//     parity flip; it is flipped on the exit path too, or the next level's
+//     first iteration would write the partials buffer that other warps may
+//     still be reading.  The exit is a template parameter: with the
+//     tolerance at 0 the kernel is the fixed-iteration one, unchanged.
 //
 // Semantics (pallas_onehot.py:69-212): cells truncate toward zero and clip to
 // [0, w-2]; a beam counts when it is valid and its map point lies in
@@ -103,8 +114,9 @@
 // then zero; the heading wraps to (-pi, pi] by floored modulo between levels;
 // an instance with no valid beam (the matcher's, or with empty_full_scan the
 // scan's) returns its hint.  The output is
-// f32[6] per instance: x, y, theta (world), solve failures, and the residual
-// sum and in-bounds beam count of the last iteration of the finest level.
+// f32[7] per instance: x, y, theta (world), solve failures, the residual
+// sum and in-bounds beam count of the last iteration run at the finest
+// level, and the GN iterations run over all levels.
 //
 // Build without --use_fast_math (sincosf, expf and the division stay
 // IEEE-accurate) and with -fmad=false (see ops/_build.py): allowing FMAs
@@ -139,10 +151,12 @@ struct MatchParams {
   float deriv_clamp;
   float xy_clamp;
   float damping;
+  float tol2;     // early_exit_tol squared in f32; 0: fixed iterations
 };
 
 namespace {
 
+constexpr int kOut = 7;           // floats an instance writes
 constexpr int kSums = 11;          // dTr[3], H upper triangle[6], resid, n_in
 constexpr int kSlots = 16;         // kSums padded to the butterfly's 2^4
 constexpr int kBeamsPerThread = 4;
@@ -193,7 +207,7 @@ __device__ __forceinline__ void fold(float (&a)[kSlots], int lane, int o) {
   }
 }
 
-template <bool kF32Table, int kMaxThreads>
+template <bool kF32Table, bool kExit, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
 match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
              const unsigned char* __restrict__ valid,
@@ -215,7 +229,7 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
   points += inst * p.n_points * 2;
   valid += inst * p.n_points;
   pose0 += inst * 3;
-  out += inst * 6;
+  out += inst * kOut;
 
   float bx[kBeamsPerThread], by[kBeamsPerThread];
   bool bv[kBeamsPerThread];
@@ -239,7 +253,7 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
 
   // every thread of the instance carries the same pose and stats
   float px = pose0[0], py = pose0[1], th = pose0[2];
-  float fails = 0.0f, resid = 0.0f, n_in = 0.0f;
+  float fails = 0.0f, resid = 0.0f, n_in = 0.0f, n_iter = 0.0f;
   int parity = 0;
   const float* __restrict__ part = &s_part[0][g * wpi][0];
   const int j_sum = lane >> 1;       // the sum this lane reduces across warps
@@ -350,12 +364,21 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
       }
       const float s2 = clip((a2 * d0 + b2 * d1 + c2 * d2) * inv,
                             -p.deriv_clamp, p.deriv_clamp);
+      const float ex0 = ex, ey0 = ey, th0 = th;
       ex += s0;
       ey += s1;
       th += s2;
       fails += ok ? 0.0f : 1.0f;
       resid = r[9];
       n_in = r[10];
+      n_iter += 1.0f;
+      if (kExit) {
+        const float dx = ex - ex0, dy = ey - ey0, dt = th - th0;
+        if (!(dx * dx + dy * dy + dt * dt > p.tol2)) {
+          parity ^= 1;   // the flip the skipped loop increment would make
+          break;
+        }
+      }
     }
 
     // heading wrap to (-pi, pi] (MathEx.NormalizeAngle), map px -> world
@@ -376,28 +399,42 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
     out[3] = fails;
     out[4] = resid;
     out[5] = n_in;
+    out[6] = n_iter;
   }
 }
 
-template <bool kF32Table>
+template <bool kF32Table, bool kExit>
 cudaError_t launch(int blocks, int threads, const float* maps,
                    const float* points, const unsigned char* valid,
                    const float* pose0, float* out, const MatchParams& p,
                    cudaStream_t stream) {
   if (threads <= kSmallBlock)
-    match_kernel<kF32Table, kSmallBlock><<<blocks, threads, 0, stream>>>(
-        maps, points, valid, pose0, out, p);
+    match_kernel<kF32Table, kExit, kSmallBlock>
+        <<<blocks, threads, 0, stream>>>(maps, points, valid, pose0, out, p);
   else
-    match_kernel<kF32Table, 1024><<<blocks, threads, 0, stream>>>(
+    match_kernel<kF32Table, kExit, 1024><<<blocks, threads, 0, stream>>>(
         maps, points, valid, pose0, out, p);
   return cudaGetLastError();
+}
+
+template <bool kF32Table>
+cudaError_t launch_table(bool early, int blocks, int threads, const float* maps,
+                         const float* points, const unsigned char* valid,
+                         const float* pose0, float* out, const MatchParams& p,
+                         cudaStream_t stream) {
+  return early ? launch<kF32Table, true>(blocks, threads, maps, points, valid,
+                                        pose0, out, p, stream)
+              : launch<kF32Table, false>(blocks, threads, maps, points, valid,
+                                         pose0, out, p, stream);
 }
 
 }  // namespace
 
 // One launch of batch / g_pack blocks, each of g_pack instances' threads;
-// the f32 instantiation (K3) when p.table_f32, else the bf16 one; the
-// 512-thread bound when the block allows it, else the 1024-thread one.
+// the f32 instantiation (K3) when p.table_f32, else the bf16 one; the early
+// exit when p.tol2 > 0 (one instance a block only: instances sharing a block
+// must share its barriers); the 512-thread bound when the block allows it,
+// else the 1024-thread one.
 extern "C" int slamnet_match(const float* maps, const float* points,
                              const unsigned char* valid, const float* pose0,
                              float* out, MatchParams p, cudaStream_t stream) {
@@ -405,13 +442,16 @@ extern "C" int slamnet_match(const float* maps, const float* points,
   if (threads < 32) threads = 32;
   if (threads > 1024) threads = 1024;
   if (p.g_pack < 1 || p.g_pack > kMaxPack || p.batch < 1 ||
-      p.batch % p.g_pack != 0 || threads * p.g_pack > 1024)
+      p.batch % p.g_pack != 0 || threads * p.g_pack > 1024 ||
+      (p.tol2 > 0.0f && p.g_pack != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = p.batch / p.g_pack;
+  const bool early = p.tol2 > 0.0f;
   const cudaError_t err =
-      p.table_f32 ? launch<true>(blocks, threads * p.g_pack, maps, points,
-                                 valid, pose0, out, p, stream)
-                  : launch<false>(blocks, threads * p.g_pack, maps, points,
-                                  valid, pose0, out, p, stream);
+      p.table_f32 ? launch_table<true>(early, blocks, threads * p.g_pack, maps,
+                                       points, valid, pose0, out, p, stream)
+                  : launch_table<false>(early, blocks, threads * p.g_pack,
+                                        maps, points, valid, pose0, out, p,
+                                        stream);
   return static_cast<int>(err);
 }

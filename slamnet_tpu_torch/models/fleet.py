@@ -41,12 +41,21 @@ def fleet_cells(cfg: HectorConfig) -> int:
     return cfg.total_cells
 
 
+def _check_fleet_cfg(cfg: HectorConfig) -> None:
+    if cfg.early_exit_tol > 0.0:
+        raise NotImplementedError(
+            "the fleet runs fixed per-level iterations: JAX's batch-wide "
+            "early exit (slamnet_tpu/models/fleet.py:154-171) is not ported; "
+            f"got early_exit_tol={cfg.early_exit_tol}")
+    _check_cfg(cfg)
+
+
 def init_fleet(cfg: HectorConfig, start_poses,
-               device: torch.device | str = "cpu") -> HectorState:
+               device: torch.device | str = "cuda") -> HectorState:
     """Zeroed maps f32[B*C], match poses at ``start_poses``
     f32[B, 3], last-update poses at float.MinValue (hector.init per
-    instance)."""
-    _check_cfg(cfg)
+    instance), on the card unless ``device`` names another."""
+    _check_fleet_cfg(cfg)
     poses = torch.as_tensor(start_poses, dtype=torch.float32,
                             device=device).clone()
     if poses.dim() != 2 or poses.shape[1] != 3:
@@ -77,7 +86,7 @@ def update_fleet(states: HectorState, points: torch.Tensor,
     forces the maps to update at the hint.  ``plain=True`` runs the kernels'
     plain versions whatever the device.  ``states.maps`` is updated in place; ``HectorInfo`` fields are
     [B]-shaped."""
-    _check_cfg(cfg)
+    _check_fleet_cfg(cfg)
     b = points.shape[0]
     dev = states.maps.device
     hint = states.match_pose
@@ -138,7 +147,7 @@ def update_fleet(states: HectorState, points: torch.Tensor,
     new_last = torch.where(fire[:, None], match_pose, last)
     info = HectorInfo(map_updated=fire,
                       residual=out[:, 4] / out[:, 5].clamp(min=1.0),
-                      gn_iterations=sum(cfg.estimate_iterations[:cfg.num_levels]),
+                      gn_iterations=out[:, 6].to(torch.int32),
                       solve_failures=out[:, 3].to(torch.int32))
     return HectorState(maps, match_pose, new_last), info
 

@@ -18,8 +18,13 @@ The configuration picks the kernels (``ops/match.py``, ``ops/fill.py``,
   Bresenham lines) -> K4; ``True`` (the dense polar fill) -> K2.
 
 So ``HectorConfig()``'s defaults (the bench's ``fixed`` mode) run K3 + K4
-and ``pallas_dense`` runs K1 + K2.  Other modes, ``early_exit_tol > 0`` and a
-non-zero ``offset`` raise NotImplementedError.
+and ``pallas_dense`` runs K1 + K2.  ``early_exit_tol > 0`` stops each
+level's GN iterations early, as JAX's while loop does, under K3 and
+``"onehot_bf16"``; ``"pallas"`` refuses it with ValueError, as JAX's does.
+Other modes and a non-zero ``offset`` raise NotImplementedError.
+
+The entry points (``init``, ``HectorSLAM``) put the state on the card
+unless the caller names another device.
 
 One scan costs one match launch, a few small PyTorch operators for the
 guards and the motion gate, and one map-update call that reads the gate as
@@ -54,13 +59,13 @@ class HectorState(NamedTuple):
 class HectorInfo(NamedTuple):
     map_updated: torch.Tensor       # bool
     residual: torch.Tensor          # mean (1-M(p))^2 at the final GN evaluation
-    gn_iterations: int              # GN iterations executed
+    gn_iterations: torch.Tensor     # i32 GN iterations executed (all levels)
     solve_failures: torch.Tensor    # i32 iterations with a singular H
 
 
 class MatchStats(NamedTuple):
     residual: torch.Tensor        # f32 mean squared occupancy residual, finest level
-    iterations: int               # total GN iterations (all levels)
+    iterations: torch.Tensor      # i32 total GN iterations (all levels)
     solve_failures: torch.Tensor  # i32 iterations where the 3x3 solve failed
     in_map_frac: torch.Tensor     # f32 in-bounds fraction of valid matcher beams
 
@@ -69,17 +74,21 @@ MATCHERS = match_op.F32_MATCHERS + match_op.BF16_MATCHERS
 
 
 def _check_cfg(cfg: HectorConfig) -> None:
-    if cfg.matcher_mode not in MATCHERS or cfg.early_exit_tol > 0.0 \
-            or tuple(cfg.offset) != (0.0, 0.0):
+    if cfg.matcher_mode not in MATCHERS or tuple(cfg.offset) != (0.0, 0.0):
         raise NotImplementedError(
-            f"slamnet_tpu_torch runs matcher_mode in {MATCHERS} with fixed "
-            "iteration counts (early_exit_tol=0) and offset (0, 0); got "
-            f"matcher_mode={cfg.matcher_mode!r}, "
-            f"early_exit_tol={cfg.early_exit_tol}, offset={cfg.offset}")
+            f"slamnet_tpu_torch runs matcher_mode in {MATCHERS} with offset "
+            f"(0, 0); got matcher_mode={cfg.matcher_mode!r}, "
+            f"offset={cfg.offset}")
+    if cfg.early_exit_tol > 0.0 and \
+            cfg.matcher_mode not in match_op.EXIT_MATCHERS:
+        raise ValueError(
+            f"matcher_mode={cfg.matcher_mode!r} runs fixed per-level "
+            "iterations, as JAX's does (slamnet_tpu/models/hector.py:172-176); "
+            f"early_exit_tol is unsupported (got {cfg.early_exit_tol})")
 
 
 def init(cfg: HectorConfig, start_pose,
-         device: torch.device | str = "cpu") -> HectorState:
+         device: torch.device | str = "cuda") -> HectorState:
     """Ctor/Reset semantics (HectorSLAMProcessor.cs:66-77, 131-138): zeroed
     maps, match pose at start, last-update pose at float.MinValue."""
     return HectorState(
@@ -146,7 +155,7 @@ def match_with_stats(maps: torch.Tensor, scan: Scan, hint_pose_world: torch.Tens
     n_valid = scan.valid[::cfg.match_subsample].sum(dtype=torch.float32)
     stats = MatchStats(
         residual=out[4] / out[5].clamp(min=1.0),
-        iterations=sum(cfg.estimate_iterations[:cfg.num_levels]),
+        iterations=out[6].to(torch.int32),
         solve_failures=out[3].to(torch.int32),
         in_map_frac=out[5] / n_valid.clamp(min=1.0))
     return out[:3], stats
@@ -224,7 +233,7 @@ class HectorSLAM(nn.Module):
     returns its ``HectorInfo``."""
 
     def __init__(self, cfg: HectorConfig, start_pose=(20.0, 20.0, 0.0),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         _check_cfg(cfg)
         self.cfg = cfg

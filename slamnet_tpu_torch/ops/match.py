@@ -8,11 +8,12 @@ and ``make_pallas_match_packed`` (K6, K5 with G instances a program), and
 ``slamnet_tpu/ops/pallas_gn.py::match_pallas`` (K3, the f32 table: the
 reference-exact ``matcher_mode="gather"`` of ``models/hector.py:194-259``
 and ``models/fleet.py:118-187``).  ``match`` takes one robot's concatenated
-f32 pyramid and scan and returns f32[6] = (x, y, theta, solve_failures,
-resid_sum, n_in) of the finest level's last iteration, as the TPU kernel's
-lanes 0-5 do; ``match_batch`` (K5, or the batched K3) and ``match_packed``
-(K6) take a fleet's flat f32[B*C] maps, points f32[B, N, 2], valid
-bool[B, N] and hints f32[B, 3] and return f32[B, 6].
+f32 pyramid and scan and returns f32[7] = (x, y, theta, solve_failures,
+resid_sum, n_in, iterations): the TPU kernel's lanes 0-5 (the stats of the
+finest level's last iteration) and the GN iterations run over all levels;
+``match_batch`` (K5, or the batched K3) and ``match_packed`` (K6) take a
+fleet's flat f32[B*C] maps, points f32[B, N, 2], valid bool[B, N] and hints
+f32[B, 3] and return f32[B, 7].
 
 ``cfg.matcher_mode`` picks the table's precision.  ``"pallas"`` and
 ``"onehot_bf16"`` read every level through bf16 rounding (the one-hot bf16
@@ -20,7 +21,13 @@ selection of ``prepare_tables``): K1, K5, K6.  ``"gather"`` and
 ``"onehot_highest"`` (bit-identical to ``"gather"`` in JAX) read the f32
 maps as they are: K3 and the batched K3.  Then fixed per-level iteration
 counts, theta clamp, optional xy clamp and damping, heading wrapped between
-levels.  An instance returns its hint when it has no valid beam, as JAX
+levels.  ``early_exit_tol > 0`` stops a level once an iteration moved the
+pixel-frame pose by no more than the tolerance (JAX's rule,
+``slamnet_tpu/models/hector.py:227-244``), for one robot under K3 and K1's
+``"onehot_bf16"`` table; ``"pallas"`` refuses it, as JAX does
+(``hector.py:172-176``), and so does the fleet, whose batch-wide rule
+(``fleet.py:154-171``) is not ported.  An instance returns its hint when it
+has no valid beam, as JAX
 decides it: the single robot tests the whole scan in the XLA modes
 (``hector.py:195,254``) and the matcher's subsampled beams under
 ``"pallas"`` (``pallas_onehot.py:197``); the fleet tests the subsampled
@@ -56,6 +63,10 @@ MAX_LEVELS = 4
 # (slamnet_tpu/core/config.py:153)
 BF16_MATCHERS = ("pallas", "onehot_bf16")
 F32_MATCHERS = ("gather", "onehot_highest")
+# the modes whose single-robot match takes early_exit_tol > 0 (JAX's XLA
+# matchers; its "pallas" kernel refuses the exit)
+EXIT_MATCHERS = F32_MATCHERS + ("onehot_bf16",)
+OUT = 7               # floats a match returns (csrc/match.cu kOut)
 MAX_BEAMS = 4096      # one match: 1024 threads x 4 beams each (csrc/match.cu)
 MAX_THREADS = 1024    # a block's threads: g_pack matches of whole warps each
 G_PACKS = (1, 2, 4, 8)
@@ -74,7 +85,7 @@ class _MatchParams(ctypes.Structure):
                 ("iters", ctypes.c_int * MAX_LEVELS),
                 ("scale", ctypes.c_float * MAX_LEVELS),
                 ("deriv_clamp", ctypes.c_float), ("xy_clamp", ctypes.c_float),
-                ("damping", ctypes.c_float)]
+                ("damping", ctypes.c_float), ("tol2", ctypes.c_float)]
 
 
 def table_f32(cfg: HectorConfig) -> bool:
@@ -95,8 +106,9 @@ def _check_cfg(cfg: HectorConfig) -> None:
     if not 1 <= cfg.num_levels <= MAX_LEVELS:
         raise ValueError(f"{kernel} takes 1..{MAX_LEVELS} levels, got "
                          f"{cfg.num_levels}")
-    if cfg.early_exit_tol > 0.0:
-        raise ValueError(f"{kernel} runs fixed per-level iterations; "
+    if cfg.early_exit_tol > 0.0 and cfg.matcher_mode not in EXIT_MATCHERS:
+        raise ValueError(f"{kernel} under matcher_mode={cfg.matcher_mode!r} "
+                         "runs fixed per-level iterations, as JAX's does; "
                          "early_exit_tol is unsupported")
 
 
@@ -126,7 +138,14 @@ def _params(cfg: HectorConfig, n_points: int, batch: int, g_pack: int,
         (ctypes.c_int * MAX_LEVELS)(*cfg.estimate_iterations[:nl], *pad),
         (ctypes.c_float * MAX_LEVELS)(
             *[1.0 / r for r in cfg.level_resolutions], *pad),
-        cfg.deriv_clamp, cfg.xy_step_clamp_px, cfg.gn_damping)
+        cfg.deriv_clamp, cfg.xy_step_clamp_px, cfg.gn_damping,
+        _tol2(cfg))
+
+
+def _tol2(cfg: HectorConfig) -> float:
+    """early_exit_tol squared, as JAX compares it: the Python square
+    rounded to f32 (0: fixed iterations)."""
+    return float(torch.tensor(cfg.early_exit_tol ** 2, dtype=torch.float32))
 
 
 @functools.cache
@@ -140,7 +159,7 @@ def _launcher():
 
 def _launch(what: str, maps, points, valid, hints, cfg: HectorConfig,
             batch: int, g_pack: int, full_scan: bool = False) -> torch.Tensor:
-    out = torch.empty((batch, 6), dtype=torch.float32, device=maps.device)
+    out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
     code = _launcher()(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
                        hints.data_ptr(), out.data_ptr(),
                        _params(cfg, points.shape[-2], batch, g_pack,
@@ -155,7 +174,7 @@ def match(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     """K1 (bf16 table) or K3 (f32 table), by ``cfg.matcher_mode``:
     coarse-to-fine match of ``points`` f32[N, 2] / ``valid`` bool[N] in the
     pyramid ``maps`` f32[total_cells], from ``hint`` f32[3] (world).  Uses
-    every ``cfg.match_subsample``-th beam.  Returns f32[6] on the device of
+    every ``cfg.match_subsample``-th beam.  Returns f32[7] on the device of
     ``maps``; launches nothing the host waits for."""
     _check_cfg(cfg)
     kernel = "K3" if table_f32(cfg) else "K1"
@@ -178,7 +197,7 @@ def match(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
         match.launches_f32 += 1
     else:
         match.launches += 1
-    return out.view(6)
+    return out.view(OUT)
 
 
 match.launches = 0
@@ -192,8 +211,11 @@ def _check_batch(kernel: str, maps: torch.Tensor, points: torch.Tensor,
     (``g_pack`` 1) or K6:
     contiguous maps f32[B*C], points f32[B, N, 2], valid bool[B, N], hints
     f32[B, 3] on one device, ``g_pack`` in G_PACKS dividing B, and g_pack
-    matches of whole warps in one block.  Returns B."""
+    matches of whole warps in one block, and no early exit.  Returns B."""
     _check_cfg(cfg)
+    if cfg.early_exit_tol > 0.0:
+        raise ValueError(f"{kernel}: the fleet's batch-wide early exit is not "
+                         "ported; early_exit_tol must be 0")
     if points.dim() != 3:
         raise ValueError(f"{kernel} points: want [B, N, 2], got "
                          f"{tuple(points.shape)}")
@@ -221,7 +243,7 @@ def match_batch(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     ``cfg.matcher_mode``: every instance's match in one launch, one block an
     instance.  ``maps`` f32[B*C] (C = cfg.total_cells), ``points``
     f32[B, N, 2], ``valid`` bool[B, N], ``hints`` f32[B, 3] (world).
-    Returns f32[B, 6] (``match``'s six numbers per instance) on the device
+    Returns f32[B, 7] (``match``'s seven numbers per instance) on the device
     of ``maps``."""
     f32 = table_f32(cfg)
     kernel = "K3 batch" if f32 else "K5"
@@ -262,9 +284,9 @@ match_packed.launches = 0
 
 def match_plain(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
                 hint: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
-    """K1's and K3's plain version: same inputs, same f32[6] output (the
+    """K1's and K3's plain version: same inputs, same f32[7] output (the
     one-robot case of ``match_batch_plain``, with the single robot's rule for
-    an empty scan)."""
+    an empty scan and its early exit)."""
     return match_batch_plain(maps, points[None], valid[None], hint[None],
                              cfg, full_scan_empty(cfg))[0]
 
@@ -279,15 +301,21 @@ def match_batch_plain(maps: torch.Tensor, points: torch.Tensor,
     ``b*C + offset_l + yi*w + xi`` of the flat table, bf16-rounded or f32 by
     ``cfg.matcher_mode``.  An instance with no valid matcher beam (with
     ``full_scan``, no valid beam in its whole scan) returns its hint.
-    Returns f32[B, 6]."""
+
+    With ``early_exit_tol > 0`` an instance's level stops once an iteration
+    moved its pixel-frame pose by no more than the tolerance: the loop runs
+    every iteration and freezes a stopped instance's pose and stats, which
+    gives JAX's while loop without a host read.  Returns f32[B, 7]."""
     _check_cfg(cfg)
     b = points.shape[0]
+    dev = maps.device
     sub = cfg.match_subsample
     X, Y, V = points[:, ::sub, 0], points[:, ::sub, 1], valid[:, ::sub]
     table = maps if table_f32(cfg) else maps.to(torch.bfloat16).to(torch.float32)
-    inst = torch.arange(b, device=maps.device)[:, None] * cfg.total_cells
-    zero = torch.zeros(b, dtype=torch.float32, device=maps.device)
-    fails, resid, n_in = zero, zero, zero
+    inst = torch.arange(b, device=dev)[:, None] * cfg.total_cells
+    zero = torch.zeros(b, dtype=torch.float32, device=dev)
+    fails, resid, n_in, iters = zero, zero, zero, zero
+    tol2 = _tol2(cfg)
     pose = hints
     for level in range(cfg.num_levels - 1, -1, -1):
         w = cfg.level_sizes[level]
@@ -295,18 +323,28 @@ def match_batch_plain(maps: torch.Tensor, points: torch.Tensor,
         row0 = inst + cfg.level_offsets[level]
         est = torch.stack([pose[:, 0] * scale, pose[:, 1] * scale, pose[:, 2]],
                           dim=1)
+        live = torch.ones(b, dtype=torch.bool, device=dev)
         for _ in range(cfg.estimate_iterations[level]):
             sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
             base = row0 + (yi * w + xi).long()
             v = torch.sigmoid(table[torch.stack([base, base + 1, base + w,
                                                  base + w + 1])])
-            est, solve_ok, resid, n_in = _gn_tail(
+            new, solve_ok, r_new, n_new = _gn_tail(
                 v, mx, my, xi, yi, ok, X, Y, sr, cr, est, cfg.deriv_clamp,
                 cfg.xy_step_clamp_px, cfg.gn_damping)
-            fails = fails + (~solve_ok).to(torch.float32)
+            d = new - est
+            moved2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+            est = torch.where(live[:, None], new, est)
+            fails = fails + (~solve_ok & live).to(torch.float32)
+            resid = torch.where(live, r_new, resid)
+            n_in = torch.where(live, n_new, n_in)
+            iters = iters + live.to(torch.float32)
+            if tol2 > 0.0:
+                live = live & (moved2 > tol2)
         pose = torch.stack([est[:, 0] / scale, est[:, 1] / scale,
                             normalize_angle(est[:, 2])], dim=1)
     # an instance with no valid beam returns its hint (ScanMatcher.cs:82-83)
     any_valid = (valid if full_scan else V).any(dim=1, keepdim=True)
     pose = torch.where(any_valid, pose, hints)
-    return torch.cat([pose, torch.stack([fails, resid, n_in], dim=1)], dim=1)
+    return torch.cat([pose, torch.stack([fails, resid, n_in, iters], dim=1)],
+                     dim=1)

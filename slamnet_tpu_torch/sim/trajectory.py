@@ -61,3 +61,18 @@ def waypoint_trajectory(waypoints: np.ndarray, speed: float, scan_rate: float,
 def loop_trajectory(speed: float = 0.3, scan_rate: float = 17.0) -> np.ndarray:
     """The standard test loop: ~170 m around the field at 0.3 m/s (inside envelope)."""
     return waypoint_trajectory(LOOP_WAYPOINTS, speed, scan_rate)
+
+
+def rect_revisit_trajectory(num_loops: int = 2, speed: float = 0.95,
+                            scan_rate: float = 17.0,
+                            rect=((20.0, 20.0), (24.0, 20.0),
+                                  (24.0, 23.0), (20.0, 23.0))) -> np.ndarray:
+    """Rectangular loop driven forward ``num_loops`` times: the graph-SLAM
+    revisit benchmark trajectory.  Four 90-degree turns a loop, spread over
+    several scans by the follower's turn-rate limit, and a return to the
+    start corner each loop, so loop closures fire under rotation.  The
+    rectangle lies in the free space east of the default field's inner
+    obstacle (x > 17)."""
+    pts = list(rect)
+    waypoints = np.asarray(pts * num_loops + [pts[0]], np.float32)
+    return waypoint_trajectory(waypoints, speed, scan_rate)

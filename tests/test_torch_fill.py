@@ -170,7 +170,7 @@ def test_cpu_wrappers_never_build_the_kernels(monkeypatch):
     line.update_maps_line_batch(maps, p, v, poses, zeros, fire,
                                 cfg.overlay({"dense_free_fill": False}))
     assert match.match(maps[:cfg.total_cells], p[0], v[0], poses[0],
-                       cfg).shape == (6,)
-    assert match.match_batch(maps, p, v, poses, cfg).shape == (b, 6)
-    assert match.match_packed(maps, p, v, poses, cfg, 2).shape == (b, 6)
+                       cfg).shape == (match.OUT,)
+    assert match.match_batch(maps, p, v, poses, cfg).shape == (b, match.OUT)
+    assert match.match_packed(maps, p, v, poses, cfg, 2).shape == (b, match.OUT)
     assert torch.isfinite(maps).all() and (maps != 0).any()

@@ -87,7 +87,7 @@ def run_port(cfg, flog):
     """bench's fleet flow through the port: BOOT forced batch-scans at the
     true poses, then tracked ones; (per-step poses, map_updated, maps)."""
     traj, pts, v = flog
-    st = fleet.init_fleet(cfg, traj[0])
+    st = fleet.init_fleet(cfg, traj[0], device="cpu")
     out = []
     for t in range(T):
         if t < BOOT:
@@ -144,8 +144,8 @@ def test_one_robot_fleet_equals_hector_update(flog):
     # 1-robot fleet IS hector.update, over 2 forced + 2 tracked scans
     traj, pts, v = flog
     cfg = port_cfg()
-    single = hector.init(cfg, traj[0, 0])
-    batch = fleet.init_fleet(cfg, traj[0, :1])
+    single = hector.init(cfg, traj[0, 0], device="cpu")
+    batch = fleet.init_fleet(cfg, traj[0, :1], device="cpu")
     for t, boot in enumerate((True, True, False, False)):
         scan = Scan.from_points(pts[t, 0], v[t, 0])
         single, sinfo = hector.update(single, scan, single.match_pose, cfg,
@@ -239,7 +239,7 @@ def test_onehot_bf16_runs_the_same_kernels(flog, jax_boot):
     p, vv = torch.from_numpy(pts[6]), torch.from_numpy(v[6])
     outs = {}
     for mode in ("pallas", "onehot_bf16"):
-        st = convert.fleet_state_from_numpy(**arrays)
+        st = convert.fleet_state_from_numpy(**arrays, device="cpu")
         outs[mode] = fleet.update_fleet(st, p, vv,
                                         port_cfg(matcher_mode=mode))
     (sp, ip), (so, io) = outs["pallas"], outs["onehot_bf16"]
@@ -256,15 +256,25 @@ def test_onehot_bf16_runs_the_same_kernels(flog, jax_boot):
     assert_maps_agree(so.maps.numpy(), np.asarray(jst2.maps), port_cfg())
     # the serving profile's matcher runs the single robot too
     scan = Scan.from_points(pts[6, 0], v[6, 0])
-    st1 = hector.init(port_cfg(matcher_mode="onehot_bf16"), traj[6, 0])
+    st1 = hector.init(port_cfg(matcher_mode="onehot_bf16"), traj[6, 0],
+                      device="cpu")
     hector.update(st1, scan, st1.match_pose, port_cfg(matcher_mode="onehot_bf16"))
-    # a mode no kernel runs, or an early exit, is refused by both models
-    for bad in ({"matcher_mode": "onehot"}, {"early_exit_tol": 1e-3}):
-        with pytest.raises(NotImplementedError, match="matcher_mode"):
-            fleet.update_fleet(convert.fleet_state_from_numpy(**arrays), p, vv,
-                               port_cfg(**bad))
-        with pytest.raises(NotImplementedError, match="matcher_mode"):
+    # a mode no kernel runs is refused by both models; an early exit by the
+    # fleet (its batch-wide rule is not ported) and by the single robot's
+    # "pallas" (as JAX's), while the single robot's onehot_bf16 takes it
+    for bad, exc, msg in (({"matcher_mode": "onehot"}, NotImplementedError,
+                           "matcher_mode"),
+                          ({"early_exit_tol": 1e-3}, ValueError,
+                           "early_exit_tol")):
+        with pytest.raises(NotImplementedError, match=msg):
+            fleet.update_fleet(
+                convert.fleet_state_from_numpy(**arrays, device="cpu"), p, vv,
+                port_cfg(**bad))
+        with pytest.raises(exc, match=msg):
             hector.update(st1, scan, st1.match_pose, port_cfg(**bad))
+    exit_cfg = port_cfg(matcher_mode="onehot_bf16", early_exit_tol=1e-3)
+    _, info = hector.update(st1, scan, st1.match_pose, exit_cfg)
+    assert 1 <= int(info.gn_iterations) <= 15
 
 
 def test_update_maps_batch_plain_equals_per_instance(flog):
@@ -297,7 +307,7 @@ def test_update_maps_batch_plain_equals_per_instance(flog):
 def test_fleet_convert_round_trip(jax_boot):
     jst, _ = jax_boot
     arrays = {k: np.asarray(getattr(jst, k)) for k in convert.FIELDS}
-    st = convert.fleet_state_from_numpy(**arrays)
+    st = convert.fleet_state_from_numpy(**arrays, device="cpu")
     assert st.maps.shape == (B * port_cfg().total_cells,)
     assert st.match_pose.shape == st.last_update_pose.shape == (B, 3)
     assert st._fields == convert.FIELDS              # no update scratch
@@ -312,7 +322,7 @@ def test_fleet_convert_round_trip(jax_boot):
                                   arrays["maps"] + 1.0)
     with pytest.raises(ValueError, match="match_pose"):
         convert.fleet_state_from_numpy(arrays["maps"], arrays["match_pose"][0],
-                                       arrays["last_update_pose"])
+                                       arrays["last_update_pose"], "cpu")
 
 
 def _refusals():
@@ -401,7 +411,7 @@ def test_fleet_replay_is_update_fleet_in_a_loop(flog):
     # replay_fleet tracks on a copy of the maps and returns every step's pose
     traj, pts, v = flog
     cfg = port_cfg()
-    st = fleet.init_fleet(cfg, traj[0])
+    st = fleet.init_fleet(cfg, traj[0], device="cpu")
     dlog = replay.DeviceLog(torch.from_numpy(pts), torch.from_numpy(v),
                             torch.from_numpy(traj))
     st = replay.fleet_bootstrap(st, dlog, BOOT, cfg)
@@ -447,8 +457,8 @@ def test_one_robot_sub1_fleet_equals_hector_update(flog):
     # and K4 plain versions against the single ones), bit for bit
     traj, pts, v = flog
     cfg = sub1_cfg()
-    single = hector.init(cfg, traj[0, 0])
-    batch = fleet.init_fleet(cfg, traj[0, :1])
+    single = hector.init(cfg, traj[0, 0], device="cpu")
+    batch = fleet.init_fleet(cfg, traj[0, :1], device="cpu")
     for t, boot in enumerate((True, True, False, False, False)):
         scan = Scan.from_points(pts[t, 0], v[t, 0])
         single, sinfo = hector.update(single, scan, single.match_pose, cfg,

@@ -46,3 +46,37 @@ def test_angle_difference_matches_jax(fn, span):
     want = np.asarray(getattr(jg, fn)(jnp.asarray(a), jnp.asarray(b)))
     got = getattr(tg, fn)(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def _poses(seed, n=500):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-30.0, 30.0, n), rng.uniform(-30.0, 30.0, n),
+                     rng.uniform(-7.0, 7.0, n)], -1).astype(np.float32)
+
+
+POSE_FNS = {
+    "rot2": lambda m, a, b, p: m.rot2(a[:, 2]),
+    "transform_points": lambda m, a, b, p: m.transform_points(p, a),
+    "pose_compose": lambda m, a, b, p: m.pose_compose(a, b),
+    "pose_inverse": lambda m, a, b, p: m.pose_inverse(a),
+    "pose_between": lambda m, a, b, p: m.pose_between(a, b),
+}
+
+
+@pytest.mark.parametrize("fn", sorted(POSE_FNS))
+def test_pose_functions_match_jax(fn):
+    # the SE(2) helpers of the pose graph, on 500 random poses (and 7
+    # points each for transform_points), against the JAX package's
+    a, b = _poses(3), _poses(4)
+    p = np.random.default_rng(5).uniform(-20.0, 20.0, (500, 7, 2)).astype(
+        np.float32)
+    want = np.asarray(POSE_FNS[fn](jg, jnp.asarray(a), jnp.asarray(b),
+                                   jnp.asarray(p)))
+    got = POSE_FNS[fn](tg, torch.from_numpy(a), torch.from_numpy(b),
+                       torch.from_numpy(p)).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-6)
+    if fn == "pose_between":
+        # b expressed in a's frame, composed back onto a, is b
+        back = tg.pose_compose(torch.from_numpy(a), torch.from_numpy(got))
+        np.testing.assert_allclose(back[:, :2].numpy(), b[:, :2], atol=1e-4)

@@ -83,7 +83,7 @@ def jax_run(log):
 def test_convert_round_trip(jax_run):
     boot_state = jax_run[0]
     arrays = {k: np.asarray(getattr(boot_state, k)) for k in convert.FIELDS}
-    st = convert.hector_state_from_numpy(**arrays)
+    st = convert.hector_state_from_numpy(**arrays, device="cpu")
     assert st.maps.dtype == torch.float32
     assert st._fields == convert.FIELDS          # no update scratch
     back = convert.hector_state_to_numpy(st)
@@ -103,7 +103,7 @@ def test_bootstrap_then_tracking_matches_jax(log, jax_run):
     cfg = replay.pallas_dense_config(**SMALL)
     dlog = replay.DeviceLog(torch.from_numpy(pts), torch.from_numpy(v),
                             torch.from_numpy(traj))
-    st = replay.bootstrap(hector.init(cfg, traj[0]), dlog, BOOT, cfg)
+    st = replay.bootstrap(hector.init(cfg, traj[0], device="cpu"), dlog, BOOT, cfg)
     np.testing.assert_array_equal(st.last_update_pose.numpy(), traj[BOOT - 1])
     _, out = replay.replay(st, dlog, BOOT, cfg)
     poses = out.poses.numpy()
@@ -130,7 +130,8 @@ def test_same_state_same_scan_matches_jax(log, jax_run):
         boot_state, JScan(jnp.asarray(pts[t]), jnp.asarray(v[t]),
                           jnp.zeros(3, jnp.float32)), hint, jcfg)
     st = convert.hector_state_from_numpy(
-        **{k: np.asarray(getattr(boot_state, k)) for k in convert.FIELDS})
+        **{k: np.asarray(getattr(boot_state, k)) for k in convert.FIELDS},
+        device="cpu")
     st, info = hector.update(st, Scan.from_points(pts[t], v[t]),
                              torch.from_numpy(hint), cfg)
     np.testing.assert_allclose(st.match_pose.numpy(), np.asarray(jst.match_pose),
@@ -168,9 +169,9 @@ def test_map_queries_match_jax(jax_run):
 def test_module_and_entry_step(log):
     traj, pts, v = log
     cfg = replay.pallas_dense_config(**SMALL)
-    slam = hector.HectorSLAM(cfg, traj[0]).to("cpu")
+    slam = hector.HectorSLAM(cfg, traj[0], device="cpu")
     assert {"maps", "match_pose", "last_update_pose"} <= set(slam.state_dict())
-    st = hector.init(cfg, traj[0])
+    st = hector.init(cfg, traj[0], device="cpu")
     for t in range(3):
         scan = Scan.from_points(pts[t], v[t])
         info = slam(scan, torch.from_numpy(traj[t]), True)
@@ -178,11 +179,17 @@ def test_module_and_entry_step(log):
         assert bool(info.map_updated) and bool(ref.map_updated)
     assert torch.equal(slam.maps, st.maps)
     assert torch.equal(slam.match_pose, st.match_pose)
-    for bad in ({"matcher_mode": "onehot"}, {"early_exit_tol": 1e-3},
-                {"offset": (1.0, 0.0)}):
+    for bad in ({"matcher_mode": "onehot"}, {"offset": (1.0, 0.0)}):
         with pytest.raises(NotImplementedError, match="matcher_mode"):
             hector.HectorSLAM(cfg.overlay(bad))
-    hector.HectorSLAM(cfg.overlay({"matcher_mode": "gather"}))
+    # the early exit: refused under "pallas" (as JAX refuses it), taken by
+    # the f32 matchers and by K1's onehot_bf16 table
+    with pytest.raises(ValueError, match="early_exit_tol"):
+        hector.HectorSLAM(cfg.overlay({"early_exit_tol": 1e-3}))
+    for mode in ("gather", "onehot_highest", "onehot_bf16"):
+        hector.HectorSLAM(cfg.overlay({"early_exit_tol": 1e-3,
+                                       "matcher_mode": mode}), device="cpu")
+    hector.HectorSLAM(cfg.overlay({"matcher_mode": "gather"}), device="cpu")
 
     # the entry runs the JAX entry's own config: the fixed mode (K3 + K4)
     step, (state, points, valid) = entry("cpu")
@@ -204,7 +211,7 @@ def test_fixed_bootstrap_then_tracking_matches_jax(log):
     cfg = replay.fixed_config(**SMALL)
     dlog = replay.DeviceLog(torch.from_numpy(pts), torch.from_numpy(v),
                             torch.from_numpy(traj))
-    st = replay.bootstrap(hector.init(cfg, traj[0]), dlog, BOOT, cfg)
+    st = replay.bootstrap(hector.init(cfg, traj[0], device="cpu"), dlog, BOOT, cfg)
     np.testing.assert_array_equal(st.last_update_pose.numpy(), traj[BOOT - 1])
     stf, out = replay.replay(st, dlog, BOOT, cfg)
     poses = out.poses.numpy()
@@ -217,3 +224,24 @@ def test_fixed_bootstrap_then_tracking_matches_jax(log):
     ate, mx = replay.ate_of(poses, traj[BOOT:])
     ate_j, _ = replay.ate_of(jposes, traj[BOOT:])
     assert mx < 0.1 and abs(ate - ate_j) < 1e-4
+
+
+def test_onehot_bf16_dense_early_exit_tracks_jax(log):
+    # bench.py's default candidate (early_exit_tol=1e-3, K1's table, dense
+    # fill): JAX's onehot_bf16 table is K1's to 2e-3, so the poses are held
+    # there; the gates fire on the same scans and the exit cuts iterations
+    traj, pts, v = log
+    jcfg = JHectorConfig(matcher_mode="onehot_bf16", dense_free_fill=True,
+                         early_exit_tol=1e-3, **SMALL)
+    _, jposes, jupd, _ = _jax_run(log, jcfg)
+    cfg = replay.onehot_bf16_dense_config(**SMALL)
+    dlog = replay.DeviceLog(torch.from_numpy(pts), torch.from_numpy(v),
+                            torch.from_numpy(traj))
+    st = replay.bootstrap(hector.init(cfg, traj[0], device="cpu"), dlog, BOOT,
+                          cfg)
+    _, out = replay.replay(st, dlog, BOOT, cfg)
+    np.testing.assert_allclose(out.poses.numpy(), jposes, atol=2e-3)
+    np.testing.assert_array_equal(out.map_updated.numpy(), jupd)
+    iters = out.gn_iterations.numpy()
+    assert iters.dtype == np.int32 and (iters >= 3).all()
+    assert iters.sum() < 15 * TRACK                  # the exit fired

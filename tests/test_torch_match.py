@@ -30,7 +30,7 @@ from slamnet_tpu.models import hector as jhector
 from slamnet_tpu.ops import pallas_gn
 from slamnet_tpu.sim import default_field, lidar
 from slamnet_tpu_torch.core.scan import Scan
-from slamnet_tpu_torch.models import hector
+from slamnet_tpu_torch.models import fleet, hector
 from slamnet_tpu_torch.ops import _build, match
 from slamnet_tpu_torch.replay import fixed_config, pallas_dense_config
 
@@ -138,7 +138,7 @@ def test_match_wrapper_takes_plain_version_on_cpu(boot):
     before = match.match.launches
     out = match.match(*args)
     assert match.match.launches == before      # no kernel launched on CPU
-    assert out.shape == (6,) and out.dtype == torch.float32
+    assert out.shape == (match.OUT,) and out.dtype == torch.float32
     assert torch.equal(out, match.match_plain(*args))
     with pytest.raises(ValueError, match="early_exit_tol"):
         match.match(*args[:-1], cfg.overlay({"early_exit_tol": 1e-3}))
@@ -251,8 +251,11 @@ def _k3_refusals():
     maps, pts = torch.zeros(c), torch.zeros(400, 2)
     v, h = torch.ones(400, dtype=torch.bool), torch.zeros(3)
     return {
-        "early_exit": (ValueError, "K3 runs fixed", lambda: match.match(
-            maps, pts, v, h, cfg.overlay({"early_exit_tol": 1e-3}))),
+        # K3 takes the early exit; K1 under "pallas" refuses it, as JAX does
+        "early_exit": (ValueError, "K1 under matcher_mode='pallas'",
+                       lambda: match.match(maps, pts, v, h, cfg.overlay(
+                           {"early_exit_tol": 1e-3,
+                            "matcher_mode": "pallas"}))),
         "offset": (ValueError, "K3 needs cfg.offset", lambda: match.match(
             maps, pts, v, h, cfg.overlay({"offset": (1.0, 0.0)}))),
         "mode": (ValueError, "no match kernel", lambda: match.match(
@@ -270,8 +273,17 @@ def _k3_refusals():
                                           torch.zeros(2, 400, 2),
                                           torch.ones(2, 400, dtype=torch.bool),
                                           h, cfg)),
-        "model_mode": (NotImplementedError, "matcher_mode", lambda:
-                       hector.HectorSLAM(cfg.overlay({"early_exit_tol": 1e-3}))),
+        # the fleet keeps fixed iterations (JAX's batch-wide exit is not
+        # ported), in the model and in the batched match
+        "model_mode": (NotImplementedError, "early_exit_tol", lambda:
+                       fleet.init_fleet(cfg.overlay({"early_exit_tol": 1e-3}),
+                                        torch.zeros(2, 3), device="cpu")),
+        "batch_early_exit": (ValueError, "batch-wide early exit", lambda:
+                             match.match_batch(
+                                 torch.zeros(2 * c), torch.zeros(2, 400, 2),
+                                 torch.ones(2, 400, dtype=torch.bool),
+                                 torch.zeros(2, 3),
+                                 cfg.overlay({"early_exit_tol": 1e-3}))),
     }
 
 
@@ -281,3 +293,77 @@ def test_k3_wrappers_refuse(case):
     exc, msg, call = _k3_refusals()[case]
     with pytest.raises(exc, match=msg):
         call()
+
+
+EXIT = dict(early_exit_tol=1e-3)
+
+
+@pytest.mark.parametrize("offset", [(0.2, -0.15, 0.04), (-0.1, 0.12, -0.03),
+                                    (0.05, 0.25, 0.06)])
+@pytest.mark.parametrize("mode", ["gather", "onehot_highest"])
+def test_k3_plain_early_exit_matches_jax(boot, offset, mode):
+    # JAX's per-level while loop (hector.py:227-244) against the port's K3
+    # plain version with the exit: the same pose to 1e-5, the same count of
+    # iterations run, fewer than the fixed 15
+    maps, pts, v = boot
+    hint = TRUTH + np.asarray(offset, np.float32)
+    pose_t, st_t = _port_match(maps, pts, v, hint, True, matcher_mode=mode,
+                               **EXIT)
+    pose_j, st_j = _jax_match(maps, pts, v, hint, mode, True, **EXIT)
+    np.testing.assert_allclose(pose_t, pose_j, atol=1e-5)
+    assert st_t.iterations.dtype == torch.int32
+    assert int(st_t.iterations) == int(st_j.iterations) < 15
+    assert int(st_t.solve_failures) == int(st_j.solve_failures) == 0
+    np.testing.assert_allclose(float(st_t.residual), float(st_j.residual),
+                               rtol=1e-3)
+
+
+def _while_loop_iterations(maps, pts, v, hint, cfg):
+    """The iterations JAX's while loop runs, counted by a Python loop of
+    single plain GN iterations on the bf16-rounded table."""
+    from slamnet_tpu_torch.core.geometry import normalize_angle
+    from slamnet_tpu_torch.ops.gn import _gn_coords, _gn_tail
+    table = torch.from_numpy(maps).to(torch.bfloat16).to(torch.float32)
+    X, Y = torch.from_numpy(pts[:, 0]), torch.from_numpy(pts[:, 1])
+    V = torch.from_numpy(v)
+    pose = torch.from_numpy(hint)
+    total = 0
+    for level in range(cfg.num_levels - 1, -1, -1):
+        w, off = cfg.level_sizes[level], cfg.level_offsets[level]
+        scale = 1.0 / cfg.level_resolutions[level]
+        est = torch.stack([pose[0] * scale, pose[1] * scale, pose[2]])
+        i, moved2 = 0, float("inf")
+        while i < cfg.estimate_iterations[level] and moved2 > 1e-6:
+            sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
+            base = off + (yi * w + xi).long()
+            vals = torch.sigmoid(table[torch.stack([base, base + 1, base + w,
+                                                    base + w + 1])])
+            new = _gn_tail(vals, mx, my, xi, yi, ok, X, Y, sr, cr, est,
+                           cfg.deriv_clamp, cfg.xy_step_clamp_px,
+                           cfg.gn_damping)[0]
+            d = new - est
+            moved2 = float(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+            est, i = new, i + 1
+        total += i
+        pose = torch.stack([est[0] / scale, est[1] / scale,
+                            normalize_angle(est[2])])
+    return total, pose.numpy()
+
+
+@pytest.mark.parametrize("offset", [(0.2, -0.15, 0.04), (-0.1, 0.12, -0.03),
+                                    (0.05, 0.25, 0.06)])
+def test_k1_table_plain_early_exit_matches_jax_onehot_bf16(boot, offset):
+    # K1's table (the port's onehot_bf16) with the exit: JAX's onehot_bf16
+    # rounds its table another way (up to 2e-3 apart, test_torch_fleet.py),
+    # so the pose is held to 2e-3; the iteration count to a while loop of
+    # single plain iterations on the same bf16-rounded table
+    maps, pts, v = boot
+    hint = TRUTH + np.asarray(offset, np.float32)
+    pose_t, st_t = _port_match(maps, pts, v, hint, True,
+                               matcher_mode="onehot_bf16", **EXIT)
+    pose_j, st_j = _jax_match(maps, pts, v, hint, "onehot_bf16", True, **EXIT)
+    np.testing.assert_allclose(pose_t, pose_j, atol=2e-3)
+    n, pose_w = _while_loop_iterations(maps, pts, v, hint,
+                                       pallas_dense_config(**SMALL))
+    assert int(st_t.iterations) == n < 15
+    np.testing.assert_array_equal(pose_t, pose_w)
