@@ -125,6 +125,40 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 without and with one read a scan beside the graph replay's;
                 rebuild_maps after the gather replay (256 K4 launches) equal
                 to its plain version bit for bit.
+ 17. office   — the office loop (replay.make_office_log(3), 689 scans, 10
+                forced, drifting odometry hints): K3 and K4 on its 200/100/
+                50-px pyramid (damping 0.1, the in-map guard) against their
+                plain versions, the robot inside the map and outside it (K3
+                within K3_POSE_TOL / K3_RESID_RTOL, K4 bit for bit), timed
+                with bounds; the Hector-only and graph replays with launch
+                counts (one K3 and one K4 a scan; the graph's frontend one
+                K1 and one K2 a loop search), host reads (none Hector-only;
+                a scan + an event + a search in the graph), the forced
+                scans on the odometry, the office gate against
+                OFFICE_JAX_REF_* (the same keyframes, closures >= ref - 2,
+                optimised keyframe ATE and Hector-only ATE <= 1.15 x ref,
+                closure margin >= 0.85 x ref), scans/s best of 3;
+ 18. coreslam ops — CoreSLAM's ops at the bench's shapes (256-px hole map,
+                64-px obstacle map, 400 beams, 4096 candidates, a 32 x 8 x 8
+                grid) on the card against the CPU on the same inputs: the
+                snaps of score_candidates and correlative_scores and the
+                cells of both hole and both obstacle updates differing in at
+                most 1 in 10^4, everything else bit for bit; hole_ray_cells
+                exact; two runs on the card bit for bit; planted ties keep
+                the first minimum; a robot outside the map leaves the maps;
+                each op's device us;
+ 19. coreslam — the 522 loop scans in the production mode from the true
+                start and starts moved by 1-3 f32 ulps (CORESLAM_NUDGES) and
+                in the parity mode under generator seeds 1-9: the medians
+                against CORESLAM_JAX_REF_ATE_M + 2e-3 and the largest of
+                CORESLAM_PARITY_JAX_REF_ATES_M (replay.coreslam_gate), 517
+                scans searched in every replay, no host read in a replay
+                (the first replay of each mode with CUDA's sync debug mode
+                set to error), kernels a searched scan (the profiler over
+                scans 20-39),
+                scans/s (the best of the 3 replays after the first), a
+                repeat of the first replay giving its poses bit for bit.
+Phases 17-19 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -387,12 +421,18 @@ def main() -> int:
                          "is False)")
     import numpy as np
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from slamnet_tpu_torch import replay
     from slamnet_tpu_torch.core.scan import Scan
     from slamnet_tpu_torch.graph import frontend, posegraph
-    from slamnet_tpu_torch.models import fleet, graph_slam, hector
-    from slamnet_tpu_torch.ops import _build, fill, match
+    from slamnet_tpu_torch.models import coreslam, fleet, graph_slam, hector
+    from slamnet_tpu_torch.ops import _build, correlate, fill, holemap, match
     from slamnet_tpu_torch.ops import line as line_ops
+    from slamnet_tpu_torch.ops import obstacle
+    from slamnet_tpu_torch.ops import rasterize as ras
+    from slamnet_tpu_torch.ops import score as score_ops
     from slamnet_tpu_torch.sim import default_field, revolution_angles
     from slamnet_tpu_torch.sim import scan_revolution
 
@@ -1803,6 +1843,371 @@ def main() -> int:
         f"{int((l0 < 0).sum())} free cells at the finest level)")
     del graph_runs["gather"]["state"], graph_runs["pallas_full"]["state"], gst
 
+    # ---- 17. the office loop: K3 and K4 at 200/100/50 px, two replays ------
+    t17 = time.perf_counter()
+    ohc, ogc, omc = replay.office_config()
+    olog = replay.make_office_log()
+    odl = replay.to_device(olog, dev)
+    oodo_np, odel_np = replay.office_odometry(olog.traj)
+    oodo = torch.from_numpy(oodo_np).to(dev)
+    odel = torch.from_numpy(odel_np).to(dev)
+    on = odl.points.shape[0]
+    # a map from the log's bootstrap scans at the truth; the robot inside it
+    # (room A) and outside it (room B, beyond x = 20 m)
+    ost = hector.init(ohc, odl.traj[0], dev)
+    for t in range(olog.bootstrap):
+        ost, _ = hector.update(ost, Scan(odl.points[t], odl.valid[t], zero3),
+                               odl.traj[t], ohc, True)
+    omaps = ost.maps
+    t_out = int(np.argmax(olog.traj[:, 0] > 24.0))
+    o_err = {"K3": 0.0, "K3_res": 0.0, "K4": 0.0}
+    o_k4_cells = {}
+    for where, t, off in (("inside", 12, (0.15, -0.1, 0.03)),
+                          ("inside", 40, (-0.1, 0.12, -0.02)),
+                          ("outside", t_out, (0.1, 0.1, 0.02))):
+        oscan = Scan(odl.points[t], odl.valid[t], zero3)
+        hint = odl.traj[t] + torch.tensor(off, device=dev)
+        ok_ = match.match(omaps, oscan.points, oscan.valid, hint, ohc)
+        op = match.match_plain(omaps, oscan.points, oscan.valid, hint, ohc)
+        ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
+        err, res, _, _ = k3_readings(ok_[None], op[None], op[None])
+        o_err["K3"], o_err["K3_res"] = max(o_err["K3"], err), max(
+            o_err["K3_res"], res)
+        check(np.isfinite(ok_).all() and err <= K3_POSE_TOL,
+              f"K3 at 200 px, robot {where} (scan {t}): pose {ok_[:3]} vs "
+              f"plain {op[:3]} (tol {K3_POSE_TOL})")
+        check(res <= K3_RESID_RTOL and ok_[3] == op[3] and ok_[5] == op[5],
+              f"K3 at 200 px, robot {where}: residual rel err {res}, "
+              f"failures / in-map beams {ok_[3:6]} vs {op[3:6]}")
+        mk = line_case(f"K4 at 200 px, robot {where}", omaps, oscan.points,
+                       oscan.valid, odl.traj[t], yes, ohc)
+        o_k4_cells[f"{where}_{t}"] = int((mk != omaps).sum())
+        say(f"[office] K3 robot {where} (scan {t}, in-map beams {ok_[5]:.0f} "
+            f"of {int(oscan.valid.sum())}): |pose err| {err:.3g}, residual "
+            f"rel err {res:.3g}; K4 equals its plain version bit for bit "
+            f"({o_k4_cells[f'{where}_{t}']} cells changed)")
+    check(o_k4_cells[f"outside_{t_out}"] < o_k4_cells["inside_12"],
+          "K4 with the robot outside the map changed as much as inside")
+    oscan = Scan(odl.points[40], odl.valid[40], zero3)
+    ohint = odl.traj[40] + torch.tensor((-0.1, 0.12, -0.02), device=dev)
+    gt_o = omaps.clone()
+    o_ms = {
+        "K3": (graph_ms(torch, lambda: match.match(
+            omaps, oscan.points, oscan.valid, ohint, ohc), REPS_KERNEL),
+            graph_ms(torch, lambda: match.match_plain(
+                omaps, oscan.points, oscan.valid, ohint, ohc), REPS_PLAIN),
+            bound(*match_work(omaps, oscan.points[None], oscan.valid[None],
+                              ohint[None], ohc))),
+        "K4": (graph_ms(torch, lambda: line_ops.update_maps_line(
+            gt_o, oscan.points, oscan.valid, odl.traj[40], zero3, yes, ohc),
+            REPS_KERNEL),
+            graph_ms(torch, lambda: line_ops.update_maps_line_plain(
+                gt_o, oscan.points, oscan.valid, odl.traj[40], zero3, yes,
+                ohc), REPS_PLAIN),
+            bound(*line_work(o_k4_cells["inside_40"], 400, 1, 1)))}
+    del gt_o
+    say(f"[office] {ohc.level_sizes} px, damping {ohc.gn_damping}, in-map "
+        f"guard {ohc.min_match_in_map_frac}: device ms (CUDA graph) "
+        + ", ".join(f"{k} {v[0]:.4f} vs plain {v[1]:.4f} (bound "
+                    f"{v[2][0]:.6f} by {v[2][1]})" for k, v in o_ms.items()))
+    office_runs = {}
+    for oname, g in (("hector", None), ("graph", ogc)):
+        zero_counts()
+        syncs0 = graph_slam.update.syncs
+        searches0 = graph_slam.update.searches
+        ostf, oout = replay.office_replay(odl, oodo, odel, ohc, g,
+                                          omc if g else None)
+        torch.cuda.synchronize()
+        olaunch = read_counts()
+        osyncs = graph_slam.update.syncs - syncs0
+        searches = graph_slam.update.searches - searches0
+        events = int(oout.keyframe_added.sum())
+        want = dict.fromkeys(olaunch, 0)
+        want.update(match_f32=on, line=on, match=searches, fill=searches)
+        check(olaunch == want, f"launches in the office {oname} replay: "
+              f"{olaunch}, want {want}")
+        check(osyncs == (on + events + searches if g else 0),
+              f"office {oname}: {osyncs} host reads")
+        oposes = oout.poses.cpu().numpy()
+        check(oposes.shape == (on, 3) and np.isfinite(oposes).all(),
+              f"office {oname} poses")
+        check(np.array_equal(oposes[:olog.bootstrap],
+                             oodo_np[:olog.bootstrap]),
+              f"office {oname}: the forced scans' poses are not the odometry")
+
+        def best_office(g=g, first=oout.poses) -> float:
+            best = float("inf")
+            for _ in range(TIMED_REPLAYS):
+                t = time.perf_counter()
+                _, again = replay.office_replay(odl, oodo, odel, ohc, g,
+                                                omc if g else None)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t)
+                check(torch.equal(again.poses, first), f"office {oname}: a "
+                      "second replay gave other poses")
+            return best
+        office_runs[oname] = {"state": ostf, "poses": oposes,
+                              "kf": oout.keyframe_added.cpu().numpy(),
+                              "launches": olaunch, "syncs": osyncs,
+                              "searches": searches, "events": events,
+                              "s": best_office()}
+    ores = replay.office_metrics(olog.traj, office_runs["hector"]["poses"],
+                                 office_runs["graph"]["state"],
+                                 office_runs["graph"]["poses"],
+                                 office_runs["graph"]["kf"])
+    oref = replay.office_reference()
+    check(ores["keyframes"] == office_runs["graph"]["events"] + 1,
+          f"office: {ores['keyframes']} keyframes, "
+          f"{office_runs['graph']['events']} events")
+    ofails = replay.office_gate(ores, oref)
+    og = office_runs["graph"]
+    say(f"[office] replays of {on} scans ({olog.bootstrap} forced): "
+        + ", ".join(f"{k} {v:.6g} (JAX {oref[k]:.6g})" for k, v in ores.items()
+                    if k in oref)
+        + f"; launches hector-only "
+        f"{ {k: v for k, v in office_runs['hector']['launches'].items() if v} }"
+        f", graph { {k: v for k, v in og['launches'].items() if v} } ("
+        f"{og['searches']} loop searches in {og['events']} keyframe events); "
+        f"host reads {og['syncs']} ({on} + {og['events']} + "
+        f"{og['searches']}), hector-only 0; scans/s hector-only "
+        f"{on / office_runs['hector']['s']:.1f}, graph {on / og['s']:.1f} "
+        f"(best of {TIMED_REPLAYS}, each replay's poses the first's bit for "
+        f"bit); {time.perf_counter() - t17:.1f} s")
+    check(not ofails, f"office gate vs JAX: {ofails}")
+    del office_runs["graph"]["state"], ostf
+
+    # ---- 18. CoreSLAM's ops on the card against the CPU ------------------
+    t18 = time.perf_counter()
+    clog = replay.make_log(0)
+    cdl = replay.to_device(clog, dev)
+    pcfg = replay.coreslam_production_config()
+    mcfg_ = replay.coreslam_parity_config()
+    S, OS = pcfg.hole_map_size, pcfg.obstacle_map_size
+    hs, osc = pcfg.hole_scale, pcfg.obstacle_scale
+    # maps from the first 40 scans of the production replay on the card
+    cst = coreslam.init(pcfg, cdl.traj[0], device=dev)
+    for t in range(40):
+        cst, _ = coreslam.update_cloud(
+            cst, Scan(cdl.points[t], cdl.valid[t], zero3), cst.pose, pcfg)
+    t = 40
+    on_card = {"hole": cst.hole_map, "obst": cst.obstacle_map,
+               "pts": cdl.points[t], "valid": cdl.valid[t],
+               "pose": cdl.traj[t] + torch.tensor((0.03, -0.02, 0.01),
+                                                   device=dev)}
+    on_cpu = {k: v.cpu() for k, v in on_card.items()}
+    flips = {}
+    snaps = {}
+
+    def both(fn, *names, extra=()):
+        """``fn`` on the card (twice: bit for bit) and on the CPU, same
+        inputs; returns (card, cpu) outputs as CPU tensors."""
+        a = fn(*(on_card[n] for n in names), *extra)
+        b = fn(*(on_card[n] for n in names), *extra)
+        c = fn(*(on_cpu[n] for n in names), *extra)
+        a, b, c = ([x.cpu() for x in o] if isinstance(o, tuple) else o.cpu()
+                   for o in (a, b, c))
+        same = (all(torch.equal(x, y) for x, y in zip(a, b))
+                if isinstance(a, list) else torch.equal(a, b))
+        check(same, f"{fn.__name__}: two runs on the card differ")
+        return a, c
+    # Monte-Carlo scores: 4096 candidates drawn on the CPU, the same on both
+    cands = score_ops.sample_candidates(on_cpu["pose"], mcfg_.sigma_xy,
+                                        mcfg_.sigma_theta, 4096,
+                                        torch.Generator().manual_seed(0))
+    on_cpu["cands"], on_card["cands"] = cands, cands.to(dev)
+    (gx, gy), (cx, cy) = both(lambda p, q: score_ops.candidate_pixels(p, q, hs),
+                              "cands", "pts")
+    flipped = (gx != cx) | (gy != cy)
+    flips["score"], snaps["score"] = int(flipped.sum()), flipped.numel()
+    (gs_, gn_), (cs_, cn_) = both(lambda h, p, v, c: score_ops.score_candidates(
+        h, S, hs, p, v, c), "hole", "pts", "valid", "cands")
+    clean = ~flipped.any(dim=1)
+    check(torch.equal(gs_[clean], cs_[clean]) and torch.equal(
+        gn_[clean], cn_[clean]), "score_candidates: the card's sums differ "
+          "from the CPU's on candidates with no flipped snap")
+    # correlative scores on the production grid around the pose
+    span = 3.0 * pcfg.sigma_theta
+    thetas = correlate.theta_grid(on_cpu["pose"][2], pcfg.corr_num_theta, span)
+    on_cpu["thetas"], on_card["thetas"] = thetas, thetas.to(dev)
+    (gx, gy), (cx, cy) = both(
+        lambda p, th, q: correlate.correlative_pixels(p, th, q, hs),
+        "pose", "thetas", "pts")
+    kflip = ((gx != cx) | (gy != cy))
+    flips["correlative"], snaps["correlative"] = int(kflip.sum()), \
+        kflip.numel()
+    (gsum, gnb), (csum, cnb) = both(
+        lambda h, p, v, sp, th: correlate.correlative_scores(
+            h, S, hs, p, v, sp, th, pcfg.corr_window),
+        "hole", "pts", "valid", "pose", "thetas")
+    kclean = ~kflip.any(dim=1)
+    check(torch.equal(gsum[kclean], csum[kclean])
+          and torch.equal(gnb[kclean], cnb[kclean]),
+          "correlative_scores: the card's sums or counts differ from the "
+          "CPU's on headings with no flipped snap")
+    (gp, gb), (cp, cb) = both(
+        lambda h, p, v, sp: correlate.correlative_search(
+            h, S, hs, p, v, sp, pcfg.corr_window, pcfg.corr_num_theta, span),
+        "hole", "pts", "valid", "pose")
+    check(flips["correlative"] > 0 or (torch.equal(gp, cp)
+                                       and torch.equal(gb, cb)),
+          f"correlative_search: card {gp.tolist()} {int(gb)} vs CPU "
+          f"{cp.tolist()} {int(cb)}")
+    # the hole-map walk on integer inputs: exact
+    pfr = holemap.pose_frame(on_cpu["pose"], S, hs)
+    x2p = pfr.c * on_cpu["pts"][:, 0] - pfr.s * on_cpu["pts"][:, 1]
+    y2p = pfr.s * on_cpu["pts"][:, 0] + pfr.c * on_cpu["pts"][:, 1]
+    ints = [pfr.x1, pfr.y1, torch.trunc(pfr.px + 1.3 * x2p).int(),
+            torch.trunc(pfr.py + 1.3 * y2p).int(),
+            torch.trunc(pfr.px + x2p).int(), torch.trunc(pfr.py + y2p).int()]
+    for i, name in enumerate(("x1", "y1", "x2", "y2", "xp", "yp")):
+        on_cpu[name], on_card[name] = ints[i], ints[i].to(dev)
+    ga, ca = both(lambda *a: tuple(ras.hole_ray_cells(*a, 0, 65500, S, S)),
+                  "x1", "y1", "x2", "y2", "xp", "yp")
+    check(all(torch.equal(x, y) for x, y in zip(ga, ca)),
+          "hole_ray_cells: the card differs from the CPU")
+    map_ops = {
+        "hole_line": (lambda h, p, v, q: holemap.update_hole_map(
+            h, S, hs, p, v, q, pcfg.hole_width, pcfg.quality), "hole"),
+        "hole_dense": (lambda h, p, v, q: holemap.update_hole_map_dense(
+            h, S, hs, p, v, q, pcfg.hole_width, pcfg.quality,
+            pcfg.angle_bins), "hole"),
+        "obstacle_line": (lambda o, p, v, q: obstacle.update_obstacle_map(
+            o, OS, osc, p, v, q, pcfg.max_obstacle_hits), "obst"),
+        "obstacle_dense": (lambda o, p, v, q:
+                           obstacle.update_obstacle_map_dense(
+                               o, OS, osc, p, v, q, pcfg.max_obstacle_hits,
+                               pcfg.angle_bins), "obst")}
+    outside = {"pose": torch.tensor([-3.0, 20.0, 0.2])}
+    for name, (fn, m) in map_ops.items():
+        g_, c_ = both(fn, m, "pts", "valid", "pose")
+        flips[name], snaps[name] = int((g_ != c_).sum()), g_.numel()
+        check(int((g_ != on_cpu[m]).sum()) > 20, f"{name}: no cell changed")
+        o_card = fn(on_card[m], on_card["pts"], on_card["valid"],
+                    outside["pose"].to(dev))
+        check(torch.equal(o_card, on_card[m]),
+              f"{name}: a robot outside the map changed the map")
+    for name in flips:
+        check(flips[name] <= 1e-4 * snaps[name],
+              f"{name}: {flips[name]} of {snaps[name]} snaps or cells differ "
+              "between the card and the CPU (limit 1 in 10^4)")
+    # planted ties: the first minimum wins on the card
+    same = on_card["pose"][None].repeat(4096, 1)
+    tp, tb = score_ops.best_of(same, on_card["hole"], S, hs, on_card["pts"],
+                               on_card["valid"])
+    eff_tie = torch.full((4096,), 7, dtype=torch.int32, device=dev)
+    eff_tie[[3, 1000, 4000]] = 5
+    check(int(torch.argmin(eff_tie)) == 3 and torch.equal(tp, same[0]),
+          "argmin on the card did not keep the first minimum")
+    grid_tie = torch.full((32, 8, 8), 9, dtype=torch.int32, device=dev)
+    grid_tie[5, 2, 3] = grid_tie[5, 2, 4] = grid_tie[20, 0, 0] = 1
+    tpose, tsum = correlate.refine_from_scores(grid_tie, on_card["pose"], hs,
+                                               8, 32, span)
+    cpose, csum_ = correlate.refine_from_scores(grid_tie.cpu(), on_cpu["pose"],
+                                                hs, 8, 32, span)
+    check(int(tsum) == 1 and torch.equal(tpose.cpu(), cpose),
+          f"refine_from_scores on planted ties: card {tpose.tolist()} vs CPU "
+          f"{cpose.tolist()}")
+
+    def op_us(fn) -> float:
+        try:
+            return graph_ms(torch, fn, REPS_PLAIN) * 1e3
+        except RuntimeError:
+            torch.cuda.synchronize()
+            return eager_ms(torch, fn, REPS_PLAIN) * 1e3
+    a = [on_card[k] for k in ("hole", "pts", "valid")]
+    core_us = {
+        "score_candidates_4096": op_us(lambda: score_ops.score_candidates(
+            a[0], S, hs, a[1], a[2], on_card["cands"])),
+        "correlative_search": op_us(lambda: correlate.correlative_search(
+            a[0], S, hs, a[1], a[2], on_card["pose"], pcfg.corr_window,
+            pcfg.corr_num_theta, span)),
+        **{name: op_us(lambda fn=fn, m=m: fn(on_card[m], a[1], a[2],
+                                              on_card["pose"]))
+           for name, (fn, m) in map_ops.items()}}
+    say(f"[coreslam ops] {S}-px hole map, {OS}-px obstacle map, 400 beams, "
+        f"4096 candidates, {pcfg.corr_num_theta} x {pcfg.corr_window} x "
+        f"{pcfg.corr_window} grid: card against CPU, snaps or cells "
+        f"differing { {k: f'{flips[k]}/{snaps[k]}' for k in flips} }, the "
+        "rest bit for bit; hole_ray_cells exact; two runs on the card bit "
+        "for bit; planted ties keep the first minimum; a robot outside the "
+        "map leaves it; device us "
+        + ", ".join(f"{k} {v:.1f}" for k, v in core_us.items())
+        + f"; {time.perf_counter() - t18:.1f} s")
+
+    # ---- 19. CoreSLAM end to end: both modes over the 522 loop scans ------
+    t19 = time.perf_counter()
+    cn = cdl.points.shape[0]
+    warm = pcfg.position_search_beginning
+    core_runs = {}
+    for mode, cfg_, key, keys in (
+            ("production", pcfg, "nudge", replay.CORESLAM_NUDGES),
+            ("parity", mcfg_, "seed", replay.CORESLAM_SEEDS)):
+        ates, searched, secs = [], [], []
+        for i, k in enumerate(keys):
+            kw = {key: k}
+            torch.cuda.synchronize()
+            if i == 0:    # no host read in a replay: syncs raise here
+                torch.cuda.set_sync_debug_mode("error")
+            tt = time.perf_counter()
+            try:
+                _, cout = replay.coreslam_replay(cdl, cfg_, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - tt)
+            cp_ = cout.poses.cpu().numpy()
+            check(np.isfinite(cp_).all(), f"{mode} {key} {k}: poses")
+            ates.append(replay.ate_of(cp_, clog.traj)[0])
+            searched.append(int(cout.searched.sum()))
+            if i == 0:
+                first = cout.poses
+        kw = {key: keys[0]}
+        _, again = replay.coreslam_replay(cdl, cfg_, **kw)
+        check(torch.equal(again.poses, first), f"{mode}: a second replay "
+              "gave other poses")
+        # device kernels a searched scan: scans 20-39 of a replay, traced
+        pst = coreslam.init(cfg_, cdl.traj[0], device=dev)
+
+        def steps(lo, hi, pst=pst):
+            for t in range(lo, hi):
+                pst, _ = coreslam.update_cloud(
+                    pst, Scan(cdl.points[t], cdl.valid[t], zero3), pst.pose,
+                    cfg_)
+            torch.cuda.synchronize()
+            return pst
+        pst = steps(0, 20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps(20, 40, pst)
+        n_k = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        best = min(secs[1:1 + TIMED_REPLAYS])
+        core_runs[mode] = {"ates_m": ates, key + "s": list(keys),
+                           "median_ate_m": float(np.median(ates)),
+                           "searched": searched,
+                           "kernels_per_scan": n_k / 20,
+                           "scans_per_s": cn / best}
+    cfails = replay.coreslam_gate(
+        core_runs["production"]["ates_m"], core_runs["parity"]["ates_m"],
+        core_runs["parity"]["searched"], core_runs["production"]["searched"],
+        cn, warm)
+    for mode, ref in (("production", replay.CORESLAM_JAX_REF_ATES_M),
+                      ("parity", replay.CORESLAM_PARITY_JAX_REF_ATES_M)):
+        r = core_runs[mode]
+        say(f"[coreslam] {mode} replays of {cn} scans: ATE "
+            + " ".join(f"{x:.6f}" for x in r["ates_m"])
+            + f" m (median {r['median_ate_m']:.6f}; JAX "
+            + " ".join(f"{x:.6f}" for x in ref) + f", median "
+            f"{float(np.median(ref)):.6f}), scans searched {r['searched']}, "
+            f"no host read in a replay (sync debug mode 'error'), "
+            f"{r['kernels_per_scan']:.1f} kernels a searched scan, "
+            f"{r['scans_per_s']:.1f} scans/s (best of the {TIMED_REPLAYS} "
+            "replays after the first; a repeat of the first gave its poses "
+            "bit for bit)")
+    say(f"[coreslam] gate: production median <= "
+        f"{replay.CORESLAM_JAX_REF_ATE_M:.6f} + 2e-3, parity median <= "
+        f"{max(replay.CORESLAM_PARITY_JAX_REF_ATES_M):.6f}; "
+        f"{time.perf_counter() - t19:.1f} s")
+    check(not cfails, f"CoreSLAM gate vs JAX: {cfails}")
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -1849,7 +2254,13 @@ def main() -> int:
               fr_err["K3"], *fr["K3"]),
         entry("line_frontend", "line.cu", "pallas_scatter.py:71",
               graph_runs["gather"]["launches"]["line"] - gn, 0.0,
-              *fr["K4"])],
+              *fr["K4"]),
+        # the office graph replay's Hector launches, timed at 200 px
+        entry("match_f32_office", "match.cu", "pallas_gn.py:133",
+              office_runs["graph"]["launches"]["match_f32"], o_err["K3"],
+              *o_ms["K3"]),
+        entry("line_office", "line.cu", "pallas_scatter.py:71",
+              office_runs["graph"]["launches"]["line"], 0.0, *o_ms["K4"])],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -1887,6 +2298,21 @@ def main() -> int:
                       "launches": {k: v for k, v in r["launches"].items() if v}}
                   for m, r in graph_runs.items()},
         "graph_host_us_per_scan": us,
+        "office": {**ores, "jax_ref": oref,
+                   "launches": {k: {n: v for n, v in r["launches"].items()
+                                    if v} for k, r in office_runs.items()},
+                   "keyframe_events": office_runs["graph"]["events"],
+                   "loop_searches": office_runs["graph"]["searches"],
+                   "host_reads": office_runs["graph"]["syncs"],
+                   "scans_per_s": {k: on / r["s"]
+                                   for k, r in office_runs.items()},
+                   "k3_k4_200px_ms": {k: v[0] for k, v in o_ms.items()}},
+        "coreslam": {**core_runs, "ops_device_us": core_us,
+                     "card_vs_cpu_differing": flips, "compared": snaps,
+                     "jax_ref_production_ates_m":
+                         replay.CORESLAM_JAX_REF_ATES_M,
+                     "jax_ref_parity_ates_m":
+                         replay.CORESLAM_PARITY_JAX_REF_ATES_M},
         "match_bits": {"K1": k1_bits, "K3": k3_bits},
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {

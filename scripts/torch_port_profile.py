@@ -13,10 +13,14 @@ replay (512 scans after a 10-scan fixed-mode bootstrap; ``--mode``
 10-batch-scan bootstrap; ``--mode`` ``sub4_pallas_dense``, the default, or
 ``sub1``), or with ``--graph`` a scan of the graph-SLAM replay (the 512
 scans of the turning revisit, the first 12 forced; ``--mode`` ``gather``,
-the default, or ``pallas_full``).
+the default, or ``pallas_full``), with ``--office`` a scan of the office
+loop's graph-SLAM replay (689 scans, the first 10 forced; ``--mode graph``,
+the default, or ``hector`` for Hector alone), or with ``--coreslam`` a scan
+of CoreSLAM's replay of the 522 loop scans (``--mode production``, the
+default, or ``parity``).
 
-    python3 scripts/torch_port_profile.py [--fleet | --graph] [--mode M]
-        [--out DIR]
+    python3 scripts/torch_port_profile.py [--fleet | --graph | --office |
+        --coreslam] [--mode M] [--out DIR]
 """
 import argparse
 import json
@@ -42,6 +46,10 @@ FLEET = {"sub4_pallas_dense": replay.sub4_pallas_dense_config,
          "sub1": replay.sub1_config}
 GRAPH = {"gather": replay.graph_gather_config,
          "pallas_full": replay.graph_pallas_full_config}
+OFFICE = {"graph": lambda: replay.office_config(),
+          "hector": lambda: replay.office_config()[:1]}
+CORESLAM = {"production": replay.coreslam_production_config,
+            "parity": replay.coreslam_parity_config}
 
 
 def _single(dev, cfg):
@@ -70,6 +78,20 @@ def _graph(dev, cfgs):
             lambda: replay.graph_replay(dlog, *cfgs))
 
 
+def _office(dev, cfgs):
+    log = replay.make_office_log()
+    dlog = replay.to_device(log, dev)
+    odo, deltas = (torch.from_numpy(a).to(dev)
+                   for a in replay.office_odometry(log.traj))
+    return (dlog.points.shape[0],
+            lambda: replay.office_replay(dlog, odo, deltas, *cfgs))
+
+
+def _coreslam(dev, cfg):
+    dlog = replay.to_device(replay.make_log(seed=0), dev)
+    return dlog.points.shape[0], lambda: replay.coreslam_replay(dlog, cfg)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the Chrome trace")
@@ -78,20 +100,29 @@ def main() -> int:
                       help="the 64-robot fleet instead of the single robot")
     path.add_argument("--graph", action="store_true",
                       help="graph-SLAM instead of the single robot")
-    ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH}),
+    path.add_argument("--office", action="store_true",
+                      help="the office loop instead of the single robot")
+    path.add_argument("--coreslam", action="store_true",
+                      help="CoreSLAM instead of the single robot")
+    ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH,
+                                              *OFFICE, *CORESLAM}),
                     help="the configuration (default pallas_dense, "
                          "sub4_pallas_dense with --fleet, gather with "
-                         "--graph)")
+                         "--graph, graph with --office, production with "
+                         "--coreslam)")
     args = ap.parse_args()
-    kind = "fleet" if args.fleet else "graph" if args.graph else "single"
-    modes = {"fleet": FLEET, "graph": GRAPH, "single": SINGLE}[kind]
+    kind = ("fleet" if args.fleet else "graph" if args.graph else "office"
+            if args.office else "coreslam" if args.coreslam else "single")
+    modes = {"fleet": FLEET, "graph": GRAPH, "office": OFFICE,
+             "coreslam": CORESLAM, "single": SINGLE}[kind]
     mode = args.mode or next(iter(modes))
     if mode not in modes:
         ap.error(f"--mode {mode} is not a {kind} mode: {sorted(modes)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    make = {"fleet": _fleet, "graph": _graph, "single": _single}[kind]
+    make = {"fleet": _fleet, "graph": _graph, "office": _office,
+            "coreslam": _coreslam, "single": _single}[kind]
     n, run = make(dev, modes[mode]())
     run()                                                  # warm-up
     torch.cuda.synchronize()

@@ -39,10 +39,26 @@ bf16 selection in XLA; ``replay.FLEET_JAX_REF_*``) or ``sub1`` (the accuracy
 anchor, gather + line updates; ``replay.FLEET_SUB1_JAX_REF_*``): its RMS,
 max and median instance ATE.
 
+``--office`` runs bench's office loop (``bench.py:318-431``) over
+``make_office_log(3)`` with ``office_odometry``'s drifting odometry: Hector
+alone and graph-SLAM, each scan hinted with the match pose plus the odometry
+delta, the first 10 forced and then set to the odometry; every ``office_*``
+number but the rate (``replay.OFFICE_JAX_REF_*``).
+
+``--coreslam`` runs CoreSLAM (``bench.py:825-875``) over every scan of
+``make_log(0)``, the state's own pose as the odometry: ``--mode
+production`` (correlative search, dense fills; ``replay.
+CORESLAM_JAX_REF_ATE_M``) or ``parity`` (Monte-Carlo with 4096 candidates,
+line updates) under ``PRNGKey(--seed)`` (default 1;
+``replay.CORESLAM_PARITY_JAX_REF_ATES_M`` holds seeds 1-3); ``--nudge k``
+starts from the first true pose with its x moved by k f32 ulps
+(``replay.CORESLAM_JAX_REF_ATES_M`` holds k = 0, 1, -1, 2, -2).
+
 Runs on the CPU (a few minutes); prints one JSON object.
 
     python scripts/torch_port_ref_ate.py [--seed 0] [--exit]
-        [--fleet [--mode sub1]] [--graph [--mode onehot_full]]
+        [--fleet [--mode sub1]] [--graph [--mode onehot_full]] [--office]
+        [--coreslam [--mode parity|production] [--seed 1] [--nudge 0]]
 """
 import argparse
 import json
@@ -59,11 +75,15 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
-from slamnet_tpu.core import HectorConfig, PoseGraphConfig  # noqa: E402
+from slamnet_tpu.core import (CoreSlamConfig, HectorConfig,  # noqa: E402
+                              PoseGraphConfig)
 from slamnet_tpu.core.scan import Scan  # noqa: E402
 from slamnet_tpu.graph import frontend  # noqa: E402
-from slamnet_tpu.models import fleet, graph_slam, hector  # noqa: E402
+from slamnet_tpu.models import (coreslam, fleet, graph_slam,  # noqa: E402
+                                hector)
+from slamnet_tpu_torch import replay as port  # noqa: E402
 from slamnet_tpu_torch.replay import (GRAPH_SEED, ate_of,  # noqa: E402
                                       fleet_ate_of, make_fleet_log,
                                       make_graph_log, make_log, sub1_config,
@@ -174,6 +194,99 @@ def run_graph(hcfg, mcfg, log):
             "loop_closures": int(np.asarray(stf.loop_count))}
 
 
+def run_office(log, num_levels=3, map_size=200, map_resolution=0.1):
+    """bench.py's office flow (``bench.py:353-431``) over ``log``: the
+    ``office_*`` numbers but the rate, unrounded."""
+    odo, deltas = port.office_odometry(log.traj)
+    angles = jnp.asarray(log.angles)
+    pcfg, pg, pm = port.office_config()
+    hcfg = HectorConfig(
+        num_levels=num_levels, map_size=map_size,
+        map_resolution=map_resolution,
+        estimate_iterations=pcfg.estimate_iterations[:num_levels],
+        xy_step_clamp_px=pcfg.xy_step_clamp_px,
+        max_match_jump=pcfg.max_match_jump, gn_damping=pcfg.gn_damping,
+        min_match_in_map_frac=pcfg.min_match_in_map_frac)
+    gcfg = PoseGraphConfig(keyframe_dist=pg.keyframe_dist,
+                           loop_closure_radius=pg.loop_closure_radius)
+    mcfg = frontend.ScanMatchConfig(matcher_mode=pm.matcher_mode,
+                                    dense_fill=pm.dense_fill)
+    n = log.radii.shape[0]
+    force = jnp.arange(n) < log.bootstrap
+    xs = (jnp.asarray(log.radii), jnp.asarray(log.valid), force,
+          jnp.asarray(deltas), jnp.asarray(odo))
+
+    def cloud(r, v):
+        pts = jnp.stack([r * jnp.cos(angles), r * jnp.sin(angles)], -1)
+        return Scan(pts, v, jnp.zeros(3, jnp.float32))
+
+    @jax.jit
+    def replay_hector(state, xs):
+        def body(st, inp):
+            r, v, f, d, o = inp
+            st, _ = hector.update(st, cloud(r, v), st.match_pose + d, hcfg, f)
+            st = st._replace(match_pose=jnp.where(f, o, st.match_pose))
+            return st, st.match_pose
+        return jax.lax.scan(body, state, xs)
+
+    @jax.jit
+    def replay_graph(state, xs):
+        def body(st, inp):
+            r, v, f, d, o = inp
+            st = st._replace(hector=st.hector._replace(
+                match_pose=st.hector.match_pose + d))
+            st, info = graph_slam.update(st, cloud(r, v), hcfg, gcfg,
+                                         mcfg=mcfg, map_without_matching=f)
+            st = st._replace(hector=st.hector._replace(
+                match_pose=jnp.where(f, o, st.hector.match_pose)))
+            return st, (st.hector.match_pose, info.keyframe_added)
+        return jax.lax.scan(body, state, xs)
+
+    _, h_track = replay_hector(hector.init(hcfg, log.traj[0]), xs)
+    stf, (g_track, kf) = replay_graph(
+        graph_slam.init(hcfg, gcfg, log.traj[0], int(angles.shape[0])), xs)
+    out = port.office_metrics(log.traj, np.asarray(h_track), _NpGraph(stf),
+                              np.asarray(g_track), np.asarray(kf))
+    return out, np.asarray(h_track), np.asarray(g_track), np.asarray(kf)
+
+
+class _NpGraph:
+    """A JAX graph-SLAM state as ``office_metrics`` reads it: the node
+    count, the closures, the graph's poses as a torch tensor."""
+
+    def __init__(self, st):
+        self.nodes = int(np.asarray(st.graph.num_nodes))
+        self.loop_count = int(np.asarray(st.loop_count))
+        self.graph = st.graph._replace(
+            poses=torch.from_numpy(np.array(st.graph.poses)))
+
+
+def run_coreslam(cfg, log, seed, nudge=0):
+    """bench.py's CoreSLAM flow (``bench.py:830-856``) over every scan of
+    ``log``, from the first true pose with its x moved by ``nudge`` f32 ulps
+    (``replay.nudged_start``): ATE and max error over every scan, scans
+    searched."""
+    angles = jnp.asarray(log.angles)
+
+    @jax.jit
+    def replay(state, radii, valids):
+        def body(st, inp):
+            r, v = inp
+            pts = jnp.stack([r * jnp.cos(angles), r * jnp.sin(angles)], -1)
+            st, info = coreslam.update_cloud(
+                st, Scan(pts, v, jnp.zeros(3, jnp.float32)), st.pose, cfg)
+            return st, (st.pose, info.searched)
+        return jax.lax.scan(body, state, (radii, valids))
+
+    start = port.nudged_start(torch.from_numpy(log.traj[0]), nudge).numpy()
+    state = coreslam.init(cfg, start, key=jax.random.PRNGKey(seed))
+    _, (poses, searched) = replay(state, jnp.asarray(log.radii),
+                                  jnp.asarray(log.valid))
+    ate, mx = ate_of(np.asarray(poses), log.traj)
+    return {"ate_m": ate, "max_err_m": mx,
+            "searched": int(np.asarray(searched).sum())}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=None,
@@ -184,11 +297,49 @@ def main():
                     help="the 64-robot fleet instead of the single robot")
     ap.add_argument("--graph", action="store_true",
                     help="graph-SLAM over the turning revisit log")
+    ap.add_argument("--office", action="store_true",
+                    help="the office loop: Hector alone and graph-SLAM")
+    ap.add_argument("--coreslam", action="store_true",
+                    help="CoreSLAM over the loop log")
+    ap.add_argument("--nudge", type=int, default=0,
+                    help="CoreSLAM: move the start's x by this many f32 ulps")
     ap.add_argument("--mode", choices=("sub4_onehot_dense", "sub1", "gather",
-                                       "onehot_full"),
-                    help="the fleet's mode (default sub4_onehot_dense) or "
-                         "the graph's (default gather)")
+                                       "onehot_full", "parity", "production"),
+                    help="the fleet's mode (default sub4_onehot_dense), the "
+                         "graph's (default gather) or CoreSLAM's (default "
+                         "production)")
     args = ap.parse_args()
+    if args.office:
+        log = port.make_office_log()
+        out = {"seed": port.OFFICE_SEED, "n_scans": int(log.radii.shape[0]),
+               "bootstrap": log.bootstrap, "jax": jax.__version__,
+               "device": str(jax.devices()[0])}
+        t0 = time.time()
+        out["office"] = run_office(log)[0]
+        out["office"]["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps(out))
+        return
+    if args.coreslam:
+        mode = args.mode or "production"
+        if mode not in ("parity", "production"):
+            ap.error(f"--mode {mode} is not a CoreSLAM mode")
+        seed = 1 if args.seed is None else args.seed
+        pc = (port.coreslam_production_config() if mode == "production"
+              else port.coreslam_parity_config())
+        cfg = CoreSlamConfig(**{f: getattr(pc, f) for f in (
+            "num_candidates", "search_mode", "dense_hole_fill",
+            "dense_obstacle_fill")})
+        log = make_log(0)
+        out = {"seed": seed, "n_scans": int(log.radii.shape[0]),
+               "jax": jax.__version__, "device": str(jax.devices()[0])}
+        t0 = time.time()
+        out["nudge_ulps"] = args.nudge
+        out[f"coreslam_{mode}"] = run_coreslam(cfg, log, seed, args.nudge)
+        out[f"coreslam_{mode}"]["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps(out))
+        return
+    if args.mode in ("parity", "production"):
+        ap.error(f"--mode {args.mode} needs --coreslam")
     if args.graph:
         mode = args.mode or "gather"
         if mode not in ("gather", "onehot_full"):

@@ -12,8 +12,11 @@ in ``ops.fill`` and the Bresenham line update (K4) in ``ops.line``, each
 single or batched with per-robot fire flags; built from ``csrc/`` with nvcc
 at first use.  Each kernel wrapper runs its plain
 PyTorch version for CPU tensors (tests) and the kernel for CUDA tensors.
-``python3 chip_smoke.py`` drives both paths on the card.
+Graph-SLAM (``models.graph_slam``) runs the same kernels at its frontend's
+shape; CoreSLAM (``models.coreslam``) runs PyTorch operators, as the JAX
+package runs it in XLA.  ``python3 chip_smoke.py`` drives every path on the
+card.
 """
-from . import core, models, ops, sim
+from . import core, io, models, ops, sim
 
-__all__ = ["core", "models", "ops", "sim"]
+__all__ = ["core", "io", "models", "ops", "sim"]

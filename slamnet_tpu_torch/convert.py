@@ -16,6 +16,14 @@ state (``slamnet_tpu.models.graph_slam.GraphSlamState``) as a dict of the
 same names: ``hector`` (the three Hector arrays), ``graph`` (the
 ``PoseGraph`` arrays), ``kf_points``, ``kf_valid``, ``last_kf_pose`` and
 ``loop_count``.
+
+``coreslam_state_from_numpy`` / ``coreslam_state_to_numpy`` carry a CoreSLAM
+state (``slamnet_tpu.models.coreslam.CoreSlamState``) as its arrays
+``hole_map`` (i32), ``obstacle_map`` (i8), ``pose``, ``last_odometry`` and
+``scan_count``.  JAX's PRNG key is not carried: the port's state draws from
+a ``torch.Generator`` seeded with ``seed``, so
+``CoreSlamState(**d, key=...)`` rebuilds a JAX state with a key of the
+caller's choice.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from .graph.posegraph import PoseGraph
+from .models import coreslam
 from .models.graph_slam import GraphSlamState
 from .models.hector import HectorState
 
@@ -30,6 +39,8 @@ FIELDS = ("maps", "match_pose", "last_update_pose")
 GRAPH_FIELDS = PoseGraph._fields
 GRAPH_STATE_FIELDS = ("hector", "graph", "kf_points", "kf_valid",
                       "last_kf_pose", "loop_count")
+CORESLAM_FIELDS = ("hole_map", "obstacle_map", "pose", "last_odometry",
+                   "scan_count")
 _INT_FIELDS = ("num_nodes", "edge_i", "edge_j", "num_edges")
 _BOOL_FIELDS = ("node_valid", "edge_valid")
 
@@ -110,3 +121,29 @@ def graph_state_to_numpy(state: GraphSlamState) -> dict:
             "kf_valid": _np(state.kf_valid),
             "last_kf_pose": _np(state.last_kf_pose),
             "loop_count": _np(state.loop_count)}
+
+
+def coreslam_state_from_numpy(hole_map, obstacle_map, pose, last_odometry,
+                              scan_count, seed: int = 0,
+                              device: torch.device | str = "cuda"
+                              ) -> coreslam.CoreSlamState:
+    """A CoreSLAM state from its arrays (e.g. a JAX state's), on the card
+    unless ``device`` names another, drawing from a generator seeded with
+    ``seed``."""
+    count = int(np.asarray(scan_count))
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return coreslam.CoreSlamState(
+        hole_map=t(hole_map, torch.int32).reshape(-1),
+        obstacle_map=t(obstacle_map, torch.int8),
+        pose=t(pose, torch.float32), last_odometry=t(last_odometry,
+                                                     torch.float32),
+        scan_count=t(count, torch.int32),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        scans=count)
+
+
+def coreslam_state_to_numpy(state: coreslam.CoreSlamState) -> dict:
+    """``state``'s arrays as ``coreslam_state_from_numpy`` takes them."""
+    return {k: _np(getattr(state, k)) for k in CORESLAM_FIELDS}

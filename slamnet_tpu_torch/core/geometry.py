@@ -54,6 +54,45 @@ def csharp_trunc(x: torch.Tensor) -> torch.Tensor:
     return torch.trunc(x).to(torch.int32)
 
 
+def cos_rn(x: torch.Tensor) -> torch.Tensor:
+    """cos of f32 ``x``, evaluated in float64 and rounded once to f32: the
+    correctly rounded value in all but rare near-tie cases, on every device,
+    so the CPU and the card snap the same pixels (torch's f32 ``cos`` and
+    XLA's differ from it, and from each other, by an ulp on a few percent of
+    inputs)."""
+    return torch.cos(x.double()).float()
+
+
+def sin_rn(x: torch.Tensor) -> torch.Tensor:
+    """sin of f32 ``x`` rounded once from float64 (see ``cos_rn``)."""
+    return torch.sin(x.double()).float()
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as IEEE (and XLA) define it;
+    torch's f32 ``sqrt`` on some CPUs is an ulp off.  A float64 root of an
+    f32 value rounds to f32 exactly."""
+    return torch.sqrt(x.double()).float()
+
+
+def atan2_rn(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atan2 of f32 ``y``, ``x`` rounded once from float64 (see ``cos_rn``)."""
+    return torch.atan2(y.double(), x.double()).float()
+
+
+def true_div(a, b) -> torch.Tensor:
+    """``a / b`` rounded once, as IEEE (and JAX outside jit) divides, where
+    one side is a Python number: PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal, and ``number / tensor`` is
+    ``reciprocal(tensor) * number`` on every device; a 0-dim tensor on the
+    other operand's device divides exactly."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full((), a, dtype=b.dtype, device=b.device)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((), b, dtype=a.dtype, device=a.device)
+    return torch.div(a, b)
+
+
 def dotnet_round(x: torch.Tensor) -> torch.Tensor:
     """.NET MathF.Round: round half to even (VectorEx.ToRoundPoint,
     OccGridMap.cs:127,134).  ``torch.round`` rounds half to even."""

@@ -1,3 +1,3 @@
-from . import fleet, hector
+from . import coreslam, fleet, graph_slam, hector
 
-__all__ = ["fleet", "hector"]
+__all__ = ["coreslam", "fleet", "graph_slam", "hector"]

@@ -54,20 +54,50 @@ JAX's ``pallas`` kernels run only interpreted on the CPU) are the JAX
 package on the same log and flow, from ``scripts/torch_port_ref_ate.py
 --graph --mode {gather,onehot_full}``.  A mode passes the bench's relative
 gate (``graph_gate``, ``bench.py:689-701``) against its reference.
+
+The office loop of ``bench.py:303-431``, graph-SLAM against Hector alone
+under drifting odometry on a 200-px map that the tour outruns:
+
+  * ``make_office_log``: OFFICE_BOOTSTRAP still scans at the tour's start,
+    then two laps of the office's rooms (689 scans), 400 beams to 10 m with
+    the uniform grid noise and Gaussian range error;
+  * ``office_odometry``: ``drifting_odometry`` along the truth and its
+    deltas, the heading's wrapped;
+  * ``office_replay``: Hector alone or graph-SLAM, each scan hinted with the
+    match pose plus the odometry delta; the first OFFICE_BOOTSTRAP scans
+    forced, and a forced scan's pose then set to the odometry;
+  * ``office_metrics`` / ``office_gate``: the bench's ``office_*`` numbers
+    and its graph gate against ``OFFICE_JAX_REF_*`` (``scripts/
+    torch_port_ref_ate.py --office``).
+
+CoreSLAM's flow of ``bench.py:825-875``: ``coreslam_replay`` runs
+``models.coreslam.update_cloud`` over every scan of ``make_log(0)``, the
+state's own pose as the odometry, in ``coreslam_parity_config`` (Monte-Carlo
+with 4096 candidates, line updates) or ``coreslam_production_config``
+(correlative search, dense fills); its ATE is over every scan.
+``CORESLAM_JAX_REF_ATE_M`` (production, from the true start),
+``CORESLAM_JAX_REF_ATES_M`` (production, from starts nudged by
+``CORESLAM_NUDGES`` ulps) and ``CORESLAM_PARITY_JAX_REF_ATES_M`` (parity
+under ``PRNGKey(1..9)``) come from ``scripts/torch_port_ref_ate.py
+--coreslam``; ``coreslam_gate`` holds the port's medians to them.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from .core.config import HectorConfig, PoseGraphConfig, SimConfig
+from .core.config import (CoreSlamConfig, HectorConfig, PoseGraphConfig,
+                          SimConfig)
 from .core.scan import Scan
 from .graph.frontend import ScanMatchConfig
-from .models import fleet, graph_slam, hector
-from .sim import default_field, revolution_angles, scan_revolution
-from .sim.trajectory import loop_trajectory, rect_revisit_trajectory
+from .io.datasets import drifting_odometry
+from .models import coreslam, fleet, graph_slam, hector
+from .sim import default_field, office_field, revolution_angles, scan_revolution
+from .sim.trajectory import (loop_trajectory, office_tour_trajectory,
+                             rect_revisit_trajectory)
 
 N_SCANS = 512
 BOOTSTRAP = 10
@@ -419,4 +449,284 @@ def graph_gate(got: dict, ref: dict) -> list:
     if not got["max_err_m"] <= ref["max_err_m"] + 0.01:
         fails.append(f"max error {got['max_err_m']} > {ref['max_err_m']} "
                      "+ 0.01")
+    return fails
+
+
+OFFICE_SEED = 3
+OFFICE_ODOM_SEED = 7
+OFFICE_BOOTSTRAP = 10
+OFFICE_MAX_RANGE = 10.0
+OFFICE_RANGE_ERROR_STD = 0.03
+# JAX package office loop (bench.py:318-431's flow) on make_office_log(3),
+# JAX 0.9.0 on the CPU: `python scripts/torch_port_ref_ate.py --office`
+# printed "office": {"scans": 689, "keyframes": 163, "loop_closures": 90,
+# "hector_only_ate_m": 0.7140489655678758, "graph_online_ate_m":
+# 0.3533984469755533, "kf_hector_ate_m": 0.7134320150461234,
+# "kf_optimized_ate_m": 0.328027918503473, "closure_margin":
+# 2.1749124839767866, "seconds": 180.4}.
+OFFICE_JAX_REF_KEYFRAMES = 163
+OFFICE_JAX_REF_CLOSURES = 90
+OFFICE_JAX_REF_HECTOR_ONLY_ATE_M = 0.7140489655678758
+OFFICE_JAX_REF_GRAPH_ONLINE_ATE_M = 0.3533984469755533
+OFFICE_JAX_REF_KF_HECTOR_ATE_M = 0.7134320150461234
+OFFICE_JAX_REF_KF_OPTIMIZED_ATE_M = 0.328027918503473
+OFFICE_JAX_REF_CLOSURE_MARGIN = 2.1749124839767866
+
+
+def make_office_log(seed: int = OFFICE_SEED) -> ScanLog:
+    """The bench's office log (``bench.py:318-352``): OFFICE_BOOTSTRAP still
+    poses at the tour's start, then ``office_tour_trajectory(2, 0.25)``
+    (679 poses), NUM_BEAMS-beam revolutions to 10 m with the 0.02 m grid
+    noise and 0.03 m Gaussian range error, simulated on the CPU from
+    ``seed``."""
+    drive = office_tour_trajectory(num_loops=2, step=0.25)
+    traj = np.concatenate([np.tile(drive[0], (OFFICE_BOOTSTRAP, 1)),
+                           drive]).astype(np.float32)
+    angles = revolution_angles(NUM_BEAMS)
+    gen = torch.Generator().manual_seed(seed)
+    radii, valid = scan_revolution(
+        office_field(), torch.from_numpy(traj), torch.from_numpy(angles),
+        OFFICE_MAX_RANGE, SimConfig().measure_error, gen,
+        range_error_std=OFFICE_RANGE_ERROR_STD)
+    return ScanLog(traj, angles, radii.numpy(), valid.numpy(),
+                   OFFICE_BOOTSTRAP)
+
+
+def office_odometry(traj: np.ndarray, seed: int = OFFICE_ODOM_SEED
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(odo, deltas) f32[T, 3] (``bench.py:353-357``): the drifting wheel
+    odometry along ``traj`` (scale 1.02, heading bias 2e-4 a scan, step
+    noise 3 mm, heading noise 1e-3) and its per-scan deltas, the heading
+    wrapped to [-pi, pi)."""
+    odo = drifting_odometry(traj, scale_bias=1.02, heading_bias=0.0002,
+                            step_noise=0.003, heading_noise=0.001, seed=seed)
+    deltas = np.zeros_like(odo)
+    deltas[1:] = odo[1:] - odo[:-1]
+    deltas[:, 2] = (deltas[:, 2] + np.pi) % (2 * np.pi) - np.pi
+    return odo, deltas
+
+
+def office_config(**overrides) -> Tuple[HectorConfig, PoseGraphConfig,
+                                        ScanMatchConfig]:
+    """The office's configuration (``bench.py:359-366``): a 3-level 200-px
+    pyramid at 0.1 m, 7/4/4 iterations, the xy clamp 10 px, max jump 1 m,
+    GN damping 0.1 and the in-map guard at 0.7 (K3 + K4); keyframes every
+    1 m, closures within 4 m; K1's table and K2 at the frontend."""
+    hcfg = HectorConfig(num_levels=3, map_size=200,
+                        estimate_iterations=(7, 4, 4), xy_step_clamp_px=10.0,
+                        max_match_jump=1.0, gn_damping=0.1,
+                        min_match_in_map_frac=0.7).overlay(overrides)
+    return (hcfg, PoseGraphConfig(keyframe_dist=1.0, loop_closure_radius=4.0),
+            ScanMatchConfig(matcher_mode="onehot_bf16", dense_fill=True))
+
+
+class OfficeOut(NamedTuple):
+    poses: torch.Tensor           # f32[T, 3] match pose after each scan
+    keyframe_added: torch.Tensor  # bool[T] (all False for Hector alone)
+
+
+def office_replay(dlog: DeviceLog, odo: torch.Tensor, deltas: torch.Tensor,
+                  hcfg: HectorConfig, gcfg: PoseGraphConfig | None = None,
+                  mcfg: ScanMatchConfig | None = None,
+                  bootstrap: int = OFFICE_BOOTSTRAP, plain: bool = False):
+    """The bench's office replays (``bench.py:369-396``) over ``dlog`` with
+    the odometry ``odo`` and its ``deltas`` (f32[T, 3] on the log's device):
+    Hector alone when ``gcfg`` is None, else graph-SLAM.  Each scan's hint
+    is the match pose plus the scan's delta; the first ``bootstrap`` scans
+    are forced, and a forced scan's match pose is then set to the odometry.
+    Returns the final state (``HectorState`` or ``GraphSlamState``) and the
+    per-scan outputs on the device; ``graph_replay`` is unchanged."""
+    dev = dlog.points.device
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    n = dlog.points.shape[0]
+    if gcfg is None:
+        st = hector.init(hcfg, dlog.traj[0], dev)
+    else:
+        st = graph_slam.init(hcfg, gcfg, dlog.traj[0], dlog.points.shape[1],
+                             dev)
+    poses, kf = [], []
+    for t in range(n):
+        scan = Scan(dlog.points[t], dlog.valid[t], zero)
+        forced = t < bootstrap
+        if gcfg is None:
+            st, _ = hector.update(st, scan, st.match_pose + deltas[t], hcfg,
+                                  forced, plain)
+            if forced:
+                st = st._replace(match_pose=odo[t])
+            poses.append(st.match_pose)
+            continue
+        st = st._replace(hector=st.hector._replace(
+            match_pose=st.hector.match_pose + deltas[t]))
+        st, info = graph_slam.update(st, scan, hcfg, gcfg, mcfg, forced,
+                                     plain)
+        if forced:
+            st = st._replace(hector=st.hector._replace(match_pose=odo[t]))
+        poses.append(st.hector.match_pose)
+        kf.append(info.keyframe_added)
+    keyframes = (torch.stack(kf) if kf else
+                 torch.zeros(n, dtype=torch.bool, device=dev))
+    return st, OfficeOut(torch.stack(poses), keyframes)
+
+
+def office_metrics(traj: np.ndarray, hector_poses: np.ndarray,
+                   graph: graph_slam.GraphSlamState, graph_poses: np.ndarray,
+                   keyframe_added: np.ndarray) -> dict:
+    """The bench's office numbers (``bench.py:408-431``, unrounded, without
+    the rate): keyframes and accepted closures; the RMS position error over
+    every scan of Hector alone and of the graph's live pose; over the
+    keyframes' scans, Hector's error and the optimised keyframe poses'; and
+    the closure margin, Hector's keyframe ATE over the optimised one."""
+    traj = np.asarray(traj, np.float64)
+    he = np.linalg.norm(np.asarray(hector_poses)[:, :2] - traj[:, :2], axis=1)
+    ge = np.linalg.norm(np.asarray(graph_poses)[:, :2] - traj[:, :2], axis=1)
+    n = graph.nodes
+    kf_scans = np.concatenate([[0], np.where(np.asarray(keyframe_added))[0]])
+    kf_scans = kf_scans[:n]
+    opt = graph.graph.poses[:n].cpu().numpy()
+    ate_opt = float(np.sqrt((np.linalg.norm(
+        opt[:, :2] - traj[kf_scans][:, :2], axis=1) ** 2).mean()))
+    ate_hec = float(np.sqrt((he[kf_scans] ** 2).mean()))
+    return {"scans": int(traj.shape[0]), "keyframes": int(n),
+            "loop_closures": int(graph.loop_count),
+            "hector_only_ate_m": float(np.sqrt((he ** 2).mean())),
+            "graph_online_ate_m": float(np.sqrt((ge ** 2).mean())),
+            "kf_hector_ate_m": ate_hec, "kf_optimized_ate_m": ate_opt,
+            "closure_margin": ate_hec / max(ate_opt, 1e-9)}
+
+
+def office_reference() -> dict:
+    """``OFFICE_JAX_REF_*`` as ``office_metrics``' dict."""
+    return {"keyframes": OFFICE_JAX_REF_KEYFRAMES,
+            "loop_closures": OFFICE_JAX_REF_CLOSURES,
+            "hector_only_ate_m": OFFICE_JAX_REF_HECTOR_ONLY_ATE_M,
+            "graph_online_ate_m": OFFICE_JAX_REF_GRAPH_ONLINE_ATE_M,
+            "kf_hector_ate_m": OFFICE_JAX_REF_KF_HECTOR_ATE_M,
+            "kf_optimized_ate_m": OFFICE_JAX_REF_KF_OPTIMIZED_ATE_M,
+            "closure_margin": OFFICE_JAX_REF_CLOSURE_MARGIN}
+
+
+def office_gate(got: dict, ref: dict) -> list:
+    """The bench's graph gate on the office (both dicts as
+    ``office_metrics`` gives them): the same keyframes, at most 2 closures
+    fewer, the optimised keyframe ATE and Hector's ATE within 15%, the
+    closure margin at least 85% of the reference's.  Returns the failed
+    conditions (empty when it holds)."""
+    fails = []
+    if got["keyframes"] != ref["keyframes"]:
+        fails.append(f"keyframes {got['keyframes']} != {ref['keyframes']}")
+    if got["loop_closures"] < ref["loop_closures"] - 2:
+        fails.append(f"closures {got['loop_closures']} < "
+                     f"{ref['loop_closures']} - 2")
+    for k in ("kf_optimized_ate_m", "hector_only_ate_m"):
+        if not got[k] <= 1.15 * ref[k]:
+            fails.append(f"{k} {got[k]} > 1.15 x {ref[k]}")
+    if not got["closure_margin"] >= 0.85 * ref["closure_margin"]:
+        fails.append(f"closure margin {got['closure_margin']} < 0.85 x "
+                     f"{ref['closure_margin']}")
+    return fails
+
+
+# CoreSLAM's ATE over a replay depends on its run's roundings: in both
+# modes a single hole-map cell that an ulp moves early in a replay changes
+# the track for good, and the ATE lands in one of a few basins (production:
+# ~0.052-0.060 m, and 0.137 m on the CPU from the true start; parity:
+# ~0.135, ~0.29, ~0.36 or ~0.44 m, by seed; PERF.md section 6, PR 7).  So
+# a replay is gated by the median over starts moved by a few f32 ulps
+# (production) or over generator seeds (parity), not by one run.
+CORESLAM_NUDGES = (0, 1, -1, 2, -2, 3, -3)
+CORESLAM_SEEDS = tuple(range(1, 10))
+# JAX package CoreSLAM (bench.py:825-875's flow) on make_log(0), all 522
+# scans, JAX 0.9.0 on the CPU: `python scripts/torch_port_ref_ate.py
+# --coreslam --mode production [--nudge k]` printed "ate_m"
+# 0.05689924955368042 from the true start (32.0 s) and, for k = 1, -1, 2,
+# -2, 3, -3, 0.05785324424505234, 0.05399879068136215, 0.051571134477853775,
+# 0.05465003475546837, 0.05420586094260216, 0.06039797142148018; `...
+# --mode parity --seed k` for k = 1..9 printed the ATEs below (5-7 s each),
+# 517 scans searched in every run.
+CORESLAM_JAX_REF_ATE_M = 0.05689924955368042
+CORESLAM_JAX_REF_ATES_M = (0.05689924955368042, 0.05785324424505234,
+                           0.05399879068136215, 0.051571134477853775,
+                           0.05465003475546837, 0.05420586094260216,
+                           0.06039797142148018)
+CORESLAM_PARITY_JAX_REF_ATES_M = (
+    0.2857106924057007, 0.2884749174118042, 0.28854435682296753,
+    0.13695046305656433, 0.13520154356956482, 0.2909611463546753,
+    0.2872900068759918, 0.43696630001068115, 0.28796830773353577)
+
+
+def coreslam_parity_config(**overrides) -> CoreSlamConfig:
+    """bench.py's CoreSLAM parity mode (``bench.py:869``): Monte-Carlo
+    search over 4096 candidates, line hole and obstacle updates."""
+    return CoreSlamConfig(num_candidates=4096).overlay(overrides)
+
+
+def coreslam_production_config(**overrides) -> CoreSlamConfig:
+    """bench.py's CoreSLAM production mode (``bench.py:866-867``): the
+    correlative search (32 headings x 8 x 8 pixel shifts), dense hole and
+    obstacle fills."""
+    return CoreSlamConfig(search_mode="correlative", dense_hole_fill=True,
+                          dense_obstacle_fill=True).overlay(overrides)
+
+
+class CoreSlamOut(NamedTuple):
+    poses: torch.Tensor      # f32[T, 3] pose after each scan
+    searched: torch.Tensor   # bool[T]
+    best_sum: torch.Tensor   # i32[T]
+
+
+def nudged_start(pose: torch.Tensor, ulps: int) -> torch.Tensor:
+    """``pose`` (f32[3]) with its x moved by ``ulps`` float32 ulps, on its
+    device (no host read)."""
+    toward = torch.full((), math.inf if ulps > 0 else -math.inf,
+                        dtype=torch.float32, device=pose.device)
+    x = pose[0]
+    for _ in range(abs(ulps)):
+        x = torch.nextafter(x, toward)
+    return torch.cat([x[None], pose[1:]])
+
+
+def coreslam_replay(dlog: DeviceLog, cfg: CoreSlamConfig, seed: int = 1,
+                    nudge: int = 0
+                    ) -> Tuple[coreslam.CoreSlamState, CoreSlamOut]:
+    """``coreslam.update_cloud`` over every scan of ``dlog`` from a fresh
+    state at its first true pose (its x moved by ``nudge`` f32 ulps), the
+    state's own pose as the odometry (``bench.py:839-846``), the
+    Monte-Carlo draws from a generator seeded with ``seed``.  No host read;
+    the outputs stay on the device."""
+    dev = dlog.points.device
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    st = coreslam.init(cfg, nudged_start(dlog.traj[0], nudge), seed=seed,
+                       device=dev)
+    poses, searched, sums = [], [], []
+    for t in range(dlog.points.shape[0]):
+        st, info = coreslam.update_cloud(
+            st, Scan(dlog.points[t], dlog.valid[t], zero), st.pose, cfg)
+        poses.append(st.pose)
+        searched.append(info.searched)
+        sums.append(info.best_sum)
+    return st, CoreSlamOut(torch.stack(poses), torch.stack(searched),
+                           torch.stack(sums))
+
+
+def coreslam_gate(production_ates, parity_ates, parity_searched,
+                  production_searched, n_scans: int, warmup: int) -> list:
+    """CoreSLAM's gate: the median production ATE over CORESLAM_NUDGES
+    starts at most CORESLAM_JAX_REF_ATE_M + 2e-3; the median parity ATE
+    over CORESLAM_SEEDS at most the largest of JAX's over its nine keys;
+    every replay searched on all scans but the warm-up's.  Returns the
+    failed conditions."""
+    fails = []
+    med = float(np.median(production_ates))
+    if not med <= CORESLAM_JAX_REF_ATE_M + 2e-3:
+        fails.append(f"production median ATE {med} > "
+                     f"{CORESLAM_JAX_REF_ATE_M} + 2e-3")
+    med = float(np.median(parity_ates))
+    if not med <= max(CORESLAM_PARITY_JAX_REF_ATES_M):
+        fails.append(f"parity median ATE {med} > "
+                     f"{max(CORESLAM_PARITY_JAX_REF_ATES_M)}")
+    for name, counts in (("production", production_searched),
+                         ("parity", parity_searched)):
+        if any(c != n_scans - warmup for c in counts):
+            fails.append(f"{name}: scans searched {counts}, want "
+                         f"{n_scans - warmup} each")
     return fails

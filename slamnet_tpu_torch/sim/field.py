@@ -4,7 +4,8 @@ Port of ``slamnet_tpu/sim/field.py``: the world is a set of line segments; a
 ray trace is the closed-form ray/segment intersection over (rays x edges),
 replacing Box2D's World.RayCast (Field.cs:162-182).  The default field is
 CreateDefaultField's exact vertex lists (Field.cs:43-72) at scale 30, offset
-(5, 5), as MainWindow.xaml.cs:97 instantiates it.
+(5, 5), as MainWindow.xaml.cs:97 instantiates it.  ``office_field`` is the
+loop-closure world: four ~18 m rooms joined by 3 m doorways.
 """
 from __future__ import annotations
 
@@ -57,6 +58,37 @@ def default_field(scale: float = 30.0, offset: Tuple[float, float] = (5.0, 5.0),
                   device: torch.device | str = "cpu") -> Field:
     """The reference's default field (Field.cs:43-72 @ MainWindow.xaml.cs:97)."""
     return make_field([OUTER_VERTICES, INNER_VERTICES], scale, offset, device)
+
+
+def _slab(x0: float, x1: float, y0: float, y1: float) -> np.ndarray:
+    """An axis-aligned wall slab as a closed polygon."""
+    return np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32)
+
+
+# The office's walls (meters).  Room A = [W0, C1] x [W0, C1] lies inside a
+# 20 m Hector map ([0, 20] at map_size=200, resolution 0.1) with more than
+# 1 m to spare; rooms B, C and D lie outside it: the world outruns the map.
+OFFICE_OUTER = (0.5, 36.5)       # the outer wall's span
+OFFICE_CROSS = (18.3, 18.7)      # the cross walls' faces (0.4 m thick)
+OFFICE_DOORS = (7.5, 10.5, 26.5, 29.5)   # two 3 m doors in each cross wall
+
+
+def office_field(device: torch.device | str = "cpu") -> Field:
+    """Four ~18 m rooms joined by 3 m doorways: the loop-closure world of
+    ``slamnet_tpu/sim/field.py:83-103``.  A tour of the rooms leaves the
+    20 m benchmark map for most of each lap, so only the pose graph's loop
+    closures against stored keyframe scans can correct the odometry's
+    drift there."""
+    w0, w1 = OFFICE_OUTER
+    c0, c1 = OFFICE_CROSS
+    d0a, d0b, d1a, d1b = OFFICE_DOORS
+    return make_field([
+        np.array([[w0, w0], [w1, w0], [w1, w1], [w0, w1]], np.float32),
+        _slab(w0, d0a, c0, c1), _slab(d0b, d1a, c0, c1),
+        _slab(d1b, w1, c0, c1),
+        _slab(c0, c1, w0, d0a), _slab(c0, c1, d0b, d1a),
+        _slab(c0, c1, d1b, w1),
+    ], 1.0, (0.0, 0.0), device)
 
 
 def ray_cast(field: Field, origin: torch.Tensor, angles: torch.Tensor,

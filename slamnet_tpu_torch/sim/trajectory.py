@@ -5,7 +5,8 @@ Copied from ``slamnet_tpu/sim/trajectory.py`` (importing it would run
 trajectory generator is the user's mouse (MainWindow.xaml.cs:414-465); for a
 deterministic test oracle the robot follows a waypoint path through the free
 space of the default field, rate-limited to HectorSLAM's operating envelope
-(README.md:35-40).
+(README.md:35-40).  ``office_tour_trajectory`` drives the office's rooms
+with straight legs and turns in place (``waypoint_drive_trajectory``).
 """
 from __future__ import annotations
 
@@ -76,3 +77,51 @@ def rect_revisit_trajectory(num_loops: int = 2, speed: float = 0.95,
     pts = list(rect)
     waypoints = np.asarray(pts * num_loops + [pts[0]], np.float32)
     return waypoint_trajectory(waypoints, speed, scan_rate)
+
+
+def stationary_trajectory(pose=(20.0, 20.0, 0.0),
+                          num_scans: int = 50) -> np.ndarray:
+    """The robot standing still at ``pose``: f32[num_scans, 3]."""
+    return np.tile(np.asarray(pose, np.float32), (num_scans, 1))
+
+
+def waypoint_drive_trajectory(waypoints, step: float = 0.25,
+                              turn_step: float = math.radians(10.0)
+                              ) -> np.ndarray:
+    """Drive an open waypoint path: straight legs at ``step`` m a scan,
+    heading changes turned in place at ``turn_step`` rad a scan (each motion
+    inside Hector's envelope) -> poses f32[T, 3]."""
+    pts = [np.asarray(p, np.float64) for p in waypoints]
+    poses = []
+    heading = 0.0
+    pos = pts[0].copy()
+    for target in pts[1:]:
+        d = target - pos
+        target_heading = math.atan2(d[1], d[0])
+        dh = (target_heading - heading + math.pi) % (2 * math.pi) - math.pi
+        while abs(dh) > 1e-6:
+            turn = float(np.clip(dh, -turn_step, turn_step))
+            heading += turn
+            poses.append([pos[0], pos[1], heading])
+            dh -= turn
+        dist = float(np.hypot(*d))
+        n_steps = max(1, int(round(dist / step)))
+        for s in range(1, n_steps + 1):
+            p = pos + d * (s / n_steps)
+            poses.append([p[0], p[1], heading])
+        pos = target.copy()
+    return np.asarray(poses, np.float32)
+
+
+def office_tour_trajectory(num_loops: int = 2,
+                           step: float = 0.25) -> np.ndarray:
+    """The office tour: rooms A -> B -> C -> D -> A through the doors'
+    centres, ``num_loops`` laps, ending inside room A (679 poses at the
+    defaults)."""
+    a, b = (9.5, 9.5), (27.5, 9.5)
+    c, d = (27.5, 27.5), (9.5, 27.5)
+    d_ab, d_bc = (18.5, 9.0), (28.0, 18.5)
+    d_cd, d_da = (18.5, 28.0), (9.0, 18.5)
+    lap = [d_ab, b, d_bc, c, d_cd, d, d_da, a]
+    return waypoint_drive_trajectory([a] + lap * num_loops + [(12.5, 12.5)],
+                                     step=step)

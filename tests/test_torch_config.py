@@ -49,7 +49,11 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.entry, slamnet_tpu_torch.convert, "
             "slamnet_tpu_torch.models.fleet, slamnet_tpu_torch.models.graph_slam, "
             "slamnet_tpu_torch.graph.frontend, slamnet_tpu_torch.graph.posegraph, "
-            "slamnet_tpu_torch.ops.bilinear; "
+            "slamnet_tpu_torch.ops.bilinear, slamnet_tpu_torch.io.datasets, "
+            "slamnet_tpu_torch.models.coreslam, slamnet_tpu_torch.ops.score, "
+            "slamnet_tpu_torch.ops.correlate, slamnet_tpu_torch.ops.holemap, "
+            "slamnet_tpu_torch.ops.obstacle, slamnet_tpu_torch.sim.field, "
+            "slamnet_tpu_torch.sim.trajectory; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
