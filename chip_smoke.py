@@ -158,7 +158,47 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 scans 20-39),
                 scans/s (the best of the 3 replays after the first), a
                 repeat of the first replay giving its poses bit for bit.
-Phases 17-19 print their seconds.
+ 20. exit     — the fleet's batch-wide early exit (JAX's fleet.py:154-172:
+                a level stops only when no robot moved more than the
+                tolerance; every robot runs the shared count): K5 (K1's
+                onehot_bf16 table) and the batched K3 against their plain
+                versions on the bootstrapped 64-robot fleets at tol 1e-3 and
+                0.3 px and the 3 exit hints: the same shared count, one per
+                batch; the answers of a fixed launch whose per-level counts
+                sum to it, bit for bit, as the plain version's exit is its
+                fixed loop's; equal solve failures; robot 5 with no valid
+                beam at its hint; at 1e-3 (converged) pose within 2e-3 /
+                K3_POSE_TOL and residual within rtol 0.05 / K3_RESID_RTOL,
+                at 0.3 px (stopped short, the exit firing) the pose error
+                reported; at a tolerance no step meets (1e-18) equal to the
+                tol-0 launch bit for bit; B = 300 (the fleet repeated) and
+                B = 5000 on a 64/32/16-px pyramid, each equal bit for bit to
+                the B = 64 launch it repeats, with the plain version's
+                counts; device times (CUDA graph) beside the tol-0 launch;
+ 21. rows     — bench.py's other fleet rows (sub4, sub4_onehot,
+                sub4_onehot_cap8, sub4_onehot_cap32) and the exit rows
+                sub1_exit and sub4_onehot_exit, 64 robots x (10 + 64)
+                batch-scans each: 74 launches of the row's match (and of the
+                exit) and 74 of the batched K4, none of any other kernel,
+                replay.fleet_row_gate against FLEET_ROW_JAX_REFS, at most
+                the cap's updates a batch-scan in the capped rows, the exit
+                rows' GN iterations equal to JAX's; instance-scans/s; the
+                bench's headline rule (bench.py:540-543) over every row;
+ 22. particle ops — one particle step of each bench mode at 8192 particles
+                on the card and on the CPU from one state (40 scans of the
+                exact replay) with one set of draws: particles, scores and
+                map cells that differ counted, the same resample decision;
+                device us of the 8192 x 400 score, the 4096 x 400 refine,
+                the grid, the resample and each mode's step;
+ 23. particle — the 522 loop scans at 8192 particles in exact and
+                grid_dense under generator seeds 1-9: replay.particle_gate
+                (each median <= the worst of JAX's nine, grid_dense <= exact
+                + 0.02 m), max errors, resamples, no host read in a replay
+                (the first of each mode under CUDA's sync debug mode
+                "error"), a repeat of each mode's first replay giving its
+                poses bit for bit, scans/s; sub4, grid and grid_small one
+                seed each, reported.
+Phases 17-23 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -171,6 +211,7 @@ Hector launches (one a scan): the loop searches'.  Phases 3 and 10 print
 K1's and K3's answers at their hints as f32 bits, to compare two trees' runs.
 """
 import inspect
+import itertools
 import json
 import subprocess
 import sys
@@ -267,20 +308,22 @@ def cells_read(maps, points, valid, hints, cfg):
         row0 = inst + cfg.level_offsets[level]
         est = torch.stack([pose[:, 0] * scale, pose[:, 1] * scale, pose[:, 2]],
                           dim=1)
-        live = torch.ones(b, dtype=torch.bool, device=maps.device)
+        live = True     # the batch-wide rule: one flag for every instance
         for _ in range(cfg.estimate_iterations[level]):
+            if not live:                            # the iterations that run
+                break
             sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
             base = row0 + (yi * w + xi).long()
             idx = torch.stack([base, base + 1, base + w, base + w + 1])
-            seen.append(idx[:, live].reshape(-1))   # the iterations that run
+            seen.append(idx.reshape(-1))
             new = _gn_tail(torch.sigmoid(table[idx]), mx, my, xi, yi, ok, X,
                            Y, sr, cr, est, cfg.deriv_clamp,
                            cfg.xy_step_clamp_px, cfg.gn_damping)[0]
             d = new - est
-            est = torch.where(live[:, None], new, est)
+            est = new
             if tol2 > 0.0:
-                live = live & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                               + d[:, 2] * d[:, 2] > tol2)
+                live = bool((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                             + d[:, 2] * d[:, 2]).max() > tol2)
         pose = torch.stack([est[:, 0] / scale, est[:, 1] / scale,
                             normalize_angle(est[:, 2])], dim=1)
     return torch.unique(torch.cat(seen))
@@ -427,7 +470,9 @@ def main() -> int:
     from slamnet_tpu_torch import replay
     from slamnet_tpu_torch.core.scan import Scan
     from slamnet_tpu_torch.graph import frontend, posegraph
-    from slamnet_tpu_torch.models import coreslam, fleet, graph_slam, hector
+    from slamnet_tpu_torch import convert
+    from slamnet_tpu_torch.models import (coreslam, fleet, graph_slam, hector,
+                                          particle)
     from slamnet_tpu_torch.ops import _build, correlate, fill, holemap, match
     from slamnet_tpu_torch.ops import line as line_ops
     from slamnet_tpu_torch.ops import obstacle
@@ -1379,11 +1424,13 @@ def main() -> int:
             f.launches = 0
         match.match.launches_f32 = 0
         match.match_batch.launches_f32 = 0
+        match.match_batch.exit_launches = 0
 
     def read_counts():
         got = {k: f.launches for k, f in counted.items()}
         got["match_f32"] = match.match.launches_f32
         got["match_batch_f32"] = match.match_batch.launches_f32
+        got["match_batch_exit"] = match.match_batch.exit_launches
         return got
 
     xst0 = replay.bootstrap(hector.init(xcfg, log.traj[0], dev), dlog,
@@ -1498,7 +1545,7 @@ def main() -> int:
     # default candidate onehot_bf16_dense replayed through K1 with the exit
     ecfg = replay.onehot_bf16_dense_config()
     x_exit = xcfg.overlay({"early_exit_tol": EXIT_TOL})
-    exit_err, exit_iters = 0.0, {}
+    k1_exit_err, exit_iters = 0.0, {}
     exit_before = (match.match.launches, match.match.launches_f32)
     for name, c0, m in (("K1", ecfg, maps), ("K3", x_exit, xmaps)):
         sc = scan if name == "K1" else xscan
@@ -1516,7 +1563,7 @@ def main() -> int:
                                 c.overlay({"early_exit_tol": 0.0}))
             ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
             err = float(np.abs(ok_[:3] - op[:3]).max())
-            exit_err = max(exit_err, err)
+            k1_exit_err = max(k1_exit_err, err)
             check(np.isfinite(ok_).all(), f"{name} exit output not finite")
             check(err <= K3_POSE_TOL, f"{name} exit pose {ok_[:3]} vs plain "
                   f"{op[:3]} (tol {K3_POSE_TOL})")
@@ -1583,7 +1630,7 @@ def main() -> int:
     te_plain = best_exit(True)
     say(f"[exit] K1's table and K3 with early_exit_tol {EXIT_TOL} at "
         f"{len(EXIT_HINTS)} hints agree with their plain versions: max |pose "
-        f"err| {exit_err:.3g} (tol {K3_POSE_TOL}), equal iterations run "
+        f"err| {k1_exit_err:.3g} (tol {K3_POSE_TOL}), equal iterations run "
         f"{exit_iters} (15 without the exit; the last {len(EXIT_HINTS)} at "
         f"tol {EXIT_TOL_FIRES}), equal solve failures; device "
         f"K1 {k1x_ms:.4f} ms vs plain {k1x_plain_ms:.4f} (bound "
@@ -2208,6 +2255,382 @@ def main() -> int:
         f"{time.perf_counter() - t19:.1f} s")
     check(not cfails, f"CoreSLAM gate vs JAX: {cfails}")
 
+    # ---- 20. the fleet's batch-wide early exit: K5 and the batched K3 -----
+    t20 = time.perf_counter()
+    x5cfg = fcfg.overlay({"matcher_mode": "onehot_bf16"})    # K5's table
+    exit_err = {"K5": 0.0, "K3": 0.0}        # at bench's 1e-3: converged
+    exit_err_fires = {"K5": 0.0, "K3": 0.0}  # at 0.3 px: stopped early
+    exit_counts = {"K5": [], "K3": []}
+    exit_levels = {"K5": [], "K3": []}
+
+    def exit_case(name, maps_, cfg0, pts, val, hints, empty=None,
+                  levels=False):
+        """One batch-wide exit launch against its plain version: the same
+        shared count on every robot; at bench's tolerance (converged
+        matches) the pose, failures and residual within the kernel's bounds;
+        with ``levels``, the per-level counts: some fixed launch whose
+        iterations a level sum to the shared count gives the exit's answers
+        bit for bit, and so does the plain version's fixed loop at those
+        counts.  Returns the kernel's output and the |pose err| vs plain."""
+        ok_ = match.match_batch(maps_, pts, val, hints, cfg0)
+        op = match.match_batch_plain(maps_, pts, val, hints, cfg0)
+        k, pl = ok_.cpu().numpy(), op.cpu().numpy()
+        pose_tol, rtol = ((K3_POSE_TOL, K3_RESID_RTOL) if name == "K3"
+                          else (2e-3, 0.05))
+        check(np.isfinite(k).all(), f"{name} exit output not finite")
+        check((k[:, 6] == k[0, 6]).all() and (k[:, 6] == pl[:, 6]).all(),
+              f"{name} exit: iterations {np.unique(k[:, 6])} vs plain "
+              f"{np.unique(pl[:, 6])}: not one shared count")
+        err = float(np.abs(k[:, :3] - pl[:, :3]).max())
+        check((k[:, 3] == pl[:, 3]).all(), f"{name} exit solve failures")
+        if cfg0.early_exit_tol <= EXIT_TOL:
+            exit_err[name] = max(exit_err[name], err)
+            check(err <= pose_tol, f"{name} exit pose vs plain: {err} (tol "
+                  f"{pose_tol})")
+            res_k = k[:, 4] / np.maximum(k[:, 5], 1.0)
+            res_p = pl[:, 4] / np.maximum(pl[:, 5], 1.0)
+            check((np.abs(res_k - res_p) <= rtol * np.abs(res_p)).all(),
+                  f"{name} exit residual vs plain (rtol {rtol})")
+        if empty is not None:
+            check(torch.equal(ok_[empty, :3], hints[empty]),
+                  f"{name} exit: robot {empty} with no valid beam moved")
+        if levels:
+            its = cfg0.estimate_iterations[:cfg0.num_levels]
+            for c in itertools.product(*(range(1, n + 1) for n in its)):
+                if sum(c) != int(k[0, 6]):
+                    continue
+                fc = cfg0.overlay({"early_exit_tol": 0.0,
+                                   "estimate_iterations": c})
+                if torch.equal(match.match_batch(maps_, pts, val, hints, fc),
+                               ok_):
+                    check(torch.equal(match.match_batch_plain(
+                        maps_, pts, val, hints, fc), op),
+                          f"{name} exit: the plain version's exit differs "
+                          f"from its fixed loop at {c}")
+                    exit_levels[name].append(c)
+                    break
+            else:
+                check(False, f"{name} exit tol {cfg0.early_exit_tol}: no "
+                      f"fixed launch of {int(k[0, 6])} iterations gives its "
+                      "answers")
+        return ok_, err
+
+    exit_before = match.match_batch.exit_launches
+    exit_calls = 0
+    x_out = {}
+    for name, maps_, c0 in (("K5", fmaps, x5cfg), ("K3", smaps, scfg)):
+        for tol in (EXIT_TOL, EXIT_TOL_FIRES):
+            c = c0.overlay({"early_exit_tol": tol})
+            for off in EXIT_HINTS:
+                hints = (ftruth + torch.tensor(off, device=dev)).contiguous()
+                o, err = exit_case(name, maps_, c, fpts, fval, hints,
+                                   empty_inst, levels=True)
+                exit_calls += 1
+                if tol == EXIT_TOL_FIRES:
+                    exit_err_fires[name] = max(exit_err_fires[name], err)
+                exit_counts[name].append(int(o[0, 6]))
+                x_out[(name, tol, off)] = o
+        check(min(exit_counts[name][len(EXIT_HINTS):]) < 15,
+              f"{name}: the exit at {EXIT_TOL_FIRES} px never fired: "
+              f"{exit_counts[name]}")
+        # at a tolerance no step meets, the per-level launches and their
+        # carried state give the single launch's answers bit for bit
+        c = c0.overlay({"early_exit_tol": 1e-18})
+        o = match.match_batch(maps_, fpts, fval, fhints, c)
+        exit_calls += 1
+        fixed = match.match_batch(maps_, fpts, fval, fhints, c0)
+        check(torch.equal(o, fixed), f"{name}: the exit at 1e-18 differs from "
+              f"the tol-0 launch ({int((o != fixed).sum())} numbers)")
+    # B = 300: the fleet repeated; the batch's maximum is the fleet's, so
+    # every row is its B = 64 twin's bit for bit
+    rep300 = torch.arange(big, device=dev) % fb
+    pts300, val300 = fpts[rep300].contiguous(), fval[rep300].contiguous()
+    for name, maps_, c0 in (("K5", fmaps, x5cfg), ("K3", smaps, scfg)):
+        m300 = maps_.view(fb, cells)[rep300].reshape(-1)
+        for tol in (EXIT_TOL, EXIT_TOL_FIRES):
+            c = c0.overlay({"early_exit_tol": tol})
+            off = EXIT_HINTS[0]
+            hints = (ftruth + torch.tensor(off, device=dev))[rep300]
+            o, _ = exit_case(name, m300, c, pts300, val300,
+                             hints.contiguous())
+            exit_calls += 1
+            check(torch.equal(o, x_out[(name, tol, off)][rep300]),
+                  f"{name} exit B={big} tol {tol}: differs from B={fb}")
+        del m300
+    # B = 5000 on a 64/32/16-px pyramid (no co-residency limit): 64 robots
+    # bootstrapped at that size, repeated
+    small_px = {"map_size": 64, "map_resolution": 0.8}
+    rep5k = torch.arange(huge, device=dev) % fb
+    pts5k, val5k = fpts[rep5k].contiguous(), fval[rep5k].contiguous()
+    exit_5k_ms = {}
+    for name, c0 in (("K5", x5cfg), ("K3", scfg)):
+        c64 = c0.overlay(small_px)
+        st64 = replay.fleet_bootstrap(fleet.init_fleet(
+            c64.overlay({"early_exit_tol": 0.0}), flog.traj[0], dev), fdlog,
+            boot, c64.overlay({"early_exit_tol": 0.0}))
+        m5k = st64.maps.view(fb, c64.total_cells)[rep5k].reshape(-1)
+        h64 = (ftruth + torch.tensor(EXIT_HINTS[0], device=dev)).contiguous()
+        for tol in (EXIT_TOL, EXIT_TOL_FIRES):
+            c = c64.overlay({"early_exit_tol": tol})
+            o64, _ = exit_case(name, st64.maps, c, fpts, fval, h64,
+                               empty_inst, levels=True)
+            o, _ = exit_case(name, m5k, c, pts5k, val5k,
+                             h64[rep5k].contiguous())
+            exit_calls += 2
+            check(torch.equal(o, o64[rep5k]),
+                  f"{name} exit B={huge} tol {tol}: differs from B={fb}")
+        h5k = h64[rep5k].contiguous()
+        timed0 = match.match_batch.exit_launches   # timing calls: not counted
+        exit_5k_ms[name] = {
+            "exit": graph_ms(torch, lambda c=c64.overlay(
+                {"early_exit_tol": EXIT_TOL_FIRES}): match.match_batch(
+                    m5k, pts5k, val5k, h5k, c), REPS_PLAIN),
+            "tol0": graph_ms(torch, lambda: match.match_batch(
+                m5k, pts5k, val5k, h5k, c64), REPS_PLAIN)}
+        exit_before += match.match_batch.exit_launches - timed0
+        del m5k, st64
+    torch.cuda.synchronize()
+    check(match.match_batch.exit_launches - exit_before == exit_calls,
+          f"exit launch count rose by "
+          f"{match.match_batch.exit_launches - exit_before}, want {exit_calls}")
+    # device times at B = 64 (CUDA graph) beside the tol-0 launch
+    exit_ms, exit_plain_ms, exit_bound = {}, {}, {}
+    for name, maps_, c0 in (("K5", fmaps, x5cfg), ("K3", smaps, scfg)):
+        for tol in (EXIT_TOL, EXIT_TOL_FIRES):
+            c = c0.overlay({"early_exit_tol": tol})
+            exit_ms[(name, tol)] = graph_ms(torch, lambda c=c, m=maps_:
+                                            match.match_batch(
+                                                m, fpts, fval, fhints, c),
+                                            REPS_KERNEL)
+            exit_plain_ms[(name, tol)] = graph_ms(
+                torch, lambda c=c, m=maps_: match.match_batch_plain(
+                    m, fpts, fval, fhints, c), REPS_PLAIN)
+            its = int(match.match_batch_plain(maps_, fpts, fval, fhints,
+                                              c)[0, 6])
+            exit_bound[(name, tol)] = bound(*match_work(
+                maps_, fpts, fval, fhints, c, its))
+    say(f"[exit] the fleet's batch-wide exit, K5 (onehot_bf16 table) and the "
+        f"batched K3, {fb} robots x {len(EXIT_HINTS)} hints x tol "
+        f"({EXIT_TOL}, {EXIT_TOL_FIRES}) agree with the plain version: one "
+        f"shared count per batch, equal to the plain version's (K5 "
+        f"{exit_counts['K5']}, K3 {exit_counts['K3']}; 15 without the exit), "
+        f"each the answers of a fixed launch at per-level counts (K5 "
+        f"{exit_levels['K5']}, K3 {exit_levels['K3']}) bit for bit, as the "
+        f"plain version's; at {EXIT_TOL} max |pose err| K5 "
+        f"{exit_err['K5']:.3g} (tol 2e-3), K3 {exit_err['K3']:.3g} (tol "
+        f"{K3_POSE_TOL}), at {EXIT_TOL_FIRES} (stopped short of "
+        f"convergence, reported) K5 {exit_err_fires['K5']:.3g}, K3 "
+        f"{exit_err_fires['K3']:.3g}; equal solve failures, "
+        f"robot {empty_inst} at its hint; at tol 1e-18 equal to the tol-0 "
+        f"launch bit for bit; B = {big} and B = {huge} ({small_px['map_size']}"
+        f"/32/16 px) equal their B = {fb} twins bit for bit; "
+        f"{exit_calls} exit launches; device ms/batch (CUDA graph) "
+        + ", ".join(f"{n} tol {t}: {v:.4f} vs plain "
+                    f"{exit_plain_ms[(n, t)]:.4f} (bound "
+                    f"{exit_bound[(n, t)][0]:.6f} by "
+                    f"{exit_bound[(n, t)][1]})"
+                    for (n, t), v in exit_ms.items())
+        + f"; tol 0: K5 {k5_ms:.4f}, K3 {k3b_ms:.4f}; B = {huge}: "
+        + ", ".join(f"{n} exit {v['exit']:.4f} vs tol-0 {v['tol0']:.4f}"
+                    for n, v in exit_5k_ms.items())
+        + f"; {time.perf_counter() - t20:.1f} s")
+
+    # ---- 21. the bench's other fleet rows and the exit rows, end to end ----
+    t21 = time.perf_counter()
+    row_names = ("sub4", "sub4_onehot", "sub4_onehot_cap8",
+                 "sub4_onehot_cap32", "sub1_exit", "sub4_onehot_exit")
+    rows = {}
+    for rname in row_names:
+        rc = replay.FLEET_MODES[rname]()
+        zero_counts()
+        rst = replay.fleet_bootstrap(fleet.init_fleet(rc, flog.traj[0], dev),
+                                     fdlog, boot, rc)
+        st = rst._replace(maps=rst.maps.clone())
+        rposes, riters, rupd = [], [], []
+        for t in range(boot, nb):
+            st, info = fleet.update_fleet(st, fdlog.points[t], fdlog.valid[t],
+                                          rc)
+            rposes.append(st.match_pose)
+            riters.append(info.gn_iterations)
+            rupd.append(info.map_updated)
+        torch.cuda.synchronize()
+        rl = read_counts()
+        want = dict.fromkeys(rl, 0)
+        mkey = "match_batch_f32" if match.table_f32(rc) else "match_batch"
+        want.update({mkey: nb, "line_batch": nb})
+        if rc.early_exit_tol > 0.0:
+            want["match_batch_exit"] = nb
+        check(rl == want, f"launches in the {rname} fleet flow: {rl}, want "
+              f"{want}")
+        rp = torch.stack(rposes).cpu().numpy()
+        check(rp.shape == (nt, fb, 3) and np.isfinite(rp).all(),
+              f"{rname} poses")
+        its = torch.stack(riters).cpu().numpy()
+        check((its == its[:, :1]).all(), f"{rname}: iterations not shared")
+        upd = torch.stack(rupd).cpu().numpy()
+        if rc.fleet_update_capacity < fb:
+            check(upd.sum(axis=1).max() <= rc.fleet_update_capacity,
+                  f"{rname}: more than {rc.fleet_update_capacity} updates in "
+                  "a batch-scan")
+        rate = []
+        for _ in range(TIMED_REPLAYS):
+            t = time.perf_counter()
+            fleet.replay_fleet(rst, fdlog.points[boot:], fdlog.valid[boot:],
+                               rc)
+            torch.cuda.synchronize()
+            rate.append(iscans / (time.perf_counter() - t))
+        got = (*replay.fleet_ate_of(rp, flog.traj[boot:]),
+               int(its[:, 0].sum()))
+        rows[rname] = {"ate_m": got[0], "max_err_m": got[1],
+                       "ate_median_m": got[2], "gn_iterations": got[3],
+                       "map_updates": int(upd.sum()),
+                       "instance_scans_per_s": max(rate),
+                       "launches": {k: v for k, v in rl.items() if v},
+                       "fails": replay.fleet_row_gate(rname, got)}
+    headline_rows = {n: (r["instance_scans_per_s"], r["ate_m"])
+                     for n, r in rows.items()}
+    headline_rows["sub1"] = (iscans / ts_kernel, sate)
+    headline_rows["sub4_pallas_dense"] = (iscans / tf_kernel, fate)
+    pick, hbound = replay.fleet_headline(headline_rows)
+    for rname, r in rows.items():
+        ref = replay.FLEET_ROW_JAX_REFS[rname]
+        say(f"[rows] {rname}: RMS ATE {r['ate_m']:.6f} m (JAX {ref[0]:.6f}), "
+            f"max err {r['max_err_m']:.4f} (JAX {ref[1]:.4f}), median "
+            f"instance ATE {r['ate_median_m']:.6f} (JAX {ref[2]:.6f}), GN "
+            f"iterations {r['gn_iterations']} (JAX {ref[3]}), map updates "
+            f"{r['map_updates']}, launches {r['launches']} (all others 0); "
+            f"{r['instance_scans_per_s']:.1f} instance-scans/s (best of "
+            f"{TIMED_REPLAYS})"
+            + (f"; FAILS {r['fails']}" if r["fails"] else ""))
+    say(f"[rows] bench.py:540-543's headline rule (fastest row with RMS ATE "
+        f"<= 2 x sub1's = {hbound:.6f} m): {pick} at "
+        f"{headline_rows[pick][0]:.1f} instance-scans/s; rows "
+        + ", ".join(f"{n} {v[0]:.1f}/s {v[1]:.6f} m"
+                    for n, v in headline_rows.items())
+        + f"; {time.perf_counter() - t21:.1f} s")
+    for rname, r in rows.items():
+        check(not r["fails"], f"{rname} fleet row vs JAX: {r['fails']}")
+
+    # ---- 22. the particle layer's ops: the card against the CPU ------------
+    t22 = time.perf_counter()
+    e_ccfg, e_pcfg = replay.PARTICLE_MODES["exact"]
+    pst = particle.init(e_ccfg, e_pcfg, cdl.traj[0], seed=1, device=dev)
+    for t in range(40):
+        pst, _ = particle.update(pst, Scan(cdl.points[t], cdl.valid[t], zero3),
+                                 pst.pose, e_ccfg, e_pcfg)
+    parrays = convert.particle_state_to_numpy(pst)
+    pscan = {"cuda": Scan(cdl.points[40], cdl.valid[40], zero3),
+             "cpu": Scan(cdl.points[40].cpu(), cdl.valid[40].cpu(),
+                         zero3.cpu())}
+    pdiff, pus = {}, {}
+    for pmode, (ccfg_m, pcfg_m) in replay.PARTICLE_MODES.items():
+        states = {d: convert.particle_state_from_numpy(**parrays, device=d)
+                  for d in ("cuda", "cpu")}
+        noise_cpu = particle.draw(states["cpu"]._replace(
+            generator=torch.Generator().manual_seed(7)), ccfg_m, pcfg_m)
+        noise = {"cpu": noise_cpu, "cuda": particle.ParticleNoise(
+            *(x.to(dev) for x in noise_cpu))}
+        outs = {d: particle.step(states[d], pscan[d], states[d].pose,
+                                 noise[d], ccfg_m, pcfg_m) for d in states}
+        (gs, gi), (cs, ci) = outs["cuda"], outs["cpu"]
+        g_np, c_np = (convert.particle_state_to_numpy(x) for x in (gs, cs))
+        check(all(np.isfinite(g_np[k]).all() for k in ("particles", "pose")),
+              f"particle {pmode}: not finite on the card")
+        check(bool(gi.resampled) == bool(ci.resampled),
+              f"particle {pmode}: the card and the CPU resample differently")
+        pdiff[pmode] = {
+            "particles": int((np.abs(g_np["particles"] - c_np["particles"])
+                              .max(axis=1) > 0).sum()),
+            "scores": int((g_np["scores"] != c_np["scores"]).sum()),
+            "hole_cells": int((g_np["hole_map"] != c_np["hole_map"]).sum()),
+            "obstacle_cells": int((g_np["obstacle_map"]
+                                   != c_np["obstacle_map"]).sum()),
+            "pose_err": float(np.abs(g_np["pose"] - c_np["pose"]).max()),
+            "ess_rel": float(abs(float(gi.ess) - float(ci.ess))
+                             / float(ci.ess))}
+        stc = states["cuda"]
+        pus[f"step_{pmode}"] = op_us(lambda s=stc, n=noise["cuda"], c=ccfg_m,
+                                     q=pcfg_m: particle.step(
+                                         s, pscan["cuda"], s.pose, n, c, q))
+    stc = convert.particle_state_from_numpy(**parrays, device=dev)
+    sc = pscan["cuda"]
+    pus["score_8192x400"] = op_us(lambda: particle._score(
+        stc, e_ccfg, sc.points, sc.valid, stc.particles))
+    ref_poses = stc.particles[:e_pcfg.top_k * e_pcfg.refine_candidates]
+    pus["refine_4096x400"] = op_us(lambda: particle._score(
+        stc, e_ccfg, sc.points, sc.valid, ref_poses))
+    g_ccfg = replay.PARTICLE_MODES["grid_dense"][0]
+    pus["grid"] = op_us(lambda: particle._grid_score(
+        stc, g_ccfg, sc, stc.pose, stc.particles))
+    u0 = torch.full((), 0.37, device=dev)
+    pus["resample"] = op_us(lambda: particle.resample(
+        stc.particles, stc.scores, sc.valid, u0, e_pcfg.resample_ess_frac))
+    say(f"[particle ops] one step of each mode at {e_pcfg.num_particles} "
+        f"particles from the state after 40 exact scans, one set of draws, "
+        f"the card against the CPU: differing "
+        + "; ".join(f"{m} {d}" for m, d in pdiff.items())
+        + "; the same resample decision in every mode; device us "
+        + ", ".join(f"{k} {v:.1f}" for k, v in pus.items())
+        + f"; {time.perf_counter() - t22:.1f} s")
+
+    # ---- 23. the particle replays: exact and grid_dense under 9 seeds -----
+    t23 = time.perf_counter()
+    cn = cdl.points.shape[0]
+    prun = {}
+    for pmode in ("exact", "grid_dense", "sub4", "grid", "grid_small"):
+        ccfg_m, pcfg_m = replay.PARTICLE_MODES[pmode]
+        seeds = (replay.PARTICLE_SEEDS if pmode in ("exact", "grid_dense")
+                 else replay.PARTICLE_SEEDS[:1])
+        ms, secs = [], []
+        for i, seed in enumerate(seeds):
+            torch.cuda.synchronize()
+            if i == 0:    # no host read in a replay: syncs raise here
+                torch.cuda.set_sync_debug_mode("error")
+            tt = time.perf_counter()
+            try:
+                _, pout = replay.particle_replay(cdl, ccfg_m, pcfg_m, seed)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - tt)
+            check(bool(torch.isfinite(pout.poses).all()),
+                  f"particle {pmode} seed {seed}: poses not finite")
+            ms.append(replay.particle_metrics(pout, clog.traj))
+            if i == 0:
+                first = pout.poses
+        # a replay repeats bit for bit: the draws, the scores, the exact CDF
+        _, again = replay.particle_replay(cdl, ccfg_m, pcfg_m, seeds[0])
+        check(torch.equal(again.poses, first), f"particle {pmode}: a second "
+              f"replay of seed {seeds[0]} gave other poses")
+        ates = [m["ate_m"] for m in ms]
+        prun[pmode] = {"ates_m": ates, "median_ate_m": float(np.median(ates)),
+                       "max_err_m": [m["max_err_m"] for m in ms],
+                       "resamples": [m["resamples"] for m in ms],
+                       "scans_per_s": cn / min(secs[1:] or secs)}
+    pfails = replay.particle_gate(prun["exact"]["ates_m"],
+                                  prun["grid_dense"]["ates_m"])
+    for pmode, r in prun.items():
+        ref = {"exact": replay.PARTICLE_JAX_REF_ATES_M,
+               "grid_dense": replay.PARTICLE_GRID_DENSE_JAX_REF_ATES_M}.get(
+                   pmode)
+        say(f"[particle] {pmode} replays of {cn} scans at "
+            f"{replay.PARTICLE_MODES[pmode][1].num_particles} particles, "
+            f"seeds {list(replay.PARTICLE_SEEDS[:len(r['ates_m'])])}: ATE "
+            + " ".join(f"{x:.6f}" for x in r["ates_m"])
+            + f" m (median {r['median_ate_m']:.6f}"
+            + (f"; JAX median {float(np.median(ref)):.6f}, worst "
+               f"{max(ref):.6f}" if ref else "")
+            + f"), max err {' '.join(f'{x:.4f}' for x in r['max_err_m'])}, "
+            f"resamples {r['resamples']}, no host read in a replay (sync "
+            f"debug mode 'error'), a repeat of the first replay bit for bit, "
+            f"{r['scans_per_s']:.1f} scans/s")
+    say(f"[particle] gate: exact median {prun['exact']['median_ate_m']:.6f} "
+        f"<= {max(replay.PARTICLE_JAX_REF_ATES_M):.6f}, grid_dense median "
+        f"{prun['grid_dense']['median_ate_m']:.6f} <= "
+        f"{max(replay.PARTICLE_GRID_DENSE_JAX_REF_ATES_M):.6f} and <= exact "
+        f"+ 0.02 (bench.py:810); {time.perf_counter() - t23:.1f} s")
+    check(not pfails, f"particle gate vs JAX: {pfails}")
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -2240,7 +2663,17 @@ def main() -> int:
               slaunch["line_batch"], k4_err["batch"], k4b_ms["1-in-18"],
               k4b_plain_ms["1-in-18"], k4b_bound["1-in-18"]),
         entry("match_exit", "match.cu", "pallas_onehot.py:500",
-              elaunch["match"], exit_err, k1x_ms, k1x_plain_ms, k1x_bound),
+              elaunch["match"], k1_exit_err, k1x_ms, k1x_plain_ms, k1x_bound),
+        # the fleet's batch-wide exit: the exit rows' launches, timed at 64
+        # robots and bench's 1e-3 (the bound counts the shared iterations)
+        entry("match_batch_exit", "match.cu", "pallas_onehot.py:235",
+              rows["sub4_onehot_exit"]["launches"]["match_batch_exit"],
+              exit_err["K5"], exit_ms[("K5", EXIT_TOL)],
+              exit_plain_ms[("K5", EXIT_TOL)], exit_bound[("K5", EXIT_TOL)]),
+        entry("match_f32_batch_exit", "match.cu", "pallas_gn.py:133",
+              rows["sub1_exit"]["launches"]["match_batch_exit"],
+              exit_err["K3"], exit_ms[("K3", EXIT_TOL)],
+              exit_plain_ms[("K3", EXIT_TOL)], exit_bound[("K3", EXIT_TOL)]),
         # the frontend's launches: a graph replay's count less its n Hector
         # launches (one a scan)
         entry("match_frontend", "match.cu", "pallas_onehot.py:500",
@@ -2313,6 +2746,19 @@ def main() -> int:
                          replay.CORESLAM_JAX_REF_ATES_M,
                      "jax_ref_parity_ates_m":
                          replay.CORESLAM_PARITY_JAX_REF_ATES_M},
+        "fleet_exit": {"shared_counts": exit_counts,
+                       "level_counts": exit_levels,
+                       "max_pose_err": exit_err,
+                       "max_pose_err_stopped_early": exit_err_fires,
+                       "ms_b64": {f"{n}_tol{t}": v
+                                  for (n, t), v in exit_ms.items()},
+                       "ms_b5000": exit_5k_ms, "launches": exit_calls},
+        "fleet_rows": rows, "fleet_headline": pick,
+        "fleet_headline_bound_m": hbound,
+        "particle": {**prun, "ops_device_us": pus, "card_vs_cpu": pdiff,
+                     "jax_ref_exact_ates_m": replay.PARTICLE_JAX_REF_ATES_M,
+                     "jax_ref_grid_dense_ates_m":
+                         replay.PARTICLE_GRID_DENSE_JAX_REF_ATES_M},
         "match_bits": {"K1": k1_bits, "K3": k3_bits},
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {

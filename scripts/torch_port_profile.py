@@ -10,17 +10,22 @@ median, least and largest time a call.  A step is a scan of the single-robot
 replay (512 scans after a 10-scan fixed-mode bootstrap; ``--mode``
 ``pallas_dense``, the default, ``fixed`` or ``onehot_bf16_dense``), with
 ``--fleet`` a batch-scan of the 64-robot fleet (64 batch-scans after a
-10-batch-scan bootstrap; ``--mode`` ``sub4_pallas_dense``, the default, or
-``sub1``), or with ``--graph`` a scan of the graph-SLAM replay (the 512
+10-batch-scan bootstrap; ``--mode`` ``sub4_pallas_dense``, the default,
+or any other of ``replay.FLEET_MODES``: ``sub1``, ``sub4``,
+``sub4_onehot``, ``sub4_onehot_cap8``, ``sub4_onehot_cap32``,
+``sub1_exit``, ``sub4_onehot_exit``), or with ``--graph`` a scan of the graph-SLAM replay (the 512
 scans of the turning revisit, the first 12 forced; ``--mode`` ``gather``,
 the default, or ``pallas_full``), with ``--office`` a scan of the office
 loop's graph-SLAM replay (689 scans, the first 10 forced; ``--mode graph``,
 the default, or ``hector`` for Hector alone), or with ``--coreslam`` a scan
 of CoreSLAM's replay of the 522 loop scans (``--mode production``, the
-default, or ``parity``).
+default, or ``parity``), or with ``--particle`` a scan of the particle
+layer's replay of the 522 loop scans at 8192 particles (``--mode exact``,
+the default, or another of ``replay.PARTICLE_MODES``: ``sub4``, ``grid``,
+``grid_small``, ``grid_dense``; generator seed 1).
 
     python3 scripts/torch_port_profile.py [--fleet | --graph | --office |
-        --coreslam] [--mode M] [--out DIR]
+        --coreslam | --particle] [--mode M] [--out DIR]
 """
 import argparse
 import json
@@ -43,13 +48,15 @@ SINGLE = {"pallas_dense": replay.pallas_dense_config,
           "fixed": replay.fixed_config,
           "onehot_bf16_dense": replay.onehot_bf16_dense_config}
 FLEET = {"sub4_pallas_dense": replay.sub4_pallas_dense_config,
-         "sub1": replay.sub1_config}
+         **replay.FLEET_MODES}
 GRAPH = {"gather": replay.graph_gather_config,
          "pallas_full": replay.graph_pallas_full_config}
 OFFICE = {"graph": lambda: replay.office_config(),
           "hector": lambda: replay.office_config()[:1]}
 CORESLAM = {"production": replay.coreslam_production_config,
             "parity": replay.coreslam_parity_config}
+PARTICLE = {name: (lambda cfgs=cfgs: cfgs)
+            for name, cfgs in replay.PARTICLE_MODES.items()}
 
 
 def _single(dev, cfg):
@@ -92,6 +99,11 @@ def _coreslam(dev, cfg):
     return dlog.points.shape[0], lambda: replay.coreslam_replay(dlog, cfg)
 
 
+def _particle(dev, cfgs):
+    dlog = replay.to_device(replay.make_log(seed=0), dev)
+    return dlog.points.shape[0], lambda: replay.particle_replay(dlog, *cfgs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the Chrome trace")
@@ -104,17 +116,21 @@ def main() -> int:
                       help="the office loop instead of the single robot")
     path.add_argument("--coreslam", action="store_true",
                       help="CoreSLAM instead of the single robot")
+    path.add_argument("--particle", action="store_true",
+                      help="the particle layer instead of the single robot")
     ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH,
-                                              *OFFICE, *CORESLAM}),
+                                              *OFFICE, *CORESLAM, *PARTICLE}),
                     help="the configuration (default pallas_dense, "
                          "sub4_pallas_dense with --fleet, gather with "
                          "--graph, graph with --office, production with "
-                         "--coreslam)")
+                         "--coreslam, exact with --particle)")
     args = ap.parse_args()
     kind = ("fleet" if args.fleet else "graph" if args.graph else "office"
-            if args.office else "coreslam" if args.coreslam else "single")
+            if args.office else "coreslam" if args.coreslam else "particle"
+            if args.particle else "single")
     modes = {"fleet": FLEET, "graph": GRAPH, "office": OFFICE,
-             "coreslam": CORESLAM, "single": SINGLE}[kind]
+             "coreslam": CORESLAM, "particle": PARTICLE,
+             "single": SINGLE}[kind]
     mode = args.mode or next(iter(modes))
     if mode not in modes:
         ap.error(f"--mode {mode} is not a {kind} mode: {sorted(modes)}")
@@ -122,7 +138,8 @@ def main() -> int:
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
     make = {"fleet": _fleet, "graph": _graph, "office": _office,
-            "coreslam": _coreslam, "single": _single}[kind]
+            "coreslam": _coreslam, "particle": _particle,
+            "single": _single}[kind]
     n, run = make(dev, modes[mode]())
     run()                                                  # warm-up
     torch.cuda.synchronize()

@@ -39,11 +39,22 @@ bf16 selection in XLA; ``replay.FLEET_JAX_REF_*``) or ``sub1`` (the accuracy
 anchor, gather + line updates; ``replay.FLEET_SUB1_JAX_REF_*``): its RMS,
 max and median instance ATE.
 
+``--fleet --matcher gather|onehot_bf16`` swaps the mode's matcher, and
+``--fleet --eager`` runs JAX op by op (``jax.disable_jit``): the capped
+rows' numbers move with XLA's fusion (PERF.md section 6, PR 8).
+
 ``--office`` runs bench's office loop (``bench.py:318-431``) over
 ``make_office_log(3)`` with ``office_odometry``'s drifting odometry: Hector
 alone and graph-SLAM, each scan hinted with the match pose plus the odometry
 delta, the first 10 forced and then set to the odometry; every ``office_*``
 number but the rate (``replay.OFFICE_JAX_REF_*``).
+
+``--particle`` runs the particle layer (``bench.py:738-767``) over every scan
+of ``make_log(0)``, the state's own pose as the odometry, from
+``PRNGKey(--seed)`` (default 1): ``--mode exact|sub4|grid|grid_small|
+grid_dense`` (``replay.PARTICLE_MODES``, default exact): ATE and max error
+over every scan, and the resample count (``replay.PARTICLE_JAX_REF_ATES_M``
+and ``PARTICLE_GRID_DENSE_JAX_REF_ATES_M`` hold keys 1-9).
 
 ``--coreslam`` runs CoreSLAM (``bench.py:825-875``) over every scan of
 ``make_log(0)``, the state's own pose as the odometry: ``--mode
@@ -59,8 +70,11 @@ Runs on the CPU (a few minutes); prints one JSON object.
     python scripts/torch_port_ref_ate.py [--seed 0] [--exit]
         [--fleet [--mode sub1]] [--graph [--mode onehot_full]] [--office]
         [--coreslam [--mode parity|production] [--seed 1] [--nudge 0]]
+        [--particle [--mode exact|sub4|grid|grid_small|grid_dense]
+         [--seed 1]]
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -78,20 +92,27 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from slamnet_tpu.core import (CoreSlamConfig, HectorConfig,  # noqa: E402
-                              PoseGraphConfig)
+                              ParticleConfig, PoseGraphConfig)
 from slamnet_tpu.core.scan import Scan  # noqa: E402
 from slamnet_tpu.graph import frontend  # noqa: E402
 from slamnet_tpu.models import (coreslam, fleet, graph_slam,  # noqa: E402
-                                hector)
+                                hector, particle)
 from slamnet_tpu_torch import replay as port  # noqa: E402
 from slamnet_tpu_torch.replay import (GRAPH_SEED, ate_of,  # noqa: E402
                                       fleet_ate_of, make_fleet_log,
-                                      make_graph_log, make_log, sub1_config,
-                                      sub4_pallas_dense_config)
+                                      make_graph_log, make_log)
 
 FLEET_FIELDS = ("num_levels", "estimate_iterations", "xy_step_clamp_px",
                 "max_match_jump", "match_subsample", "dense_free_fill",
-                "matcher_mode")
+                "matcher_mode", "fleet_update_capacity", "early_exit_tol")
+# the fleet modes: bench.py's names (sub4_onehot_dense is the port's
+# sub4_pallas_dense, K5's selection) -> replay.FLEET_MODES
+FLEET_PORT_MODES = {"sub4_onehot_dense": "sub4_pallas_dense", "sub1": "sub1",
+                    "sub4": "sub4", "sub4_onehot": "sub4_onehot",
+                    "sub4_onehot_cap8": "sub4_onehot_cap8",
+                    "sub4_onehot_cap32": "sub4_onehot_cap32",
+                    "sub1_exit": "sub1_exit",
+                    "sub4_onehot_exit": "sub4_onehot_exit"}
 
 
 def run_mode(cfg, boot_cfg, log):
@@ -153,17 +174,19 @@ def run_fleet(cfg, flog):
         def body(sts, inp):
             r, v = inp
             sts, info = fleet.update_fleet(sts, points(r), v, cfg)
-            return sts, (sts.match_pose, info.map_updated, info.solve_failures)
+            return sts, (sts.match_pose, info.map_updated, info.solve_failures,
+                         info.gn_iterations[0])
         return jax.lax.scan(body, states, (radii, valids))
 
     states = fleet.init_fleet(cfg, flog.traj[0])
     for t in range(b):
         states = boot_step(states, radii[t], valids[t], traj[t])
-    _, (poses, upd, fails) = replay(states, radii[b:], valids[b:])
+    _, (poses, upd, fails, iters) = replay(states, radii[b:], valids[b:])
     ate, mx, med = fleet_ate_of(np.asarray(poses), flog.traj[b:])
     return {"ate_m": ate, "max_err_m": mx, "ate_median_m": med,
             "map_updates": int(np.asarray(upd).sum()),
-            "solve_failures": int(np.asarray(fails).sum())}
+            "solve_failures": int(np.asarray(fails).sum()),
+            "gn_iterations": int(np.asarray(iters).sum())}
 
 
 def run_graph(hcfg, mcfg, log):
@@ -287,6 +310,36 @@ def run_coreslam(cfg, log, seed, nudge=0):
             "searched": int(np.asarray(searched).sum())}
 
 
+def run_particle(ccfg, pcfg, log, seed):
+    """bench.py's particle flow (``bench.py:738-767``) over every scan of
+    ``log`` from its first true pose under ``PRNGKey(seed)``: ATE and max
+    error over every scan, the resample count."""
+    angles = jnp.asarray(log.angles)
+
+    @jax.jit
+    def replay(state, radii, valids):
+        def body(st, inp):
+            r, v = inp
+            pts = jnp.stack([r * jnp.cos(angles), r * jnp.sin(angles)], -1)
+            st, info = particle.update(
+                st, Scan(pts, v, jnp.zeros(3, jnp.float32)), st.pose, ccfg,
+                pcfg)
+            return st, (st.pose, info.resampled)
+        return jax.lax.scan(body, state, (radii, valids))
+
+    state = particle.init(ccfg, pcfg, log.traj[0], key=jax.random.PRNGKey(seed))
+    _, (poses, resampled) = replay(state, jnp.asarray(log.radii),
+                                   jnp.asarray(log.valid))
+    ate, mx = ate_of(np.asarray(poses), log.traj)
+    return {"ate_m": ate, "max_err_m": mx,
+            "resamples": int(np.asarray(resampled).sum())}
+
+
+def _jax_cfg(cls, cfg):
+    """The JAX config with the port config's fields."""
+    return cls(**dataclasses.asdict(cfg))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=None,
@@ -301,10 +354,18 @@ def main():
                     help="the office loop: Hector alone and graph-SLAM")
     ap.add_argument("--coreslam", action="store_true",
                     help="CoreSLAM over the loop log")
+    ap.add_argument("--particle", action="store_true",
+                    help="the particle layer over the loop log")
+    ap.add_argument("--matcher", choices=("gather", "onehot_bf16"),
+                    help="fleet: run the mode with this matcher_mode")
+    ap.add_argument("--eager", action="store_true",
+                    help="fleet: run JAX op by op (jax.disable_jit), where "
+                         "XLA fuses nothing")
     ap.add_argument("--nudge", type=int, default=0,
                     help="CoreSLAM: move the start's x by this many f32 ulps")
-    ap.add_argument("--mode", choices=("sub4_onehot_dense", "sub1", "gather",
-                                       "onehot_full", "parity", "production"),
+    ap.add_argument("--mode", choices=(*FLEET_PORT_MODES, "gather",
+                                       "onehot_full", "parity", "production",
+                                       *port.PARTICLE_MODES),
                     help="the fleet's mode (default sub4_onehot_dense), the "
                          "graph's (default gather) or CoreSLAM's (default "
                          "production)")
@@ -319,6 +380,24 @@ def main():
         out["office"]["seconds"] = round(time.time() - t0, 1)
         print(json.dumps(out))
         return
+    if args.particle:
+        mode = args.mode or "exact"
+        if mode not in port.PARTICLE_MODES:
+            ap.error(f"--mode {mode} is not a particle mode")
+        seed = 1 if args.seed is None else args.seed
+        ccfg, pcfg = port.PARTICLE_MODES[mode]
+        log = make_log(0)
+        out = {"seed": seed, "n_scans": int(log.radii.shape[0]),
+               "jax": jax.__version__, "device": str(jax.devices()[0])}
+        t0 = time.time()
+        out[f"particle_{mode}"] = run_particle(
+            _jax_cfg(CoreSlamConfig, ccfg), _jax_cfg(ParticleConfig, pcfg),
+            log, seed)
+        out[f"particle_{mode}"]["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps(out))
+        return
+    if args.mode in port.PARTICLE_MODES:
+        ap.error(f"--mode {args.mode} needs --particle")
     if args.coreslam:
         mode = args.mode or "production"
         if mode not in ("parity", "production"):
@@ -373,14 +452,22 @@ def main():
            "device": str(jax.devices()[0])}
     if args.fleet:
         flog = make_fleet_log(log)
-        port_cfg = (sub1_config() if args.mode == "sub1" else
-                    sub4_pallas_dense_config(matcher_mode="onehot_bf16"))
+        port_cfg = port.FLEET_MODES[FLEET_PORT_MODES[args.mode]]()
+        if args.mode == "sub4_onehot_dense":
+            port_cfg = port_cfg.overlay({"matcher_mode": "onehot_bf16"})
+        if args.matcher:
+            port_cfg = port_cfg.overlay({"matcher_mode": args.matcher})
         cfg = HectorConfig(**{f: getattr(port_cfg, f) for f in FLEET_FIELDS})
         out["robots"], out["n_batch_scans"] = flog.radii.shape[1], \
             flog.radii.shape[0] - flog.bootstrap
+        out["matcher_mode"], out["eager"] = cfg.matcher_mode, args.eager
         name = f"fleet_{args.mode}"
         t0 = time.time()
-        out[name] = run_fleet(cfg, flog)
+        if args.eager:
+            with jax.disable_jit():
+                out[name] = run_fleet(cfg, flog)
+        else:
+            out[name] = run_fleet(cfg, flog)
         out[name]["seconds"] = round(time.time() - t0, 1)
         print(json.dumps(out))
         return

@@ -24,6 +24,11 @@ state (``slamnet_tpu.models.coreslam.CoreSlamState``) as its arrays
 a ``torch.Generator`` seeded with ``seed``, so
 ``CoreSlamState(**d, key=...)`` rebuilds a JAX state with a key of the
 caller's choice.
+
+``particle_state_from_numpy`` / ``particle_state_to_numpy`` do the same for
+a particle state (``slamnet_tpu.models.particle.ParticleState``): the
+CoreSLAM arrays plus ``particles`` f32[P, 3] and ``scores`` i32[P]; the
+port's draws come from a generator seeded with ``seed``.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from .graph.posegraph import PoseGraph
-from .models import coreslam
+from .models import coreslam, particle
 from .models.graph_slam import GraphSlamState
 from .models.hector import HectorState
 
@@ -41,6 +46,7 @@ GRAPH_STATE_FIELDS = ("hector", "graph", "kf_points", "kf_valid",
                       "last_kf_pose", "loop_count")
 CORESLAM_FIELDS = ("hole_map", "obstacle_map", "pose", "last_odometry",
                    "scan_count")
+PARTICLE_FIELDS = ("particles", "scores") + CORESLAM_FIELDS
 _INT_FIELDS = ("num_nodes", "edge_i", "edge_j", "num_edges")
 _BOOL_FIELDS = ("node_valid", "edge_valid")
 
@@ -147,3 +153,30 @@ def coreslam_state_from_numpy(hole_map, obstacle_map, pose, last_odometry,
 def coreslam_state_to_numpy(state: coreslam.CoreSlamState) -> dict:
     """``state``'s arrays as ``coreslam_state_from_numpy`` takes them."""
     return {k: _np(getattr(state, k)) for k in CORESLAM_FIELDS}
+
+
+def particle_state_from_numpy(particles, scores, hole_map, obstacle_map, pose,
+                              last_odometry, scan_count, seed: int = 0,
+                              device: torch.device | str = "cuda"
+                              ) -> particle.ParticleState:
+    """A particle state from its arrays (e.g. a JAX state's), on the card
+    unless ``device`` names another, drawing from a generator seeded with
+    ``seed``."""
+    c = coreslam_state_from_numpy(hole_map, obstacle_map, pose, last_odometry,
+                                  scan_count, seed, device)
+    parts = torch.tensor(np.asarray(particles), dtype=torch.float32,
+                         device=device)
+    sc = torch.tensor(np.asarray(scores), dtype=torch.int32, device=device)
+    if parts.dim() != 2 or parts.shape[1] != 3 or sc.shape != parts.shape[:1]:
+        raise ValueError(f"particles must be [P, 3] and scores [P], got "
+                         f"{tuple(parts.shape)} and {tuple(sc.shape)}")
+    return particle.ParticleState(
+        particles=parts, scores=sc, hole_map=c.hole_map,
+        obstacle_map=c.obstacle_map, pose=c.pose,
+        last_odometry=c.last_odometry, scan_count=c.scan_count,
+        generator=c.generator, scans=c.scans)
+
+
+def particle_state_to_numpy(state: particle.ParticleState) -> dict:
+    """``state``'s arrays as ``particle_state_from_numpy`` takes them."""
+    return {k: _np(getattr(state, k)) for k in PARTICLE_FIELDS}

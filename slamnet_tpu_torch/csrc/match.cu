@@ -105,6 +105,28 @@
 //     first iteration would write the partials buffer that other warps may
 //     still be reading.  The exit is a template parameter: with the
 //     tolerance at 0 the kernel is the fixed-iteration one, unchanged.
+//   * the fleet's early exit (K5 and the batched K3 with early_exit_tol >
+//     0) is JAX's batch-wide rule (models/fleet.py:154-172): a level stops
+//     after the first iteration in which NO instance moved by more than the
+//     tolerance (max_b moved2_b <= tol2; a NaN anywhere stops it too, as
+//     jnp.max propagates it), and every instance's pose and stats are those
+//     after that shared count li.  One block cannot wait for the others: a
+//     cooperative grid.sync would cap B at the blocks the card holds at once
+//     (132 at 512 threads and 128 registers), a limit JAX does not have.  So
+//     it is one launch a level plus a finishing one.  Each level's launch
+//     runs all of the level's iterations in every block, keeps the state
+//     after each (pose in the level's pixel frame, fails, residual sum,
+//     in-map count: slot 0 the level's start, slot i+1 after iteration i)
+//     in a device buffer, and ORs into one 32-bit word a level the
+//     iterations in which its instance moved more than the tolerance (bits
+//     0-15) or moved by NaN (bits 16-31).  The next level's launch, and the
+//     finishing launch after the finest level, read that word, take li, and
+//     start from (or write out) each instance's slot li.  Each launch starts
+//     its partials' parity afresh, and the iterations past li are computed
+//     and thrown away: the answers are JAX's for any B, at the cost of the
+//     fixed count's arithmetic.  A per-iteration relaunch (15 launches
+//     reading a device flag) would skip that arithmetic but pay a launch
+//     for each iteration, each longer than an iteration (PERF.md section 6).
 //
 // Semantics (pallas_onehot.py:69-212): cells truncate toward zero and clip to
 // [0, w-2]; a beam counts when it is valid and its map point lies in
@@ -154,9 +176,23 @@ struct MatchParams {
   float tol2;     // early_exit_tol squared in f32; 0: fixed iterations
 };
 
+// The fleet exit's device state (slamnet_match_batch_exit), carved from one
+// f32 workspace of exit_work_floats(p) floats: the words, then any, then
+// state.
+struct BatchExit {
+  unsigned* words;  // [kMatchMaxLevels]: a level's moved bits (see above)
+  float* any;       // [batch]: 1 when the instance has a valid matcher beam
+  float* state;     // [num_levels][batch][slots][kState]
+  int level;        // the level this launch runs
+  int slots;        // max per-level iterations + 1
+};
+
 namespace {
 
 constexpr int kOut = 7;           // floats an instance writes
+constexpr int kState = 6;         // ex, ey, th, fails, resid, n_in
+constexpr int kExitMaxIters = 16; // iterations a level the exit words hold
+enum ExitMode { kFixed = 0, kBlockExit = 1, kBatchExit = 2 };
 constexpr int kSums = 11;          // dTr[3], H upper triangle[6], resid, n_in
 constexpr int kSlots = 16;         // kSums padded to the butterfly's 2^4
 constexpr int kBeamsPerThread = 4;
@@ -194,6 +230,26 @@ __device__ __forceinline__ float floor_mod(float x, float y) {
   return r;
 }
 
+// Heading wrap to (-pi, pi] (MathEx.NormalizeAngle) and map px -> world, as
+// a level ends.
+__device__ __forceinline__ void leave_level(float ex, float ey, float th,
+                                            float scale, float& px, float& py,
+                                            float& th_out) {
+  const float wrapped = floor_mod(floor_mod(th, kTwoPi) + kTwoPi, kTwoPi);
+  th_out = wrapped > kPi ? wrapped - kTwoPi : wrapped;
+  px = ex / scale;
+  py = ey / scale;
+}
+
+// The batch-wide count of a level's iterations from its exit word: the
+// first iteration after which no instance moved more than the tolerance (or
+// one moved by NaN), else all n.
+__device__ __forceinline__ int shared_count(unsigned word, int n) {
+  for (int i = 0; i < n; ++i)
+    if (!((word >> i) & 1u) || ((word >> (16 + i)) & 1u)) return i + 1;
+  return n;
+}
+
 // One butterfly round over the low 2*h slots: the lanes with bit `o` set
 // keep the upper half, the others the lower, and each adds its partner's.
 template <int h>
@@ -207,12 +263,12 @@ __device__ __forceinline__ void fold(float (&a)[kSlots], int lane, int o) {
   }
 }
 
-template <bool kF32Table, bool kExit, int kMaxThreads>
+template <bool kF32Table, int kExit, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
 match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
              const unsigned char* __restrict__ valid,
              const float* __restrict__ pose0, float* __restrict__ out,
-             MatchParams p) {
+             MatchParams p, BatchExit x) {
   __shared__ float s_part[2][32][kSums];   // [iteration parity][warp][sum]
   __shared__ int s_any[32];
 
@@ -257,8 +313,28 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
   int parity = 0;
   const float* __restrict__ part = &s_part[0][g * wpi][0];
   const int j_sum = lane >> 1;       // the sum this lane reduces across warps
+  // the batch exit runs one level a launch, from the coarser level's state
+  // after that level's shared count of iterations
+  const int top = kExit == kBatchExit ? x.level : p.num_levels - 1;
+  const int bottom = kExit == kBatchExit ? x.level : 0;
+  float* slot = nullptr;
+  unsigned moved_bits = 0u;
+  if (kExit == kBatchExit) {
+    slot = x.state + ((static_cast<size_t>(x.level) * p.batch + inst) *
+                      x.slots) * kState;
+    if (x.level + 1 < p.num_levels) {
+      const int lc = x.level + 1;
+      const float* s = x.state +
+          ((static_cast<size_t>(lc) * p.batch + inst) * x.slots +
+           shared_count(x.words[lc], p.iters[lc])) * kState;
+      leave_level(s[0], s[1], s[2], p.scale[lc], px, py, th);
+      fails = s[3];
+      resid = s[4];
+      n_in = s[5];
+    }
+  }
 
-  for (int level = p.num_levels - 1; level >= 0; --level) {
+  for (int level = top; level >= bottom; --level) {
     const int w = p.width[level];
     const float wlim = static_cast<float>(w - 2);
     const float scale = p.scale[level];
@@ -267,6 +343,10 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
     float ey = py * scale;
 
     const int iters = p.iters[level];
+    if (kExit == kBatchExit && tid == 0) {
+      slot[0] = ex; slot[1] = ey; slot[2] = th;
+      slot[3] = fails; slot[4] = resid; slot[5] = n_in;
+    }
     for (int it = 0; it < iters; ++it, parity ^= 1) {
       float sn, cs;
       sincosf(th, &sn, &cs);
@@ -372,23 +452,43 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
       resid = r[9];
       n_in = r[10];
       n_iter += 1.0f;
-      if (kExit) {
+      if (kExit == kBlockExit) {
         const float dx = ex - ex0, dy = ey - ey0, dt = th - th0;
         if (!(dx * dx + dy * dy + dt * dt > p.tol2)) {
           parity ^= 1;   // the flip the skipped loop increment would make
           break;
         }
       }
+      if (kExit == kBatchExit) {
+        const float dx = ex - ex0, dy = ey - ey0, dt = th - th0;
+        const float moved2 = dx * dx + dy * dy + dt * dt;
+        moved_bits |= (moved2 > p.tol2 ? 1u : 0u) << it;
+        moved_bits |= (isnan(moved2) ? 1u : 0u) << (16 + it);
+        if (tid == 0) {
+          float* s = slot + (it + 1) * kState;
+          s[0] = ex; s[1] = ey; s[2] = th;
+          s[3] = fails; s[4] = resid; s[5] = n_in;
+        }
+      }
     }
 
-    // heading wrap to (-pi, pi] (MathEx.NormalizeAngle), map px -> world
-    const float wrapped = floor_mod(floor_mod(th, kTwoPi) + kTwoPi, kTwoPi);
-    th = wrapped > kPi ? wrapped - kTwoPi : wrapped;
-    px = ex / scale;
-    py = ey / scale;
+    leave_level(ex, ey, th, scale, px, py, th);
   }
 
   __syncthreads();   // s_any, even when no level iterates
+  if (kExit == kBatchExit) {
+    // the finishing launch writes out; this one leaves its moved bits and,
+    // at the finest level, whether the instance has a valid beam
+    if (tid == 0) {
+      if (moved_bits) atomicOr(x.words + x.level, moved_bits);
+      if (x.level == 0) {
+        bool any_valid = false;
+        for (int wv = 0; wv < wpi; ++wv) any_valid |= s_any[g * wpi + wv] != 0;
+        x.any[inst] = any_valid ? 1.0f : 0.0f;
+      }
+    }
+    return;
+  }
   if (tid == 0) {
     bool any_valid = false;
     for (int wv = 0; wv < wpi; ++wv) any_valid |= s_any[g * wpi + wv] != 0;
@@ -403,55 +503,150 @@ match_kernel(const float* __restrict__ maps, const float* __restrict__ points,
   }
 }
 
-template <bool kF32Table, bool kExit>
+template <bool kF32Table, int kExit>
 cudaError_t launch(int blocks, int threads, const float* maps,
                    const float* points, const unsigned char* valid,
                    const float* pose0, float* out, const MatchParams& p,
-                   cudaStream_t stream) {
+                   const BatchExit& x, cudaStream_t stream) {
   if (threads <= kSmallBlock)
     match_kernel<kF32Table, kExit, kSmallBlock>
-        <<<blocks, threads, 0, stream>>>(maps, points, valid, pose0, out, p);
+        <<<blocks, threads, 0, stream>>>(maps, points, valid, pose0, out, p,
+                                         x);
   else
     match_kernel<kF32Table, kExit, 1024><<<blocks, threads, 0, stream>>>(
-        maps, points, valid, pose0, out, p);
+        maps, points, valid, pose0, out, p, x);
   return cudaGetLastError();
 }
 
 template <bool kF32Table>
-cudaError_t launch_table(bool early, int blocks, int threads, const float* maps,
+cudaError_t launch_table(int mode, int blocks, int threads, const float* maps,
                          const float* points, const unsigned char* valid,
                          const float* pose0, float* out, const MatchParams& p,
-                         cudaStream_t stream) {
-  return early ? launch<kF32Table, true>(blocks, threads, maps, points, valid,
-                                        pose0, out, p, stream)
-              : launch<kF32Table, false>(blocks, threads, maps, points, valid,
-                                         pose0, out, p, stream);
+                         const BatchExit& x, cudaStream_t stream) {
+  switch (mode) {
+    case kBlockExit:
+      return launch<kF32Table, kBlockExit>(blocks, threads, maps, points,
+                                           valid, pose0, out, p, x, stream);
+    case kBatchExit:
+      return launch<kF32Table, kBatchExit>(blocks, threads, maps, points,
+                                           valid, pose0, out, p, x, stream);
+    default:
+      return launch<kF32Table, kFixed>(blocks, threads, maps, points, valid,
+                                       pose0, out, p, x, stream);
+  }
+}
+
+int match_threads(const MatchParams& p) {
+  int threads = ((p.n + 31) / 32) * 32;
+  if (threads < 32) threads = 32;
+  if (threads > 1024) threads = 1024;
+  return threads;
+}
+
+// The fleet exit's last launch: one thread an instance takes the finest
+// level's state after its shared count, wraps the heading, and writes
+// out[b, 0:7] as the single launch would (the hint for an instance with no
+// valid matcher beam; out[:, 6] the shared counts summed over the levels).
+__global__ void exit_finish_kernel(const float* __restrict__ pose0,
+                                   float* __restrict__ out, MatchParams p,
+                                   BatchExit x) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= p.batch) return;
+  float n_iter = 0.0f;
+  for (int l = 0; l < p.num_levels; ++l)
+    n_iter += static_cast<float>(shared_count(x.words[l], p.iters[l]));
+  const float* s = x.state + (static_cast<size_t>(b) * x.slots +
+                              shared_count(x.words[0], p.iters[0])) * kState;
+  float px, py, th;
+  leave_level(s[0], s[1], s[2], p.scale[0], px, py, th);
+  const bool any_valid = x.any[b] != 0.0f;
+  float* o = out + static_cast<size_t>(b) * kOut;
+  o[0] = any_valid ? px : pose0[3 * b];
+  o[1] = any_valid ? py : pose0[3 * b + 1];
+  o[2] = any_valid ? th : pose0[3 * b + 2];
+  o[3] = s[3];
+  o[4] = s[4];
+  o[5] = s[5];
+  o[6] = n_iter;
+}
+
+int exit_slots(const MatchParams& p) {
+  int slots = 0;
+  for (int l = 0; l < p.num_levels; ++l)
+    slots = p.iters[l] > slots ? p.iters[l] : slots;
+  return slots + 1;
 }
 
 }  // namespace
 
 // One launch of batch / g_pack blocks, each of g_pack instances' threads;
-// the f32 instantiation (K3) when p.table_f32, else the bf16 one; the early
-// exit when p.tol2 > 0 (one instance a block only: instances sharing a block
-// must share its barriers); the 512-thread bound when the block allows it,
-// else the 1024-thread one.
+// the f32 instantiation (K3) when p.table_f32, else the bf16 one; the
+// single robot's early exit when p.tol2 > 0 (one instance only: a fleet's
+// exit is the batch-wide rule of slamnet_match_batch_exit); the 512-thread
+// bound when the block allows it, else the 1024-thread one.
 extern "C" int slamnet_match(const float* maps, const float* points,
                              const unsigned char* valid, const float* pose0,
                              float* out, MatchParams p, cudaStream_t stream) {
-  int threads = ((p.n + 31) / 32) * 32;
-  if (threads < 32) threads = 32;
-  if (threads > 1024) threads = 1024;
+  const int threads = match_threads(p);
   if (p.g_pack < 1 || p.g_pack > kMaxPack || p.batch < 1 ||
       p.batch % p.g_pack != 0 || threads * p.g_pack > 1024 ||
-      (p.tol2 > 0.0f && p.g_pack != 1))
+      (p.tol2 > 0.0f && p.batch != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = p.batch / p.g_pack;
-  const bool early = p.tol2 > 0.0f;
+  const int mode = p.tol2 > 0.0f ? kBlockExit : kFixed;
+  const BatchExit none{};
   const cudaError_t err =
-      p.table_f32 ? launch_table<true>(early, blocks, threads * p.g_pack, maps,
-                                       points, valid, pose0, out, p, stream)
-                  : launch_table<false>(early, blocks, threads * p.g_pack,
+      p.table_f32 ? launch_table<true>(mode, blocks, threads * p.g_pack, maps,
+                                       points, valid, pose0, out, p, none,
+                                       stream)
+                  : launch_table<false>(mode, blocks, threads * p.g_pack,
                                         maps, points, valid, pose0, out, p,
-                                        stream);
+                                        none, stream);
+  return static_cast<int>(err);
+}
+
+// Floats of the fleet exit's workspace: the level words, the any flags and
+// the per-level, per-instance, per-iteration state.
+extern "C" long long slamnet_match_exit_work(MatchParams p) {
+  return kMatchMaxLevels + static_cast<long long>(p.batch) +
+         static_cast<long long>(p.num_levels) * p.batch * exit_slots(p) *
+             kState;
+}
+
+// The fleet's batch-wide early exit (K5 and the batched K3 with p.tol2 > 0,
+// one instance a block): the level words cleared, one launch a level from
+// the coarsest, then the finishing launch.  `work` holds
+// slamnet_match_exit_work(p) floats.
+extern "C" int slamnet_match_batch_exit(const float* maps, const float* points,
+                                        const unsigned char* valid,
+                                        const float* pose0, float* out,
+                                        float* work, MatchParams p,
+                                        cudaStream_t stream) {
+  const int threads = match_threads(p);
+  bool ok = p.g_pack == 1 && p.batch >= 1 && p.tol2 > 0.0f &&
+            p.num_levels >= 1 && p.num_levels <= kMatchMaxLevels;
+  for (int l = 0; ok && l < p.num_levels; ++l)
+    ok = p.iters[l] >= 0 && p.iters[l] <= kExitMaxIters;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  BatchExit x;
+  x.words = reinterpret_cast<unsigned*>(work);
+  x.any = work + kMatchMaxLevels;
+  x.state = x.any + p.batch;
+  x.slots = exit_slots(p);
+  cudaError_t err = cudaMemsetAsync(x.words, 0, kMatchMaxLevels * sizeof(unsigned),
+                                    stream);
+  for (int l = p.num_levels - 1; err == cudaSuccess && l >= 0; --l) {
+    x.level = l;
+    err = p.table_f32
+              ? launch_table<true>(kBatchExit, p.batch, threads, maps, points,
+                                   valid, pose0, out, p, x, stream)
+              : launch_table<false>(kBatchExit, p.batch, threads, maps, points,
+                                    valid, pose0, out, p, x, stream);
+  }
+  if (err == cudaSuccess) {
+    exit_finish_kernel<<<(p.batch + 127) / 128, 128, 0, stream>>>(pose0, out,
+                                                                   p, x);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }

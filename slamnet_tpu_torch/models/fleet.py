@@ -3,8 +3,15 @@
 Port of ``slamnet_tpu/models/fleet.py`` (``init_fleet``, ``fleet_cells``,
 ``_match_batch``, ``update_fleet``, ``replay_fleet``), with
 ``models/hector.py``'s modes: the bench's fleet base with the K5 matcher and
-the dense fill (``sub4_pallas_dense``), or with the gather matcher and line
-updates (``sub1``, the fleet's accuracy anchor).  The state is a
+the dense fill (``sub4_pallas_dense``), with the gather matcher and line
+updates (``sub1``, the fleet's accuracy anchor, and ``sub4`` on every 4th
+beam), or with K1's table and line updates (``sub4_onehot`` and its
+update-budget twins).  ``early_exit_tol > 0`` runs JAX's batch-wide exit
+(``slamnet_tpu/models/fleet.py:154-172``: a level stops only when every
+instance has converged, and every instance runs the shared count, which
+``HectorInfo.gn_iterations`` reports) under ``gather``,
+``onehot_highest`` and ``onehot_bf16``; ``"pallas"`` refuses it, as JAX's
+does (``fleet.py:89-92``).  The state is a
 ``hector.HectorState`` with an instance axis: ``maps`` is ONE flat f32[B*C]
 table (C = ``fleet_cells(cfg)``, each instance's pyramid finest level first,
 as in JAX), and the poses f32[B, 3].
@@ -41,21 +48,12 @@ def fleet_cells(cfg: HectorConfig) -> int:
     return cfg.total_cells
 
 
-def _check_fleet_cfg(cfg: HectorConfig) -> None:
-    if cfg.early_exit_tol > 0.0:
-        raise NotImplementedError(
-            "the fleet runs fixed per-level iterations: JAX's batch-wide "
-            "early exit (slamnet_tpu/models/fleet.py:154-171) is not ported; "
-            f"got early_exit_tol={cfg.early_exit_tol}")
-    _check_cfg(cfg)
-
-
 def init_fleet(cfg: HectorConfig, start_poses,
                device: torch.device | str = "cuda") -> HectorState:
     """Zeroed maps f32[B*C], match poses at ``start_poses``
     f32[B, 3], last-update poses at float.MinValue (hector.init per
     instance), on the card unless ``device`` names another."""
-    _check_fleet_cfg(cfg)
+    _check_cfg(cfg)
     poses = torch.as_tensor(start_poses, dtype=torch.float32,
                             device=device).clone()
     if poses.dim() != 2 or poses.shape[1] != 3:
@@ -86,7 +84,7 @@ def update_fleet(states: HectorState, points: torch.Tensor,
     forces the maps to update at the hint.  ``plain=True`` runs the kernels'
     plain versions whatever the device.  ``states.maps`` is updated in place; ``HectorInfo`` fields are
     [B]-shaped."""
-    _check_fleet_cfg(cfg)
+    _check_cfg(cfg)
     b = points.shape[0]
     dev = states.maps.device
     hint = states.match_pose

@@ -32,7 +32,6 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from ..core.geometry import cos_rn, csharp_trunc, sin_rn, true_div
@@ -98,15 +97,16 @@ def correlative_scores(hole_map_flat: torch.Tensor, size: int, scale: float,
 def _linspace(num: int, span: float, device: torch.device) -> torch.Tensor:
     """``jnp.linspace(-span, span, num)``'s expression (``start * (1 - i /
     div) + stop * i / div`` in f32, the stop appended), evaluated op by op
-    in numpy once and put on ``device``.  XLA's fused linspace can differ
-    from it by an ulp in a few entries."""
-    start, stop = np.float32(-span), np.float32(span)
+    on ``device`` once (made there: no copy from the host, which would wait
+    for the device).  XLA's fused linspace can differ from it by an ulp in a
+    few entries."""
+    start, stop = -float(span), float(span)
     if num > 1:
-        step = np.arange(num - 1, dtype=np.float32) / np.float32(num - 1)
-        lin = np.append(start * (np.float32(1) - step) + stop * step, stop)
-    else:
-        lin = np.full(num, start)
-    return torch.from_numpy(lin.astype(np.float32)).to(device)
+        step = true_div(torch.arange(num - 1, dtype=torch.float32,
+                                     device=device), float(num - 1))
+        return torch.cat([start * (1.0 - step) + stop * step,
+                          torch.full((1,), stop, device=device)])
+    return torch.full((num,), start, device=device)
 
 
 def theta_grid(search_heading: torch.Tensor, num_theta: int,
@@ -120,10 +120,10 @@ def theta_grid(search_heading: torch.Tensor, num_theta: int,
 @functools.cache
 def _neighbours(device: torch.device):
     """(dk, dy, dx) i64[7]: the minimum, then its -/+ neighbours along x, y
-    and the heading, on ``device``."""
-    return tuple(torch.tensor(d, device=device) for d in (
-        (0, 0, 0, 0, 0, -1, 1), (0, 0, 0, -1, 1, 0, 0),
-        (0, -1, 1, 0, 0, 0, 0)))
+    and the heading (dk = (0, 0, 0, 0, 0, -1, 1), dy = (0, 0, 0, -1, 1, 0,
+    0), dx = (0, -1, 1, 0, 0, 0, 0)), on ``device``."""
+    i = torch.arange(7, device=device)       # made there, as _linspace
+    return tuple((i == up).long() - (i == up - 1).long() for up in (6, 4, 2))
 
 
 def _quad_offset(fm, f0, fp):

@@ -21,17 +21,20 @@ selection of ``prepare_tables``): K1, K5, K6.  ``"gather"`` and
 ``"onehot_highest"`` (bit-identical to ``"gather"`` in JAX) read the f32
 maps as they are: K3 and the batched K3.  Then fixed per-level iteration
 counts, theta clamp, optional xy clamp and damping, heading wrapped between
-levels.  ``early_exit_tol > 0`` stops a level once an iteration moved the
-pixel-frame pose by no more than the tolerance (JAX's rule,
-``slamnet_tpu/models/hector.py:227-244``), for one robot under K3 and K1's
-``"onehot_bf16"`` table; ``"pallas"`` refuses it, as JAX does
-(``hector.py:172-176``), and so does the fleet, whose batch-wide rule
-(``fleet.py:154-171``) is not ported.  An instance returns its hint when it
-has no valid beam, as JAX
-decides it: the single robot tests the whole scan in the XLA modes
-(``hector.py:195,254``) and the matcher's subsampled beams under
-``"pallas"`` (``pallas_onehot.py:197``); the fleet tests the subsampled
-beams in every mode (``fleet.py:67-71`` subsamples ``valid`` before
+levels.  ``early_exit_tol > 0`` stops a level early under K3's table and
+K1's ``"onehot_bf16"`` one; ``"pallas"`` refuses it, as JAX does
+(``hector.py:172-176``, ``fleet.py:89-92``).  One robot (``match``) stops a
+level once an iteration moved its pixel-frame pose by no more than the
+tolerance (``slamnet_tpu/models/hector.py:227-244``).  A fleet
+(``match_batch``) stops a level only after an iteration in which NO
+instance moved by more than the tolerance, and every instance then runs
+that shared count (``slamnet_tpu/models/fleet.py:154-172``); at B = 1 the
+two rules are one.  K6 refuses the exit when ``g_pack > 1``.  An instance
+returns its hint when it has no valid beam, as JAX decides it: the single
+robot tests the whole scan in the XLA modes (``hector.py:195,254``) and
+the matcher's subsampled beams under ``"pallas"``
+(``pallas_onehot.py:197``); the fleet tests the subsampled beams in every
+mode (``fleet.py:67-71`` subsamples ``valid`` before
 ``:119``).  Every launch runs one kernel body, so K5 equals B separate K1
 calls (the batched K3, B K3 calls) and K6 equals K5, bit for bit, wherever
 a robot has a valid matcher beam.
@@ -43,7 +46,9 @@ its one-robot case.  Each wrapper checks its inputs on any device, runs the
 plain version for CPU tensors only, and for CUDA tensors launches the kernel
 or raises.  Launch counts: ``match.launches`` (K1), ``match.launches_f32``
 (K3), ``match_batch.launches`` (K5), ``match_batch.launches_f32`` (the
-batched K3), ``match_packed.launches`` (K6).
+batched K3), ``match_packed.launches`` (K6); a fleet match with the exit
+(one launch a level and a finishing one, ``csrc/match.cu``) counts once
+there, and also in ``match_batch.exit_launches``.
 """
 from __future__ import annotations
 
@@ -63,12 +68,13 @@ MAX_LEVELS = 4
 # (slamnet_tpu/core/config.py:153)
 BF16_MATCHERS = ("pallas", "onehot_bf16")
 F32_MATCHERS = ("gather", "onehot_highest")
-# the modes whose single-robot match takes early_exit_tol > 0 (JAX's XLA
-# matchers; its "pallas" kernel refuses the exit)
+# the modes whose match takes early_exit_tol > 0, one robot or a fleet (JAX's
+# XLA matchers; its "pallas" kernel refuses the exit)
 EXIT_MATCHERS = F32_MATCHERS + ("onehot_bf16",)
 OUT = 7               # floats a match returns (csrc/match.cu kOut)
 MAX_BEAMS = 4096      # one match: 1024 threads x 4 beams each (csrc/match.cu)
 MAX_THREADS = 1024    # a block's threads: g_pack matches of whole warps each
+EXIT_MAX_ITERS = 16   # a level's iterations the fleet's exit holds (match.cu)
 G_PACKS = (1, 2, 4, 8)
 
 
@@ -157,6 +163,19 @@ def _launcher():
     return fn
 
 
+@functools.cache
+def _exit_launcher():
+    """(the fleet exit's launcher, its workspace size in floats)."""
+    lib = _build.library()[0]
+    fn = lib.slamnet_match_batch_exit
+    fn.argtypes = [ctypes.c_void_p] * 6 + [_MatchParams, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    work = lib.slamnet_match_exit_work
+    work.argtypes = [_MatchParams]
+    work.restype = ctypes.c_longlong
+    return fn, work
+
+
 def _launch(what: str, maps, points, valid, hints, cfg: HectorConfig,
             batch: int, g_pack: int, full_scan: bool = False) -> torch.Tensor:
     out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
@@ -165,6 +184,21 @@ def _launch(what: str, maps, points, valid, hints, cfg: HectorConfig,
                        _params(cfg, points.shape[-2], batch, g_pack,
                                full_scan),
                        _build.stream_handle(maps.device))
+    _build.raise_on_error(code, what)
+    return out
+
+
+def _launch_exit(what: str, maps, points, valid, hints, cfg: HectorConfig,
+                 batch: int) -> torch.Tensor:
+    """The fleet's batch-wide exit: one launch a level and a finishing one
+    over a workspace of the per-level, per-instance iteration states."""
+    fn, work_floats = _exit_launcher()
+    p = _params(cfg, points.shape[-2], batch, 1, False)
+    out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
+    work = torch.empty(work_floats(p), dtype=torch.float32, device=maps.device)
+    code = fn(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
+              hints.data_ptr(), out.data_ptr(), work.data_ptr(), p,
+              _build.stream_handle(maps.device))
     _build.raise_on_error(code, what)
     return out
 
@@ -211,11 +245,18 @@ def _check_batch(kernel: str, maps: torch.Tensor, points: torch.Tensor,
     (``g_pack`` 1) or K6:
     contiguous maps f32[B*C], points f32[B, N, 2], valid bool[B, N], hints
     f32[B, 3] on one device, ``g_pack`` in G_PACKS dividing B, and g_pack
-    matches of whole warps in one block, and no early exit.  Returns B."""
+    matches of whole warps in one block; with the early exit, ``g_pack`` 1
+    and at most EXIT_MAX_ITERS iterations a level.  Returns B."""
     _check_cfg(cfg)
     if cfg.early_exit_tol > 0.0:
-        raise ValueError(f"{kernel}: the fleet's batch-wide early exit is not "
-                         "ported; early_exit_tol must be 0")
+        if g_pack != 1:
+            raise ValueError(f"{kernel}: the fleet's batch-wide early exit "
+                             f"runs one instance a block; g_pack={g_pack} "
+                             "takes early_exit_tol=0 only")
+        if max(cfg.estimate_iterations[:cfg.num_levels]) > EXIT_MAX_ITERS:
+            raise ValueError(f"{kernel}: the fleet's early exit takes at most "
+                             f"{EXIT_MAX_ITERS} iterations a level, got "
+                             f"{cfg.estimate_iterations}")
     if points.dim() != 3:
         raise ValueError(f"{kernel} points: want [B, N, 2], got "
                          f"{tuple(points.shape)}")
@@ -244,14 +285,20 @@ def match_batch(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     instance.  ``maps`` f32[B*C] (C = cfg.total_cells), ``points``
     f32[B, N, 2], ``valid`` bool[B, N], ``hints`` f32[B, 3] (world).
     Returns f32[B, 7] (``match``'s seven numbers per instance) on the device
-    of ``maps``."""
+    of ``maps``.  With ``early_exit_tol > 0``, the batch-wide exit: a launch
+    a level and a finishing one, counted as one call."""
     f32 = table_f32(cfg)
     kernel = "K3 batch" if f32 else "K5"
     b = _check_batch(kernel, maps, points, valid, hints, cfg)
     if maps.device.type == "cpu":
         return match_batch_plain(maps, points, valid, hints, cfg)
-    out = _launch(f"{kernel} match_batch", maps, points, valid, hints, cfg, b,
-                  1)
+    if cfg.early_exit_tol > 0.0:
+        out = _launch_exit(f"{kernel} match_batch (exit)", maps, points,
+                           valid, hints, cfg, b)
+        match_batch.exit_launches += 1
+    else:
+        out = _launch(f"{kernel} match_batch", maps, points, valid, hints,
+                      cfg, b, 1)
     if f32:
         match_batch.launches_f32 += 1
     else:
@@ -261,6 +308,7 @@ def match_batch(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
 
 match_batch.launches = 0
 match_batch.launches_f32 = 0
+match_batch.exit_launches = 0
 
 
 def match_packed(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
@@ -269,12 +317,17 @@ def match_packed(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     """K6: ``match_batch`` with ``g_pack`` instances sharing a block, each on
     its own warps.  Computes the same function as ``match_batch``, bit for
     bit, in either table precision; its plain version is
-    ``match_batch_plain``."""
+    ``match_batch_plain``.  The early exit takes ``g_pack`` 1 only (and then
+    runs K5's launches)."""
     b = _check_batch("K6", maps, points, valid, hints, cfg, g_pack)
     if maps.device.type == "cpu":
         return match_batch_plain(maps, points, valid, hints, cfg)
-    out = _launch("K6 match_packed", maps, points, valid, hints, cfg, b,
-                  g_pack)
+    if cfg.early_exit_tol > 0.0:
+        out = _launch_exit("K6 match_packed (exit)", maps, points, valid,
+                           hints, cfg, b)
+    else:
+        out = _launch("K6 match_packed", maps, points, valid, hints, cfg, b,
+                      g_pack)
     match_packed.launches += 1
     return out
 
@@ -286,7 +339,7 @@ def match_plain(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
                 hint: torch.Tensor, cfg: HectorConfig) -> torch.Tensor:
     """K1's and K3's plain version: same inputs, same f32[7] output (the
     one-robot case of ``match_batch_plain``, with the single robot's rule for
-    an empty scan and its early exit)."""
+    an empty scan; at one robot the batch-wide exit is the single robot's)."""
     return match_batch_plain(maps, points[None], valid[None], hint[None],
                              cfg, full_scan_empty(cfg))[0]
 
@@ -302,10 +355,13 @@ def match_batch_plain(maps: torch.Tensor, points: torch.Tensor,
     ``cfg.matcher_mode``.  An instance with no valid matcher beam (with
     ``full_scan``, no valid beam in its whole scan) returns its hint.
 
-    With ``early_exit_tol > 0`` an instance's level stops once an iteration
-    moved its pixel-frame pose by no more than the tolerance: the loop runs
-    every iteration and freezes a stopped instance's pose and stats, which
-    gives JAX's while loop without a host read.  Returns f32[B, 7]."""
+    With ``early_exit_tol > 0`` a level stops after the first iteration in
+    which no instance moved its pixel-frame pose by more than the tolerance
+    (``fleet.py:154-172``: ``max_b moved2_b <= tol2``, a NaN stopping it as
+    ``jnp.max`` propagates it); every instance runs that shared count.  The
+    loop runs every iteration and freezes the whole batch once the level
+    has stopped (one device flag for all instances), which gives JAX's while
+    loop without a host read.  Returns f32[B, 7]."""
     _check_cfg(cfg)
     b = points.shape[0]
     dev = maps.device
@@ -323,7 +379,7 @@ def match_batch_plain(maps: torch.Tensor, points: torch.Tensor,
         row0 = inst + cfg.level_offsets[level]
         est = torch.stack([pose[:, 0] * scale, pose[:, 1] * scale, pose[:, 2]],
                           dim=1)
-        live = torch.ones(b, dtype=torch.bool, device=dev)
+        live = torch.ones((), dtype=torch.bool, device=dev)
         for _ in range(cfg.estimate_iterations[level]):
             sr, cr, mx, my, ok, xi, yi = _gn_coords(w, scale, est, X, Y, V)
             base = row0 + (yi * w + xi).long()
@@ -334,13 +390,13 @@ def match_batch_plain(maps: torch.Tensor, points: torch.Tensor,
                 cfg.xy_step_clamp_px, cfg.gn_damping)
             d = new - est
             moved2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-            est = torch.where(live[:, None], new, est)
+            est = torch.where(live, new, est)
             fails = fails + (~solve_ok & live).to(torch.float32)
             resid = torch.where(live, r_new, resid)
             n_in = torch.where(live, n_new, n_in)
             iters = iters + live.to(torch.float32)
             if tol2 > 0.0:
-                live = live & (moved2 > tol2)
+                live = live & (moved2.max() > tol2)
         pose = torch.stack([est[:, 0] / scale, est[:, 1] / scale,
                             normalize_angle(est[:, 2])], dim=1)
     # an instance with no valid beam returns its hint (ScanMatcher.cs:82-83)

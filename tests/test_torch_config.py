@@ -53,7 +53,8 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.models.coreslam, slamnet_tpu_torch.ops.score, "
             "slamnet_tpu_torch.ops.correlate, slamnet_tpu_torch.ops.holemap, "
             "slamnet_tpu_torch.ops.obstacle, slamnet_tpu_torch.sim.field, "
-            "slamnet_tpu_torch.sim.trajectory; "
+            "slamnet_tpu_torch.sim.trajectory, "
+            "slamnet_tpu_torch.models.particle, slamnet_tpu_torch.ops.match; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -259,14 +259,14 @@ def test_onehot_bf16_runs_the_same_kernels(flog, jax_boot):
     st1 = hector.init(port_cfg(matcher_mode="onehot_bf16"), traj[6, 0],
                       device="cpu")
     hector.update(st1, scan, st1.match_pose, port_cfg(matcher_mode="onehot_bf16"))
-    # a mode no kernel runs is refused by both models; an early exit by the
-    # fleet (its batch-wide rule is not ported) and by the single robot's
-    # "pallas" (as JAX's), while the single robot's onehot_bf16 takes it
+    # a mode no kernel runs is refused by both models; an early exit under
+    # "pallas" (port_cfg's matcher) too, as JAX's single robot and fleet
+    # refuse it, while onehot_bf16 takes it in both
     for bad, exc, msg in (({"matcher_mode": "onehot"}, NotImplementedError,
                            "matcher_mode"),
                           ({"early_exit_tol": 1e-3}, ValueError,
                            "early_exit_tol")):
-        with pytest.raises(NotImplementedError, match=msg):
+        with pytest.raises(exc, match=msg):
             fleet.update_fleet(
                 convert.fleet_state_from_numpy(**arrays, device="cpu"), p, vv,
                 port_cfg(**bad))
@@ -498,3 +498,167 @@ def test_fleet_empty_scan_rule_follows_the_jax_mode(flog, jax_boot, mode):
     assert int(out[2, 3]) == int(stats_j.solve_failures[2]) == 9
     np.testing.assert_allclose(out[:, :3].numpy(), np.asarray(poses_j),
                                atol=2e-3)
+
+
+# ---- the fleet's batch-wide early exit (slamnet_tpu/models/fleet.py:154-172):
+# a level stops only after an iteration in which no robot moved by more than
+# the tolerance, and every robot runs that shared count.  The f32 table
+# (gather) is held to 1e-5 m, K1's table against JAX's onehot_bf16 to 2e-3
+# (as above); the shared counts and the solve failures exactly.
+EXIT_OFFSETS = np.asarray([[0.1, -0.05, 0.02], [-0.08, 0.06, -0.03],
+                           [0.05, 0.1, 0.01], [0.12, 0.04, -0.02]], np.float32)
+
+
+def _batch_match(maps_j, cfg, pts, valid, hints):
+    """(port plain f32[B, 7], JAX (poses, stats)) on the same inputs."""
+    jcfg = jax_cfg(cfg, cfg.matcher_mode)
+    poses_j, stats_j = jfleet._match_batch(
+        maps_j, jfleet.fleet_cells(jcfg), jnp.asarray(pts), jnp.asarray(valid),
+        jnp.asarray(hints), jcfg)
+    out = match.match_batch(torch.from_numpy(np.array(maps_j)),
+                            torch.from_numpy(pts), torch.from_numpy(valid),
+                            torch.from_numpy(hints), cfg)
+    return out.numpy(), np.asarray(poses_j), stats_j
+
+
+@pytest.mark.parametrize("tol", [1e-3, 0.3])
+@pytest.mark.parametrize("mode", ["gather", "onehot_bf16"])
+def test_batch_exit_plain_matches_jax(flog, jax_boot, mode, tol):
+    # B = 4 on the JAX-bootstrapped 2-level pyramid; at 0.3 px the levels
+    # exit early, at bench's 1e-3 the young maps keep a robot moving
+    traj, pts, v = flog
+    jst, _ = jax_boot
+    cfg = sub1_cfg(matcher_mode=mode, early_exit_tol=tol)
+    hints = (traj[6] + EXIT_OFFSETS).astype(np.float32)
+    out, poses_j, stats_j = _batch_match(jst.maps, cfg, pts[6], v[6], hints)
+    np.testing.assert_allclose(out[:, :3], poses_j,
+                               atol=1e-5 if mode == "gather" else 2e-3)
+    np.testing.assert_array_equal(out[:, 3].astype(np.int32),
+                                  np.asarray(stats_j.solve_failures))
+    iters = out[:, 6].astype(np.int32)
+    np.testing.assert_array_equal(iters, np.asarray(stats_j.iterations))
+    assert (iters == iters[0]).all()                  # one shared count
+    if tol == 0.3:
+        assert iters[0] < sum(SMALL["estimate_iterations"])
+    # the wrapper takes the plain version on the CPU, uncounted
+    counts = (match.match_batch.launches, match.match_batch.launches_f32,
+              match.match_batch.exit_launches)
+    assert (match.match_batch.launches, match.match_batch.launches_f32,
+            match.match_batch.exit_launches) == counts
+
+
+def test_batch_exit_is_not_the_per_robot_rule(flog, jax_boot):
+    # one level of 8 iterations, tolerance 0.05 px: alone, robot 0 (hint
+    # near its pose) stops after 2 iterations and robot 1 (hint 0.36 m and
+    # 0.05 rad off) after 5.  Together JAX's fleet runs both 5 times; a
+    # per-robot exit would stop robot 0 at 2, with another pose
+    traj, pts, v = flog
+    jst, _ = jax_boot
+    c = port_cfg().total_cells
+    cfg = sub1_cfg(num_levels=1, estimate_iterations=(8,), early_exit_tol=0.05)
+    w = cfg.total_cells
+    maps = np.array(jst.maps).reshape(B, c)[:2, :w].reshape(-1)
+    hints = (traj[6, :2] + np.asarray([[0.05, 0.03, 0.01], [0.3, -0.2, 0.05]],
+                                      np.float32)).astype(np.float32)
+    out, poses_j, stats_j = _batch_match(jnp.asarray(maps), cfg, pts[6, :2],
+                                         v[6, :2], hints)
+    np.testing.assert_array_equal(np.asarray(stats_j.iterations), [5, 5])
+    np.testing.assert_array_equal(out[:, 6], [5, 5])
+    np.testing.assert_allclose(out[:, :3], poses_j, atol=1e-5)
+    alone = [match.match_batch_plain(torch.from_numpy(maps[i * w:(i + 1) * w]),
+                                     torch.from_numpy(pts[6, i:i + 1]),
+                                     torch.from_numpy(v[6, i:i + 1]),
+                                     torch.from_numpy(hints[i:i + 1]), cfg)[0]
+             for i in range(2)]
+    assert [int(a[6]) for a in alone] == [2, 5]
+    assert np.abs(alone[0][:3].numpy() - poses_j[0]).max() > 1e-4
+    np.testing.assert_array_equal(alone[1].numpy(), out[1])
+
+
+@pytest.mark.parametrize("mode", ["gather", "onehot_bf16"])
+def test_batch_exit_at_one_robot_is_the_single_robots(flog, jax_boot, mode):
+    # B = 1: the batch-wide rule is the single robot's (hector.py:227-244),
+    # bit for bit in the port and in the iterations JAX's single robot runs
+    traj, pts, v = flog
+    jst, _ = jax_boot
+    c = port_cfg().total_cells
+    maps = np.array(jst.maps)[:c]
+    for tol in (1e-3, 0.3):
+        cfg = sub1_cfg(matcher_mode=mode, early_exit_tol=tol)
+        hint = (traj[6, 0] + EXIT_OFFSETS[0]).astype(np.float32)
+        args = (torch.from_numpy(pts[6, 0]), torch.from_numpy(v[6, 0]),
+                torch.from_numpy(hint))
+        one = match.match_plain(torch.from_numpy(maps), *args, cfg)
+        batch = match.match_batch_plain(torch.from_numpy(maps),
+                                        *(a[None] for a in args), cfg)
+        assert torch.equal(batch[0], one)
+        jcfg = jax_cfg(cfg, mode)
+        _, jstats = jhector.match_with_stats(
+            jnp.asarray(maps), jhector.Scan(jnp.asarray(pts[6, 0]),
+                                            jnp.asarray(v[6, 0]),
+                                            jnp.zeros(3, jnp.float32)),
+            jnp.asarray(hint), jcfg)
+        assert int(one[6]) == int(jstats.iterations)
+
+
+def _rows_run(cfg, flog):
+    """The port's and JAX's fleet flow (BOOT forced batch-scans, then
+    tracked ones): per step (poses, map_updated, maps, GN iterations)."""
+    traj, pts, v = flog
+    jcfg = jax_cfg(cfg, cfg.matcher_mode)
+    st = fleet.init_fleet(cfg, traj[0], device="cpu")
+    jst = jfleet.init_fleet(jcfg, traj[0])
+    got, want = [], []
+    for t in range(T):
+        if t < BOOT:
+            st = st._replace(match_pose=torch.from_numpy(traj[t]))
+            jst = jst._replace(match_pose=jnp.asarray(traj[t]))
+        st, info = fleet.update_fleet(st, torch.from_numpy(pts[t]),
+                                      torch.from_numpy(v[t]), cfg, t < BOOT)
+        jst, jinfo = jax_step(jst, jnp.asarray(pts[t]), jnp.asarray(v[t]),
+                              cfg=jcfg,
+                              map_without_matching=jnp.asarray(t < BOOT))
+        got.append((st.match_pose.numpy().copy(),
+                    info.map_updated.numpy().copy(), st.maps.numpy().copy(),
+                    info.gn_iterations.numpy().copy()))
+        want.append((np.asarray(jst.match_pose), np.asarray(jinfo.map_updated),
+                     np.asarray(jst.maps), np.asarray(jinfo.gn_iterations)))
+    return got, want
+
+
+@pytest.mark.parametrize("row", ["sub4", "sub4_onehot", "sub4_onehot_cap2",
+                                 "sub1_exit", "sub1_exit_fires"])
+def test_fleet_rows_match_jax(flog, row):
+    # bench's other fleet rows (bench.py:506-523) and sub1 with the exit,
+    # through the plain versions, against the JAX fleet: poses (1e-4 m on
+    # the f32 table, as sub1; 2e-3 on K1's), the same fire flags a step,
+    # maps within 0.1% of an instance-level's cells, equal GN iterations
+    cfg = {"sub4": replay.sub4_config(**SMALL),
+           "sub4_onehot": replay.sub4_onehot_config(**SMALL),
+           "sub4_onehot_cap2": replay.sub4_onehot_cap_config(2, **SMALL),
+           "sub1_exit": replay.sub1_exit_config(**SMALL),
+           "sub1_exit_fires": replay.sub1_exit_config(
+               early_exit_tol=0.3, **SMALL)}[row]
+    got, want = _rows_run(cfg, flog)
+    tol = 2e-3 if cfg.matcher_mode == "onehot_bf16" else 1e-4
+    for t, ((gp, gu, gm, gi), (wp, wu, wm, wi)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(gu, wu, err_msg=f"map_updated, step {t}")
+        np.testing.assert_allclose(gp, wp, atol=tol, err_msg=f"step {t}")
+        np.testing.assert_array_equal(gi, wi, err_msg=f"iterations, step {t}")
+        g = gm.reshape(B, cfg.total_cells)
+        w = wm.reshape(B, cfg.total_cells)
+        for off, size in zip(cfg.level_offsets, cfg.level_sizes):
+            sl = slice(off, off + size * size)
+            frac = (g[:, sl] != w[:, sl]).mean(axis=1)
+            assert frac.max() <= 1e-3, (t, frac)
+    upd = np.stack([g[1] for g in got])
+    iters = np.stack([g[3] for g in got])
+    if row == "sub4_onehot_cap2":
+        # at most 2 updates a batch-scan; a deferred robot tracks on a map
+        # that lags (bench.py:514-516), so no accuracy bound here
+        assert (upd.sum(axis=1) <= 2).all() and upd[BOOT:].any()
+        return
+    if row == "sub1_exit_fires":
+        assert (iters[BOOT:] < sum(SMALL["estimate_iterations"])).any()
+    err = np.linalg.norm(got[-1][0][:, :2] - flog[0][-1, :, :2], axis=1)
+    assert err.max() < 0.1

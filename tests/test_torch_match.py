@@ -273,17 +273,19 @@ def _k3_refusals():
                                           torch.zeros(2, 400, 2),
                                           torch.ones(2, 400, dtype=torch.bool),
                                           h, cfg)),
-        # the fleet keeps fixed iterations (JAX's batch-wide exit is not
-        # ported), in the model and in the batched match
-        "model_mode": (NotImplementedError, "early_exit_tol", lambda:
-                       fleet.init_fleet(cfg.overlay({"early_exit_tol": 1e-3}),
+        # the fleet takes the batch-wide exit under K3's and K1's
+        # onehot_bf16 tables; the model refuses it under "pallas" (as JAX's
+        # fleet does, fleet.py:89-92), and K6 refuses it at g_pack > 1
+        "model_mode": (ValueError, "early_exit_tol", lambda:
+                       fleet.init_fleet(cfg.overlay({"early_exit_tol": 1e-3,
+                                                     "matcher_mode": "pallas"}),
                                         torch.zeros(2, 3), device="cpu")),
         "batch_early_exit": (ValueError, "batch-wide early exit", lambda:
-                             match.match_batch(
+                             match.match_packed(
                                  torch.zeros(2 * c), torch.zeros(2, 400, 2),
                                  torch.ones(2, 400, dtype=torch.bool),
                                  torch.zeros(2, 3),
-                                 cfg.overlay({"early_exit_tol": 1e-3}))),
+                                 cfg.overlay({"early_exit_tol": 1e-3}), 2)),
     }
 
 
