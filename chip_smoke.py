@@ -118,7 +118,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 bench's graph gate (same keyframes, closures
                 >= ref - 2, ATE <= 1.15 x ref, max error <= ref + 0.01)
                 against GRAPH_JAX_REF_* / GRAPH_ONEHOT_JAX_REF_* and
-                pallas_full against gather; scans/s (best of 3, each
+                pallas_full against gather; scans/s (best of 2, each
                 replay's poses the first's bit for bit); the final graph's
                 normal equations assembled twice, equal bit for bit; the host
                 us a scan of the Hector-only fixed replay of the same log
@@ -137,7 +137,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 scans on the odometry, the office gate against
                 OFFICE_JAX_REF_* (the same keyframes, closures >= ref - 2,
                 optimised keyframe ATE and Hector-only ATE <= 1.15 x ref,
-                closure margin >= 0.85 x ref), scans/s best of 3;
+                closure margin >= 0.85 x ref), scans/s best of 2;
  18. coreslam ops — CoreSLAM's ops at the bench's shapes (256-px hole map,
                 64-px obstacle map, 400 beams, 4096 candidates, a 32 x 8 x 8
                 grid) on the card against the CPU on the same inputs: the
@@ -156,7 +156,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 (the first replay of each mode with CUDA's sync debug mode
                 set to error), kernels a searched scan (the profiler over
                 scans 20-39),
-                scans/s (the best of the 3 replays after the first), a
+                scans/s (the best of the 2 replays after the first), a
                 repeat of the first replay giving its poses bit for bit.
  20. exit     — the fleet's batch-wide early exit (JAX's fleet.py:154-172:
                 a level stops only when no robot moved more than the
@@ -198,7 +198,41 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 "error"), a repeat of each mode's first replay giving its
                 poses bit for bit, scans/s; sub4, grid and grid_small one
                 seed each, reported.
-Phases 17-23 print their seconds.
+ 24. sim pyramid — K3, K1 (onehot_bf16) and K4 at HectorConfig()'s
+                4-level 400/200/100/50-px pyramid (the simulator's and the
+                processors'): phase 10's three hints and the guard config
+                (K3 within K3_POSE_TOL / K3_RESID_RTOL, K1 within 2e-3 /
+                3e-3 and rtol 0.05), an empty scan, K4 bit for bit on all 4
+                levels of a bootstrapped and a random map, gated maps
+                untouched; K3 and K4 at 181 beams on the dataset pyramid (40
+                m over 400 px, 3 levels) of adversarial_180.clf, robot
+                inside the loop, nearest the map's edge and 1 m from it
+                (beams leaving the map); timed with bounds;
+ 25. datasets — replay.carmen_replay over examples/data/sim_loop.clf (120
+                scans) and adversarial_180.clf (360, robust): the native
+                parser's log equal to the Python reader's; one K3 and one
+                K4 a scan, no other kernel; no host read (the first under
+                CUDA's sync debug mode "error"); replay.dataset_gate
+                (sim_loop: Hector within 1e-3 m of JAX's track at every
+                scan; adversarial: RMS <= 1.15 x JAX's, max <= JAX's + 0.05,
+                RMS < 0.15, max < 0.6, RMS < 0.5 x odometry's; CoreSLAM's
+                median over CORESLAM_NUDGES starts <= JAX's + 2e-3);
+                scans/s; a track JSONL and occupancy / hole PNGs written;
+ 26. compat   — HectorSLAMProcessor at the simulator's constructor over the
+                10 + 512 loop scans: the track and maps of hector.update bit
+                for bit, ATE <= COMPAT_JAX_REF_ATE_M + 1e-4, one K3 + one K4
+                an Update (onehot_bf16: one K1 + one K4), MapRep, bitmaps,
+                timings; CoreSLAMProcessor over 60 scans, Reset; checkpoints:
+                the fixed replay saved at scan 256 and CoreSLAM's parity
+                replay at scan 200 (its generator's state inside) resume bit
+                for bit, the card's checkpoint restores and steps on the CPU
+                within K3_POSE_TOL; debug.all_finite on every state with no
+                host read; metrics.device_trace names K3's kernel;
+ 27. interactive — InteractiveSession() on the card, 40 steps (K3 + K4 a
+                step, CoreSLAM MC), no divergence, frames of levels 0-3 and
+                the hole map, serve() answering GET /state and POST /pose on
+                127.0.0.1, the session's scan rate.
+Phases 17-27 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -210,16 +244,23 @@ The frontend entries' launches are a graph replay's count less its 512
 Hector launches (one a scan): the loop searches'.  Phases 3 and 10 print
 K1's and K3's answers at their hints as f32 bits, to compare two trees' runs.
 """
+import base64
 import inspect
 import itertools
 import json
+import math
+import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 REPS_KERNEL = 200
 REPS_PLAIN = 20
-TIMED_REPLAYS = 3
+TIMED_REPLAYS = 2
 G_PACKS = (1, 2, 4, 8)
 K6_G_REPORTED = 4     # the g_pack of K6's entry in the kernels line
 # K3 vs its plain version: the f32 table leaves only the order of the beam
@@ -2631,6 +2672,539 @@ def main() -> int:
         f"+ 0.02 (bench.py:810); {time.perf_counter() - t23:.1f} s")
     check(not pfails, f"particle gate vs JAX: {pfails}")
 
+    # ---- 24. K3 + K4 (+ K1) at the simulator's pyramid and 181 beams -----
+    t24 = time.perf_counter()
+    from slamnet_tpu_torch import compat, hostio
+    from slamnet_tpu_torch.core import debug
+    from slamnet_tpu_torch.core.config import HectorConfig
+    from slamnet_tpu_torch.io import checkpoint, interactive, live
+    from slamnet_tpu_torch.io import datasets as io_datasets
+    from slamnet_tpu_torch.io import export as io_export
+    from slamnet_tpu_torch.io import metrics as io_metrics
+
+    scfg = HectorConfig()        # the simulator's: 4 levels, 7/4/4/4
+    check(scfg.level_sizes == (400, 200, 100, 50)
+          and scfg.matcher_mode == "gather" and not scfg.dense_free_fill,
+          f"HectorConfig() is not the simulator's pyramid: {scfg}")
+    sst = hector.init(scfg, truth, dev)
+    for _ in range(6):
+        sst, _ = hector.update(sst, sim_scan(truth), truth, scfg, True)
+    smaps = sst.maps
+    sscan = sim_scan(truth)
+    guard = {"xy_step_clamp_px": 10.0, "gn_damping": 0.1,
+             "match_subsample": 4}
+    l4_err = {"K3": 0.0, "K3_res": 0.0, "K1": 0.0}
+    l4_cases = [(scfg, off) for off in EXIT_HINTS] + [
+        (scfg.overlay(guard), (0.15, 0.1, -0.03))]
+    s1cfg = scfg.overlay({"matcher_mode": "onehot_bf16"})     # K1's table
+    for i, (c, off) in enumerate(l4_cases):
+        hint = truth + torch.tensor(off, device=dev)
+        ok_ = match.match(smaps, sscan.points, sscan.valid, hint, c)
+        op = match.match_plain(smaps, sscan.points, sscan.valid, hint, c)
+        c1 = c.overlay({"matcher_mode": "onehot_bf16"})
+        o1 = match.match(smaps, sscan.points, sscan.valid, hint, c1)
+        p1 = match.match_plain(smaps, sscan.points, sscan.valid, hint, c1)
+        ok_, op, o1, p1 = (x.cpu().numpy() for x in (ok_, op, o1, p1))
+        err, res, _, _ = k3_readings(ok_[None], op[None], op[None])
+        err1 = float(np.abs(o1[:3] - p1[:3]).max())
+        l4_err["K3"], l4_err["K3_res"] = max(l4_err["K3"], err), max(
+            l4_err["K3_res"], res)
+        l4_err["K1"] = max(l4_err["K1"], err1)
+        check(np.isfinite(ok_).all() and err <= K3_POSE_TOL
+              and res <= K3_RESID_RTOL and ok_[3] == op[3],
+              f"K3 at 4 levels, case {i}: {ok_[:6]} vs plain {op[:6]} (pose "
+              f"err {err}, residual rel err {res})")
+        check(np.linalg.norm(ok_[:2] - truth[:2].cpu().numpy()) < 0.08,
+              f"K3 at 4 levels did not converge: {ok_[:3]}")
+        tol1 = 3e-3 if c.match_subsample > 1 else 2e-3
+        r1k, r1p = o1[4] / max(o1[5], 1.0), p1[4] / max(p1[5], 1.0)
+        check(np.isfinite(o1).all() and err1 <= tol1 and o1[3] == p1[3]
+              and abs(r1k - r1p) <= 0.05 * abs(r1p),
+              f"K1 at 4 levels, case {i}: {o1[:6]} vs plain {p1[:6]}")
+    hint = torch.tensor([20.0, 20.0, 0.5], device=dev)
+    for c in (scfg, s1cfg):
+        oe = match.match(smaps, sscan.points, empty, hint, c)
+        check(torch.equal(oe[:3], hint),
+              f"{c.matcher_mode} at 4 levels, empty scan: {oe[:3]} != hint")
+    rand4 = torch.as_tensor(np.random.default_rng(7).uniform(
+        -8.0, 60.0, scfg.total_cells).astype(np.float32), device=dev)
+    l4_cells = {}
+    for name, base in (("simulator", smaps), ("random", rand4)):
+        mk = line_case(f"K4 at 4 levels, {name} maps", base, k2_scan.points,
+                       k2_scan.valid, pose, yes, scfg)
+        for level in range(4):
+            off, w = scfg.level_offsets[level], scfg.level_sizes[level]
+            d = mk[off:off + w * w] - base[off:off + w * w]
+            check(bool((d < 0).any()) and bool((d > 0).any()),
+                  f"K4 at 4 levels, {name} level {level}: no free or no "
+                  "occupied cell")
+        l4_cells[name] = int((mk != base).sum())
+        mz = line_case(f"K4 at 4 levels, {name} gated", base, k2_scan.points,
+                       k2_scan.valid, pose, no, scfg)
+        check(torch.equal(mz, base), f"K4 at 4 levels ({name}): do_update=0 "
+              "changed the maps")
+    # the dataset pyramid (3 levels, 40 m over 400 px, the robust guards)
+    # fed 181-beam scans of adversarial_180.clf: maps from its first 60
+    # scans' replay; scans inside the loop, the one nearest the map's edge,
+    # and that scan with the robot 1 m from the map's edge (beams leave it)
+    dhc = replay.dataset_config(robust=True)[0]
+    d60 = replay.load_carmen(replay.ADVERSARIAL_LOG, dev, max_scans=60)
+    dst, _, _ = replay.carmen_replay(d60, dhc, None)
+    dmaps = dst.maps
+    dfull = io_datasets.read_carmen(str(replay.ADVERSARIAL_LOG))
+    dtruth = dfull.truth.copy()
+    dtruth[:, :2] -= d60.offset[None, :]
+    edge = np.minimum(dtruth[:, :2], 40.0 - dtruth[:, :2]).min(axis=1)
+    t_edge = int(np.argmin(edge[60:])) + 60
+    dpts = torch.as_tensor(io_datasets.log_points(dfull), device=dev)
+    dval = torch.as_tensor(dfull.valid, device=dev)
+    d_err = {"K3": 0.0, "K3_res": 0.0}
+    d_cells = {}
+    for where, t, robot in (("inside", 60, None), ("inside", 61, None),
+                            ("nearest the edge", t_edge, None),
+                            ("1 m from the edge", t_edge,
+                             (1.0, float(dtruth[t_edge, 1]),
+                              float(dtruth[t_edge, 2])))):
+        at = torch.tensor(dtruth[t] if robot is None else robot, device=dev)
+        hint = at + torch.tensor((0.08, -0.06, 0.02), device=dev)
+        ok_ = match.match(dmaps, dpts[t], dval[t], hint, dhc)
+        op = match.match_plain(dmaps, dpts[t], dval[t], hint, dhc)
+        ok_, op = ok_.cpu().numpy(), op.cpu().numpy()
+        err, res, _, _ = k3_readings(ok_[None], op[None], op[None])
+        d_err["K3"], d_err["K3_res"] = max(d_err["K3"], err), max(
+            d_err["K3_res"], res)
+        check(np.isfinite(ok_).all() and err <= K3_POSE_TOL
+              and res <= K3_RESID_RTOL and ok_[3] == op[3]
+              and ok_[5] == op[5],
+              f"K3 at 181 beams, robot {where} (scan {t}): {ok_[:6]} vs "
+              f"plain {op[:6]}")
+        mk = line_case(f"K4 at 181 beams, robot {where} (scan {t})", dmaps,
+                       dpts[t], dval[t], at, yes, dhc)
+        d_cells[f"{where} {t}"] = int((mk != dmaps).sum())
+    # the last case's beams leave the map: endpoints at x < 0
+    th = float(dtruth[t_edge, 2])
+    ex = 1.0 + (dpts[t_edge, :, 0] * math.cos(th)
+                - dpts[t_edge, :, 1] * math.sin(th))
+    d_off = int(((ex < 0) & dval[t_edge]).sum())
+    check(d_off > 0, "no beam of the edge case leaves the map")
+    gt4 = smaps.clone()
+    gtd = dmaps.clone()
+    h4 = truth + torch.tensor(EXIT_HINTS[0], device=dev)
+    hd = torch.tensor(dtruth[61], device=dev) + torch.tensor(
+        (0.08, -0.06, 0.02), device=dev)
+    l4_ms = {
+        "K3": (lambda: match.match(smaps, sscan.points, sscan.valid, h4, scfg),
+               lambda: match.match_plain(smaps, sscan.points, sscan.valid, h4,
+                                         scfg),
+               match_work(smaps, sscan.points[None], sscan.valid[None],
+                          h4[None], scfg)),
+        "K1": (lambda: match.match(smaps, sscan.points, sscan.valid, h4,
+                                   s1cfg),
+               lambda: match.match_plain(smaps, sscan.points, sscan.valid, h4,
+                                         s1cfg),
+               match_work(smaps, sscan.points[None], sscan.valid[None],
+                          h4[None], s1cfg)),
+        "K4": (lambda: line_ops.update_maps_line(
+            gt4, k2_scan.points, k2_scan.valid, pose, zero3, yes, scfg),
+            lambda: line_ops.update_maps_line_plain(
+                gt4, k2_scan.points, k2_scan.valid, pose, zero3, yes, scfg),
+            line_work(l4_cells["simulator"], 400, 1, 1)),
+        "K3_181": (lambda: match.match(dmaps, dpts[61], dval[61], hd, dhc),
+                   lambda: match.match_plain(dmaps, dpts[61], dval[61], hd,
+                                             dhc),
+                   match_work(dmaps, dpts[61][None], dval[61][None], hd[None],
+                              dhc)),
+        "K4_181": (lambda: line_ops.update_maps_line(
+            gtd, dpts[61], dval[61], hd, zero3, yes, dhc),
+            lambda: line_ops.update_maps_line_plain(
+                gtd, dpts[61], dval[61], hd, zero3, yes, dhc),
+            line_work(d_cells["inside 61"], 181, 1, 1))}
+    l4_ms = {k: (graph_ms(torch, f, REPS_KERNEL), graph_ms(torch, p, REPS_PLAIN),
+                 bound(*w)) for k, (f, p, w) in l4_ms.items()}
+    del gt4, gtd
+    say(f"[sim pyramid] {scfg.level_sizes} px, 7/4/4/4: K3 equals its plain "
+        f"version within |pose err| {l4_err['K3']:.3g} (tol {K3_POSE_TOL}), "
+        f"residual rel err {l4_err['K3_res']:.3g} over {len(l4_cases)} hints "
+        f"(guard config included); K1 (onehot_bf16) |pose err| "
+        f"{l4_err['K1']:.3g} (tol 2e-3/3e-3); the empty scan returns the "
+        f"hint; K4 bit for bit on all 4 levels ({l4_cells} cells changed), "
+        f"gated maps untouched")
+    say(f"[181 beams] adversarial_180.clf on the dataset pyramid "
+        f"{dhc.level_sizes} px: K3 |pose err| {d_err['K3']:.3g}, residual "
+        f"rel err {d_err['K3_res']:.3g}; K4 bit for bit ({d_cells} cells "
+        f"changed; scan {t_edge} is {edge[t_edge]:.2f} m from the edge; "
+        f"{d_off} beams end off the map 1 m from it)")
+    say("[sim pyramid] device ms (CUDA graph): "
+        + ", ".join(f"{k} {v[0]:.4f} vs plain {v[1]:.4f} (bound "
+                    f"{v[2][0]:.6f} by {v[2][1]})" for k, v in l4_ms.items())
+        + f"; {time.perf_counter() - t24:.1f} s")
+
+    # ---- 25. the dataset replays of the checked-in CARMEN logs ------------
+    t25 = time.perf_counter()
+    ds_runs = {}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    try:
+        for dname, dpath, robust in (
+                ("sim_loop", replay.SIM_LOOP_LOG, False),
+                ("adversarial", replay.ADVERSARIAL_LOG, True)):
+            nat = hostio.read_carmen_native(str(dpath))
+            py = io_datasets.read_carmen(str(dpath))
+            check(all(np.array_equal(getattr(nat, f), getattr(py, f))
+                      for f in ("ranges", "valid", "odometry", "angles",
+                                "timestamps"))
+                  and nat.max_range == py.max_range
+                  and (nat.truth is None) == (py.truth is None)
+                  and (nat.truth is None
+                       or np.array_equal(nat.truth, py.truth)),
+                  f"{dname}: the native parser's log differs from the Python "
+                  "reader's")
+            data = replay.load_carmen(dpath, dev,
+                                      truth=replay.sim_loop_truth(120))
+            hcd, ccd = replay.dataset_config(robust)
+            tn = data.points.shape[0]
+            zero_counts()
+            torch.cuda.synchronize()
+            if dname == "sim_loop":   # no host read in a replay: syncs raise
+                torch.cuda.set_sync_debug_mode("error")
+            tt = time.perf_counter()
+            try:
+                hstd, cstd, dout = replay.carmen_replay(data, hcd, ccd)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            both_s = time.perf_counter() - tt
+            dlaunch = read_counts()
+            want = dict.fromkeys(dlaunch, 0)
+            want.update(match_f32=tn, line=tn)
+            check(dlaunch == want, f"launches in the {dname} replay: "
+                  f"{dlaunch}, want {want}")
+            tt = time.perf_counter()
+            _, _, hout = replay.carmen_replay(data, hcd, None)
+            torch.cuda.synchronize()
+            hector_s = time.perf_counter() - tt
+            check(torch.equal(hout.hector, dout.hector),
+                  f"{dname}: Hector alone gave another track")
+            dm = replay.dataset_metrics(data, dout)
+            c_ates, core_s = [dm["coreslam_ate_m"]], []
+            for k in replay.CORESLAM_NUDGES[1:]:
+                tt = time.perf_counter()
+                _, _, cout = replay.carmen_replay(data, None, ccd, nudge=k)
+                torch.cuda.synchronize()
+                core_s.append(time.perf_counter() - tt)
+                c_ates.append(replay.ate_of(cout.coreslam.cpu().numpy(),
+                                            data.truth)[0])
+            htrack = dout.hector.cpu().numpy()
+            ctrack = dout.coreslam.cpu().numpy()
+            check(np.isfinite(htrack).all() and np.isfinite(ctrack).all(),
+                  f"{dname}: tracks not finite")
+            dfails = replay.dataset_gate(dname, dm, htrack, c_ates)
+            ref_err = None
+            if dname == "sim_loop":
+                ref_err = float(np.abs(htrack[:, :2] - replay.
+                                       dataset_reference_track(dname)[:, :2])
+                                .max())
+            # the example's outputs: a track JSONL, occupancy and hole PNGs
+            with open(os.path.join(out_dir, f"{dname}_track.jsonl"), "w") as f:
+                for t in range(tn):
+                    f.write(json.dumps({
+                        "t": t, "odom": [round(float(x), 4)
+                                         for x in data.odo[t]],
+                        "coreslam": [round(float(x), 4) for x in ctrack[t]],
+                        "hector": [round(float(x), 4)
+                                   for x in htrack[t]]}) + "\n")
+            occ = live._png_bytes(np.flipud(io_export.occupancy_bitmap(
+                hector.level_view(hstd.maps, hcd, 0).reshape(-1),
+                hcd.map_size)))
+            hole = live._png_bytes(np.flipud(
+                (cstd.hole_map.reshape(ccd.hole_map_size, -1).cpu().numpy()
+                 .astype(np.uint16) >> 8).astype(np.uint8)))
+            for nm, png in (("occupancy", occ), ("hole_map", hole)):
+                with open(os.path.join(out_dir, f"{dname}_{nm}.png"),
+                          "wb") as f:
+                    f.write(png)
+                check(png[:8] == b"\x89PNG\r\n\x1a\n", f"{dname} {nm} PNG")
+            lines = sum(1 for _ in open(os.path.join(
+                out_dir, f"{dname}_track.jsonl")))
+            check(lines == tn, f"{dname}: {lines} track lines for {tn} scans")
+            ds_runs[dname] = {
+                **dm, "scans": tn, "beams": int(data.points.shape[1]),
+                "coreslam_ates_m": c_ates,
+                "coreslam_median_ate_m": float(np.median(c_ates)),
+                "hector_max_dev_from_jax_m": ref_err,
+                "launches": {k: v for k, v in dlaunch.items() if v},
+                "scans_per_s": tn / both_s,
+                "hector_scans_per_s": tn / hector_s,
+                "coreslam_scans_per_s": tn / min(core_s),
+                "png_bytes": {"occupancy": len(occ), "hole_map": len(hole)}}
+            ref = replay.DATASET_JAX_REFS[dname]
+            say(f"[dataset] {dname} ({tn} scans x {data.points.shape[1]} "
+                f"beams, native parser = Python reader bit for bit): Hector "
+                f"RMS / max ATE {dm['hector_ate_m']:.6f} / "
+                f"{dm['hector_max_err_m']:.6f} m (JAX {ref['hector_ate_m']:.6f}"
+                f" / {ref['hector_max_err_m']:.6f}"
+                + (f"; track within {ref_err:.3g} m of JAX's at every scan"
+                   if ref_err is not None else "")
+                + f"), odometry {dm['odometry_ate_m']:.6f}; CoreSLAM ATE "
+                + " ".join(f"{x:.6f}" for x in c_ates)
+                + f" m over {len(c_ates)} starts (median "
+                f"{np.median(c_ates):.6f}; JAX {ref['coreslam_ate_m'][0]:.6f})"
+                f"; launches {ds_runs[dname]['launches']}, no host read"
+                + (" (sync debug mode 'error')" if dname == "sim_loop" else "")
+                + f"; scans/s both {tn / both_s:.1f}, Hector "
+                f"{tn / hector_s:.1f}, CoreSLAM {tn / min(core_s):.1f}; track "
+                f"JSONL + PNGs ({len(occ)} + {len(hole)} B) written")
+            check(not dfails, f"{dname} gate vs JAX: {dfails}")
+            ds_runs[dname]["states"] = (hstd, cstd)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"[dataset] {time.perf_counter() - t25:.1f} s")
+
+    # ---- 26. the reference API, checkpoints, debug, trace -----------------
+    t26 = time.perf_counter()
+    procs = {}
+    for mode in ("gather", "onehot_bf16"):
+        proc = compat.HectorSLAMProcessor(0.1, 400, (20.0, 20.0, 0.0), 4, 4,
+                                          estimate_iterations=(7, 4, 4, 4),
+                                          matcher_mode=mode, device=dev)
+        # the processor's own motion gates (0.3 m, 0.13 rad), the
+        # simulator's pyramid
+        check(proc.cfg == scfg.overlay({
+            "matcher_mode": mode, "min_distance_diff_for_map_update": 0.3,
+            "min_angle_diff_for_map_update": 0.13}),
+            f"the processor's config is not the simulator's: {proc.cfg}")
+        zero_counts()
+        ptrack, pupd = [], 0
+        tt = time.perf_counter()
+        for t in range(dlog.points.shape[0]):
+            sc = Scan(dlog.points[t], dlog.valid[t], zero3)
+            if t < log.bootstrap:
+                proc.Update(sc, dlog.traj[t], map_without_matching=True)
+            else:
+                pupd += proc.Update(sc)
+                ptrack.append(proc.state.match_pose)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tt
+        plaunch = read_counts()
+        want = dict.fromkeys(plaunch, 0)
+        want.update({"match_f32" if mode == "gather" else "match":
+                     n + log.bootstrap, "line": n + log.bootstrap})
+        check(plaunch == want, f"launches of the {mode} processor: "
+              f"{plaunch}, want {want}")
+        ptrack = torch.stack(ptrack)
+        pate, pmax = replay.ate_of(ptrack.cpu().numpy(), log.traj[log.bootstrap:])
+        procs[mode] = {"proc": proc, "track": ptrack, "ate_m": pate,
+                       "max_err_m": pmax, "map_updates": pupd,
+                       "launches": {k: v for k, v in plaunch.items() if v},
+                       "scans_per_s": dlog.points.shape[0] / secs}
+    proc = procs["gather"]["proc"]
+    dst_ = hector.init(proc.cfg, truth, dev)
+    direct = []
+    for t in range(dlog.points.shape[0]):
+        sc = Scan(dlog.points[t], dlog.valid[t], zero3)
+        force = t < log.bootstrap
+        dst_, _ = hector.update(dst_, sc, dlog.traj[t] if force
+                                else dst_.match_pose, proc.cfg, force)
+        if not force:
+            direct.append(dst_.match_pose)
+    check(torch.equal(torch.stack(direct), procs["gather"]["track"])
+          and torch.equal(dst_.maps, proc.state.maps),
+          "the processor's track or maps differ from hector.update's")
+    check(procs["gather"]["ate_m"] <= replay.COMPAT_JAX_REF_ATE_M + 1e-4,
+          f"processor ATE {procs['gather']['ate_m']} > JAX's "
+          f"{replay.COMPAT_JAX_REF_ATE_M} + 1e-4")
+    check(procs["onehot_bf16"]["max_err_m"] <= 0.05,
+          f"onehot_bf16 processor max error {procs['onehot_bf16']['max_err_m']}")
+    reps = proc.MapRep
+    check([r.shape for r in reps] == [(s, s) for s in scfg.level_sizes],
+          f"MapRep shapes {[r.shape for r in reps]}")
+    bvals = set(np.unique(proc.GetBitmapData(0)).tolist())
+    check(bvals <= {0, 127, 254} and len(bvals) == 3,
+          f"GetBitmapData values {bvals}")
+    check(proc.MatchTiming.ms > 0.0 and proc.UpdateTiming.ms > 0.0,
+          "processor timings not taken")
+    # the simulator's constructor (MainWindow.xaml.cs:69-72)
+    cproc = compat.CoreSLAMProcessor(40.0, 256, 64, log.traj[0], 0.1,
+                                     math.pi / 18, 1024, 4, hole_width=2.0,
+                                     device=dev)
+    ang_t = torch.as_tensor(log.angles, device=dev)
+    rad_t = torch.as_tensor(log.radii, device=dev)
+    val_t = torch.as_tensor(log.valid, device=dev)
+    from slamnet_tpu_torch.core.scan import SegmentScan
+    cposes = []
+    for t in range(60):
+        cproc.Update(SegmentScan.single(ang_t, rad_t[t], val_t[t],
+                                        dlog.traj[t]))
+        cposes.append(cproc.state.pose)
+    cate = replay.ate_of(torch.stack(cposes).cpu().numpy(), log.traj[:60])
+    check(np.isfinite(cate[0]) and cate[1] < 0.5,
+          f"CoreSLAMProcessor over 60 scans: ATE {cate}")
+    check(bool((cproc.HoleMap != coreslam.HOLE_INIT).any()),
+          "CoreSLAMProcessor left the hole map at its initial value")
+    cproc.Reset()
+    check(bool((cproc.HoleMap == coreslam.HOLE_INIT).all())
+          and np.array_equal(cproc.Pose, log.traj[0]),
+          "CoreSLAMProcessor.Reset did not restore HOLE_INIT and the start")
+    # checkpoints: the fixed replay saved at scan 256 and resumed in a fresh
+    # state; a CoreSLAM parity replay saved at scan 200 (its generator's
+    # state in the checkpoint)
+    ck = {}
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        xst_b = replay.bootstrap(hector.init(xcfg, log.traj[0], dev), dlog,
+                                 log.bootstrap, xcfg)
+        x_fin, x_full = replay.replay(xst_b, dlog, log.bootstrap, xcfg)
+        cut = replay.DeviceLog(dlog.points[:256], dlog.valid[:256],
+                               dlog.traj[:256])
+        x_mid, _ = replay.replay(xst_b, cut, log.bootstrap, xcfg)
+        checkpoint.save(os.path.join(ck_dir, "fixed"), x_mid, {"scan": 256})
+        x_back = checkpoint.restore(os.path.join(ck_dir, "fixed"),
+                                    hector.init(xcfg, (0.0, 0.0, 0.0), dev))
+        x_end, x_rest = replay.replay(x_back, dlog, 256, xcfg)
+        check(torch.equal(x_rest.poses, x_full.poses[256 - log.bootstrap:])
+              and torch.equal(x_end.maps, x_fin.maps),
+              "the resumed fixed replay differs from the uninterrupted one")
+        # the card's checkpoint on the CPU: plain npz, one step on the CPU
+        with np.load(os.path.join(ck_dir, "fixed", "state.npz"),
+                     allow_pickle=False) as z:
+            check(all(z[k].dtype != object for k in z.files),
+                  "object arrays in the checkpoint")
+        x_cpu = checkpoint.restore(os.path.join(ck_dir, "fixed"),
+                                   x_back, device="cpu")
+        sc = Scan(dlog.points[256].cpu(), dlog.valid[256].cpu(),
+                  torch.zeros(3))
+        x_cpu2, _ = hector.update(x_cpu, sc, x_cpu.match_pose, xcfg)
+        cpu_err = float((x_cpu2.match_pose - x_rest.poses[0].cpu()).abs()
+                        .max())
+        check(cpu_err <= K3_POSE_TOL, f"the checkpoint stepped on the CPU "
+              f"lands {cpu_err} from the card's next pose")
+        c_full_st, c_full = replay.coreslam_replay(cdl, mcfg_, seed=1)
+        ccut = replay.DeviceLog(cdl.points[:200], cdl.valid[:200],
+                                cdl.traj[:200])
+        c_mid, _ = replay.coreslam_replay(ccut, mcfg_, seed=1)
+        checkpoint.save(os.path.join(ck_dir, "coreslam"), c_mid,
+                        {"scan": 200})
+        c_st = checkpoint.restore(os.path.join(ck_dir, "coreslam"),
+                                  coreslam.init(mcfg_, (0.0, 0.0, 0.0),
+                                                seed=99, device=dev))
+        c_rest = []
+        for t in range(200, cdl.points.shape[0]):
+            c_st, _ = coreslam.update_cloud(
+                c_st, Scan(cdl.points[t], cdl.valid[t], zero3), c_st.pose,
+                mcfg_)
+            c_rest.append(c_st.pose)
+        check(torch.equal(torch.stack(c_rest), c_full.poses[200:])
+              and torch.equal(c_st.hole_map, c_full_st.hole_map)
+              and torch.equal(c_st.obstacle_map, c_full_st.obstacle_map),
+              "the resumed CoreSLAM parity replay differs from the "
+              "uninterrupted one")
+        ck = {"trace_k3_events": None,
+              "fixed_resume_bit_for_bit": True,
+              "coreslam_resume_bit_for_bit": True,
+              "card_to_cpu_pose_err": cpu_err,
+              "bytes": {k: os.path.getsize(os.path.join(ck_dir, k,
+                                                        "state.npz"))
+                        for k in ("fixed", "coreslam")}}
+        # every state is finite, and asking reads nothing back
+        states = [x_end, c_st, c_full_st, proc.state, procs["onehot_bf16"][
+            "proc"].state] + [s for r in ds_runs.values() for s in r.pop(
+                "states")]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            flags = torch.stack([debug.all_finite(s) for s in states])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(flags.all()), f"debug.all_finite: {flags.tolist()}")
+        # the trace of the resumed replay (266 scans, ~0.1 s): a window of
+        # one scan late in this long process once held no kernel (PERF.md,
+        # open questions)
+        with io_metrics.device_trace(os.path.join(ck_dir, "trace")) as tr:
+            replay.replay(x_back, dlog, 256, xcfg)
+        with open(tr.path) as f:
+            k3_events = [e["name"] for e in json.load(f)["traceEvents"]
+                         if "match_kernel<true" in e.get("name", "")]
+        k3_names = sorted(set(k3_events))
+        check(bool(k3_names), "the device trace holds no K3 kernel")
+        ck["trace_k3_events"] = len(k3_events)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    say(f"[compat] HectorSLAMProcessor(0.1, 400, (20, 20, 0), 4, 4, 7/4/4/4) "
+        f"over {dlog.points.shape[0]} loop scans ({log.bootstrap} forced): "
+        f"the track and maps of hector.update bit for bit; ATE "
+        f"{procs['gather']['ate_m']:.6f} (JAX {replay.COMPAT_JAX_REF_ATE_M:.6f}"
+        f"), max {procs['gather']['max_err_m']:.6f}, launches "
+        f"{procs['gather']['launches']}, {procs['gather']['scans_per_s']:.1f} "
+        f"scans/s (one host read a scan); onehot_bf16: ATE "
+        f"{procs['onehot_bf16']['ate_m']:.6f}, max "
+        f"{procs['onehot_bf16']['max_err_m']:.6f}, launches "
+        f"{procs['onehot_bf16']['launches']}, "
+        f"{procs['onehot_bf16']['scans_per_s']:.1f} scans/s; MapRep 4 levels, "
+        f"bitmap values {sorted(bvals)}, MatchTiming {proc.MatchTiming.ms:.3f}"
+        f" ms; CoreSLAMProcessor 60 scans ATE {cate[0]:.4f} m, Reset restores "
+        f"HOLE_INIT")
+    say(f"[checkpoint] the fixed replay saved at scan 256 and the CoreSLAM "
+        f"parity replay at scan 200 (generator state inside) resume bit for "
+        f"bit; the card's checkpoint steps on the CPU to {cpu_err:.3g} m of "
+        f"the card's next pose; npz bytes {ck['bytes']}; debug.all_finite "
+        f"true on {len(states)} states with no host read; the trace holds "
+        f"{len(k3_events)} of the resumed replay's "
+        f"{dlog.points.shape[0] - 256} K3 launches, named "
+        f"{(k3_names or [''])[0][:60]}; {time.perf_counter() - t26:.1f} s")
+
+    # ---- 27. the interactive simulator ------------------------------------
+    t27 = time.perf_counter()
+    sess = interactive.InteractiveSession()
+    zero_counts()
+    steps = 40
+    tt = time.perf_counter()
+    for _ in range(steps):
+        sess.step()
+    torch.cuda.synchronize()
+    sess_s = time.perf_counter() - tt
+    ilaunch = read_counts()
+    want = dict.fromkeys(ilaunch, 0)
+    want.update(match_f32=steps, line=steps)
+    check(ilaunch == want, f"launches of {steps} session steps: {ilaunch}, "
+          f"want {want}")
+    check(sess.diverged_at is None and sess.loops == steps,
+          f"the session diverged at {sess.diverged_at}")
+    for level in (0, 1, 2, 3, -1):
+        snap = sess.frame(level)
+        raw = base64.b64decode(snap["png"])
+        w, h = struct.unpack(">II", raw[16:24])
+        want_size = 256 if level < 0 else scfg.level_sizes[level]
+        check(raw[:8] == b"\x89PNG\r\n\x1a\n" and w == h == want_size
+              and snap["size"] == want_size,
+              f"frame({level}): {w} x {h}, want {want_size}")
+    srv = interactive.serve(sess, port=0)
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/state?level=0", timeout=10) as r:
+            st_json = json.load(r)
+        req = urllib.request.Request(
+            f"{base}/pose", data=json.dumps({"x": 21.0, "y": 20.0}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            posted = json.load(r)
+    finally:
+        sess.stop()
+        srv.shutdown()
+        srv.server_close()
+    check(st_json["size"] == 400 and st_json["has_coreslam"]
+          and posted == {"ok": True}
+          and sess.real_pose[:2].tolist() == [21.0, 20.0],
+          f"HTTP round trip: {st_json.get('size')}, {posted}, "
+          f"{sess.real_pose}")
+    say(f"[interactive] InteractiveSession() on the card: {steps} steps "
+        f"(10 forced), Hector 4 levels (K3 + K4 a step: {ilaunch['match_f32']}"
+        f" + {ilaunch['line']}), CoreSLAM MC {sess.ccfg.num_candidates}; no "
+        f"divergence; {steps / sess_s:.1f} scans/s (rate EMA "
+        f"{sess.scan_rate_ema:.1f}); frames of levels 0-3 and the hole map "
+        f"decode at their sizes; GET /state and POST /pose answered on "
+        f"127.0.0.1; {time.perf_counter() - t27:.1f} s")
+    say(f"[seconds] phases 24-27: {t25 - t24:.1f} / {t26 - t25:.1f} / "
+        f"{t27 - t26:.1f} / {time.perf_counter() - t27:.1f}")
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -2693,7 +3267,23 @@ def main() -> int:
               office_runs["graph"]["launches"]["match_f32"], o_err["K3"],
               *o_ms["K3"]),
         entry("line_office", "line.cu", "pallas_scatter.py:71",
-              office_runs["graph"]["launches"]["line"], 0.0, *o_ms["K4"])],
+              office_runs["graph"]["launches"]["line"], 0.0, *o_ms["K4"]),
+        # the simulator's 4-level pyramid: the processors' replays' launches
+        entry("match_f32_l4", "match.cu", "pallas_gn.py:133",
+              procs["gather"]["launches"]["match_f32"], l4_err["K3"],
+              *l4_ms["K3"]),
+        entry("match_l4", "match.cu", "pallas_onehot.py:500",
+              procs["onehot_bf16"]["launches"]["match"], l4_err["K1"],
+              *l4_ms["K1"]),
+        entry("line_l4", "line.cu", "pallas_scatter.py:71",
+              procs["gather"]["launches"]["line"], 0.0, *l4_ms["K4"]),
+        # the 181-beam dataset pyramid: both dataset replays' launches
+        entry("match_f32_181", "match.cu", "pallas_gn.py:133",
+              sum(r["launches"]["match_f32"] for r in ds_runs.values()),
+              d_err["K3"], *l4_ms["K3_181"]),
+        entry("line_181", "line.cu", "pallas_scatter.py:71",
+              sum(r["launches"]["line"] for r in ds_runs.values()), 0.0,
+              *l4_ms["K4_181"])],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -2759,6 +3349,20 @@ def main() -> int:
                      "jax_ref_exact_ates_m": replay.PARTICLE_JAX_REF_ATES_M,
                      "jax_ref_grid_dense_ates_m":
                          replay.PARTICLE_GRID_DENSE_JAX_REF_ATES_M},
+        "sim_pyramid": {"level_sizes": scfg.level_sizes,
+                        "max_pose_err": l4_err, "line_cells_changed": l4_cells,
+                        "dataset_k3_err": d_err,
+                        "dataset_line_cells_changed": d_cells,
+                        "edge_beams_off_map": d_off},
+        "datasets": ds_runs,
+        "compat": {m: {k: v for k, v in r.items() if k not in ("proc",
+                                                              "track")}
+                   for m, r in procs.items()},
+        "compat_jax_ref_ate_m": replay.COMPAT_JAX_REF_ATE_M,
+        "coreslam_processor_ate_m": cate[0], "checkpoint": ck,
+        "interactive": {"steps": steps, "scans_per_s": steps / sess_s,
+                        "launches": {k: v for k, v in ilaunch.items() if v},
+                        "diverged_at": sess.diverged_at},
         "match_bits": {"K1": k1_bits, "K3": k3_bits},
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,10 +22,14 @@ of CoreSLAM's replay of the 522 loop scans (``--mode production``, the
 default, or ``parity``), or with ``--particle`` a scan of the particle
 layer's replay of the 522 loop scans at 8192 particles (``--mode exact``,
 the default, or another of ``replay.PARTICLE_MODES``: ``sub4``, ``grid``,
-``grid_small``, ``grid_dense``; generator seed 1).
+``grid_small``, ``grid_dense``; generator seed 1), or with ``--dataset`` a
+scan of the dataset replay of a checked-in CARMEN log (Hector's K3 + K4 and
+CoreSLAM correlative, ``replay.carmen_replay``; ``--mode adversarial``, the
+default, the 360 scans of ``adversarial_180.clf`` with the robust guards, or
+``sim_loop``, the 120 scans of ``sim_loop.clf``).
 
     python3 scripts/torch_port_profile.py [--fleet | --graph | --office |
-        --coreslam | --particle] [--mode M] [--out DIR]
+        --coreslam | --particle | --dataset] [--mode M] [--out DIR]
 """
 import argparse
 import json
@@ -57,6 +61,8 @@ CORESLAM = {"production": replay.coreslam_production_config,
             "parity": replay.coreslam_parity_config}
 PARTICLE = {name: (lambda cfgs=cfgs: cfgs)
             for name, cfgs in replay.PARTICLE_MODES.items()}
+DATASET = {"adversarial": lambda: (replay.ADVERSARIAL_LOG, True),
+           "sim_loop": lambda: (replay.SIM_LOOP_LOG, False)}
 
 
 def _single(dev, cfg):
@@ -104,6 +110,13 @@ def _particle(dev, cfgs):
     return dlog.points.shape[0], lambda: replay.particle_replay(dlog, *cfgs)
 
 
+def _dataset(dev, spec):
+    path, robust = spec
+    data = replay.load_carmen(path, dev, truth=replay.sim_loop_truth(120))
+    cfgs = replay.dataset_config(robust)
+    return data.points.shape[0], lambda: replay.carmen_replay(data, *cfgs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the Chrome trace")
@@ -118,18 +131,22 @@ def main() -> int:
                       help="CoreSLAM instead of the single robot")
     path.add_argument("--particle", action="store_true",
                       help="the particle layer instead of the single robot")
+    path.add_argument("--dataset", action="store_true",
+                      help="the dataset replay of a checked-in CARMEN log")
     ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH,
-                                              *OFFICE, *CORESLAM, *PARTICLE}),
+                                              *OFFICE, *CORESLAM, *PARTICLE,
+                                              *DATASET}),
                     help="the configuration (default pallas_dense, "
                          "sub4_pallas_dense with --fleet, gather with "
                          "--graph, graph with --office, production with "
-                         "--coreslam, exact with --particle)")
+                         "--coreslam, exact with --particle, adversarial "
+                         "with --dataset)")
     args = ap.parse_args()
     kind = ("fleet" if args.fleet else "graph" if args.graph else "office"
             if args.office else "coreslam" if args.coreslam else "particle"
-            if args.particle else "single")
+            if args.particle else "dataset" if args.dataset else "single")
     modes = {"fleet": FLEET, "graph": GRAPH, "office": OFFICE,
-             "coreslam": CORESLAM, "particle": PARTICLE,
+             "coreslam": CORESLAM, "particle": PARTICLE, "dataset": DATASET,
              "single": SINGLE}[kind]
     mode = args.mode or next(iter(modes))
     if mode not in modes:
@@ -139,7 +156,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     make = {"fleet": _fleet, "graph": _graph, "office": _office,
             "coreslam": _coreslam, "particle": _particle,
-            "single": _single}[kind]
+            "dataset": _dataset, "single": _single}[kind]
     n, run = make(dev, modes[mode]())
     run()                                                  # warm-up
     torch.cuda.synchronize()

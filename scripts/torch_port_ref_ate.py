@@ -65,17 +65,38 @@ line updates) under ``PRNGKey(--seed)`` (default 1;
 starts from the first true pose with its x moved by k f32 ulps
 (``replay.CORESLAM_JAX_REF_ATES_M`` holds k = 0, 1, -1, 2, -2).
 
+``--dataset sim_loop|adversarial`` runs ``examples/replay_dataset.py``'s
+flow (``:64-143``) over ``examples/data/sim_loop.clf`` (120 scans; its truth
+is ``loop_trajectory(speed=0.25)[:120]``, the log's generator's path) or
+``adversarial_180.clf`` (360 scans with ``# TRUTH`` lines, the robust
+guards on): the log recentred on its first odometry pose, Hector at 3
+levels (7/4/4, 40 m / 400 px, gather + line updates) hinted with the match
+pose plus the odometry delta, the first 10 scans forced and set to the
+odometry, and CoreSLAM correlative with the dense fills from the first
+odometry pose, its x moved by each of ``replay.CORESLAM_NUDGES`` f32 ulps.
+It prints Hector's track, its RMS / max ATE, CoreSLAM's ATE from each start
+and the odometry's ATE (``replay.SIM_LOOP_JAX_REF_*`` /
+``ADVERSARIAL_JAX_REF_*``; the sim_loop track goes to ``--out`` as
+``replay.DATASET_REF_TRACKS``'s JSON).
+
+``--compat`` drives ``slamnet_tpu.compat.HectorSLAMProcessor`` at the
+simulator's constructor (0.1 m, 400 px, 4 levels, 7/4/4/4 iterations) over
+``make_log(0)``: 10 forced updates at the true poses, then 512 tracked ones;
+the ATE over the tracked scans (``replay.COMPAT_JAX_REF_*``).
+
 Runs on the CPU (a few minutes); prints one JSON object.
 
     python scripts/torch_port_ref_ate.py [--seed 0] [--exit]
         [--fleet [--mode sub1]] [--graph [--mode onehot_full]] [--office]
         [--coreslam [--mode parity|production] [--seed 1] [--nudge 0]]
         [--particle [--mode exact|sub4|grid|grid_small|grid_dense]
-         [--seed 1]]
+         [--seed 1]] [--dataset sim_loop|adversarial [--out FILE]]
+        [--compat]
 """
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -335,6 +356,111 @@ def run_particle(ccfg, pcfg, log, seed):
             "resamples": int(np.asarray(resampled).sum())}
 
 
+def run_dataset(name):
+    """examples/replay_dataset.py's flow over a checked-in log (see the
+    module's docstring), as one lax.scan a pipeline."""
+    import dataclasses
+
+    from slamnet_tpu.io import datasets
+    from slamnet_tpu.sim.trajectory import loop_trajectory
+
+    robust = name == "adversarial"
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "examples", "data",
+        "adversarial_180.clf" if robust else "sim_loop.clf")
+    log = datasets.read_carmen(path)
+    t_n = log.ranges.shape[0]
+    pts = jnp.asarray(datasets.log_points(log))
+    valid = jnp.asarray(log.valid)
+    center = 40.0 / 2.0
+    offset = log.odometry[0, :2] - center
+    odo = log.odometry.copy()
+    odo[:, :2] -= offset[None, :]
+    truth = (log.truth.copy() if log.truth is not None
+             else loop_trajectory(speed=0.25)[:t_n].copy())
+    truth[:, :2] -= offset[None, :]
+    deltas = np.zeros_like(odo)
+    for t in range(1, t_n):
+        d = odo[t] - odo[t - 1]
+        d[2] = math.remainder(d[2], 2.0 * math.pi)
+        deltas[t] = d
+    ccfg = dataclasses.replace(
+        CoreSlamConfig(), physical_map_size=40.0, search_mode="correlative",
+        dense_hole_fill=True, dense_obstacle_fill=True)
+    hcfg = dataclasses.replace(HectorConfig(), num_levels=3,
+                               estimate_iterations=(7, 4, 4),
+                               map_resolution=40.0 / 400.0)
+    if robust:
+        hcfg = dataclasses.replace(hcfg, xy_step_clamp_px=10.0,
+                                   max_match_jump=1.0, gn_damping=0.1)
+    zero = jnp.zeros(3, jnp.float32)
+
+    @jax.jit
+    def hector_run(state, xs):
+        def body(st, inp):
+            t, p, v, d, o = inp
+            st, _ = hector.update(st, Scan(p, v, zero), st.match_pose + d,
+                                  hcfg, map_without_matching=t < 10)
+            st = st._replace(match_pose=jnp.where(t < 10, o, st.match_pose))
+            return st, st.match_pose
+        return jax.lax.scan(body, state, xs)[1]
+
+    @jax.jit
+    def coreslam_run(state, xs):
+        def body(st, inp):
+            p, v, o = inp
+            st, _ = coreslam.update_cloud(st, Scan(p, v, zero), o, ccfg)
+            return st, st.pose
+        return jax.lax.scan(body, state, xs)[1]
+
+    odo_j = jnp.asarray(odo)
+    track = np.asarray(hector_run(
+        hector.init(hcfg, odo[0]),
+        (jnp.arange(t_n), pts, valid, jnp.asarray(deltas), odo_j)))
+    h_ate, h_max = ate_of(track, truth)
+    o_ate, o_max = ate_of(odo, truth)
+    c_ates = []
+    for k in port.CORESLAM_NUDGES:
+        start = port.nudged_start(torch.from_numpy(odo[0]), k).numpy()
+        poses = coreslam_run(coreslam.init(ccfg, start), (pts, valid, odo_j))
+        c_ates.append(ate_of(np.asarray(poses), truth))
+    return {"scans": t_n, "beams": int(log.ranges.shape[1]),
+            "robust": robust, "hector_ate_m": h_ate, "hector_max_err_m": h_max,
+            "odometry_ate_m": o_ate, "odometry_max_err_m": o_max,
+            "coreslam_nudges": list(port.CORESLAM_NUDGES),
+            "coreslam_ate_m": [a for a, _ in c_ates],
+            "coreslam_max_err_m": [m for _, m in c_ates]}, track
+
+
+def run_compat(log):
+    """slamnet_tpu.compat.HectorSLAMProcessor at the simulator's
+    constructor over ``log``: ``log.bootstrap`` forced updates at the true
+    poses, then the rest tracked; the ATE over the tracked scans."""
+    from slamnet_tpu.compat import HectorSLAMProcessor
+
+    proc = HectorSLAMProcessor(0.1, 400, (20.0, 20.0, 0.0), 4, 4,
+                               estimate_iterations=(7, 4, 4, 4))
+    angles = jnp.asarray(log.angles)
+    cloud = jax.jit(lambda r, v: Scan(
+        jnp.stack([r * jnp.cos(angles), r * jnp.sin(angles)], -1), v,
+        jnp.zeros(3, jnp.float32)))
+    b = log.bootstrap
+    poses, updates = [], 0
+    for t in range(log.radii.shape[0]):
+        scan = cloud(jnp.asarray(log.radii[t]), jnp.asarray(log.valid[t]))
+        if t < b:
+            proc.Update(scan, log.traj[t], map_without_matching=True)
+        else:
+            updates += proc.Update(scan)
+            poses.append(proc.MatchPose)
+    ate, mx = ate_of(np.stack(poses), log.traj[b:])
+    return {"ate_m": ate, "max_err_m": mx, "map_updates": int(updates),
+            "config": {"map_resolution": proc.cfg.map_resolution,
+                       "map_size": proc.cfg.map_size,
+                       "num_levels": proc.cfg.num_levels,
+                       "estimate_iterations": proc.cfg.estimate_iterations}}
+
+
 def _jax_cfg(cls, cfg):
     """The JAX config with the port config's fields."""
     return cls(**dataclasses.asdict(cfg))
@@ -369,7 +495,35 @@ def main():
                     help="the fleet's mode (default sub4_onehot_dense), the "
                          "graph's (default gather) or CoreSLAM's (default "
                          "production)")
+    ap.add_argument("--dataset", choices=("sim_loop", "adversarial"),
+                    help="examples/replay_dataset.py's flow over a "
+                         "checked-in CARMEN log")
+    ap.add_argument("--out", help="--dataset: write Hector's track here "
+                                  "as JSON")
+    ap.add_argument("--compat", action="store_true",
+                    help="compat.HectorSLAMProcessor over the loop log")
     args = ap.parse_args()
+    if args.dataset:
+        t0 = time.time()
+        res, track = run_dataset(args.dataset)
+        res["seconds"] = round(time.time() - t0, 1)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({args.dataset: {"hector_track": track.tolist()}}, f)
+        print(json.dumps({f"dataset_{args.dataset}": res,
+                          "jax": jax.__version__,
+                          "device": str(jax.devices()[0])}))
+        return
+    if args.compat:
+        log = make_log(0)
+        t0 = time.time()
+        res = run_compat(log)
+        res["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps({"compat": res, "seed": 0,
+                          "n_scans": int(log.radii.shape[0] - log.bootstrap),
+                          "bootstrap": log.bootstrap, "jax": jax.__version__,
+                          "device": str(jax.devices()[0])}))
+        return
     if args.office:
         log = port.make_office_log()
         out = {"seed": port.OFFICE_SEED, "n_scans": int(log.radii.shape[0]),

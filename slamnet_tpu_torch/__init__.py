@@ -14,8 +14,11 @@ at first use.  Each kernel wrapper runs its plain
 PyTorch version for CPU tensors (tests) and the kernel for CUDA tensors.
 Graph-SLAM (``models.graph_slam``) runs the same kernels at its frontend's
 shape; CoreSLAM (``models.coreslam``) runs PyTorch operators, as the JAX
-package runs it in XLA.  ``python3 chip_smoke.py`` drives every path on the
-card.
+package runs it in XLA.  The host surface: the reference's processor objects
+(``compat``), CARMEN logs (``io.datasets``, the native parser in ``hostio``)
+and their replay (``replay.carmen_replay``), checkpoints, metrics, export and
+the interactive simulator (``io``).  ``python3 chip_smoke.py`` drives every
+path on the card.
 """
 from . import core, io, models, ops, sim
 

@@ -1,7 +1,6 @@
 """Angle math, SE(2) poses and reference rounding (torch, pure functions).
 
-Port of the parts of ``slamnet_tpu/core/geometry.py`` that the Hector and
-graph-SLAM paths use.  Same numerical contracts (BaseSLAM/MathEx.cs,
+Port of ``slamnet_tpu/core/geometry.py``.  Same numerical contracts (BaseSLAM/MathEx.cs,
 BaseSLAM/VectorEx.cs, SURVEY.md §2.1); every function takes and returns
 tensors on any device.  The 2x2 rotations are written out as products and
 sums (no matrix product), so a pose costs the same few element-wise
@@ -21,6 +20,16 @@ def _floor_mod(x: torch.Tensor, y: float) -> torch.Tensor:
     ``jnp.mod`` is (no ``x - floor(x / y) * y`` rounding)."""
     r = torch.fmod(x, y)
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def deg_to_rad(deg: torch.Tensor) -> torch.Tensor:
+    """Degrees to radians (MathEx.DegToRad, BaseSLAM/MathEx.cs:45-48)."""
+    return torch.as_tensor(deg) * (math.pi / 180.0)
+
+
+def rad_to_deg(rad: torch.Tensor) -> torch.Tensor:
+    """Radians to degrees (MathEx.RadToDeg, BaseSLAM/MathEx.cs:56-59)."""
+    return torch.as_tensor(rad) * (180.0 / math.pi)
 
 
 def normalize_angle_pos(angle: torch.Tensor) -> torch.Tensor:
@@ -97,6 +106,36 @@ def dotnet_round(x: torch.Tensor) -> torch.Tensor:
     """.NET MathF.Round: round half to even (VectorEx.ToRoundPoint,
     OccGridMap.cs:127,134).  ``torch.round`` rounds half to even."""
     return torch.round(x).to(torch.int32)
+
+
+def polar_to_cartesian(radius: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Polar to cartesian, stacked on the last axis (MathEx.PolarToCartesian,
+    BaseSLAM/MathEx.cs:147-152)."""
+    return torch.stack([radius * torch.cos(angle), radius * torch.sin(angle)],
+                       dim=-1)
+
+
+def limit(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Clamp (MathEx.Limit float/int overloads, BaseSLAM/MathEx.cs:21-36)."""
+    return torch.clamp(torch.as_tensor(x), lo, hi)
+
+
+def find_position_on_line(p, a, b) -> torch.Tensor:
+    """Project point p onto the infinite line through a-b
+    (VectorEx.FindPositionOnLine, BaseSLAM/VectorEx.cs:35-46)."""
+    p, a, b = (torch.as_tensor(v, dtype=torch.float32) for v in (p, a, b))
+    ab = b - a
+    denom = (ab * ab).sum(dim=-1, keepdim=True).clamp(min=1e-12)
+    t = ((p - a) * ab).sum(dim=-1, keepdim=True) / denom
+    return a + t * ab
+
+
+def point_to_line_distance(p, a, b) -> torch.Tensor:
+    """Distance from p to the infinite line through a-b
+    (VectorEx.PointToLine, BaseSLAM/VectorEx.cs:55-61)."""
+    proj = find_position_on_line(p, a, b)
+    return torch.linalg.vector_norm(
+        torch.as_tensor(p, dtype=torch.float32) - proj, dim=-1)
 
 
 def rot2(theta: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,156 @@
+"""Observability: per-scan metrics, EMA timings, divergence monitor, device
+trace.
+
+Port of ``slamnet_tpu/io/metrics.py``, the reference's instrumentation
+rebuilt as host-side components (SURVEY.md §5.1/§5.3/§5.5):
+
+- ``EmaTimer``          — the 4-tap EMA ``t = (3t + dt)/4`` of MatchTiming /
+  UpdateTiming (HectorSLAMProcessor.cs:92-96, 111-115)
+- ``DivergenceMonitor`` — the simulator's first-divergence oracle: flags the
+  first scan where estimate-vs-truth error exceeds 1 m / 10 deg and dumps the
+  recent log ring (MainWindow.xaml.cs:182-196)
+- ``ScanMetrics``       — structured per-scan record (score, timings, gating)
+- ``RingLog``           — BufferedLogger with the scan loop's ring trimming
+  (Simulation/BufferedLogger.cs; MainWindow.xaml.cs:199-202)
+- ``device_trace``      — ``torch.profiler`` over the host and the card,
+  written as a Chrome trace (JAX's is ``jax.profiler.trace``)
+
+All but ``device_trace`` are plain Python, copied as they are.
+"""
+from __future__ import annotations
+
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import List, Optional
+
+
+class device_trace:
+    """Context manager: ``torch.profiler.profile`` over the CPU and (when
+    there is one) the CUDA device; on exit the trace is written to
+    ``log_dir/trace.json`` (Chrome trace format: chrome://tracing or
+    Perfetto), and ``path`` names it.  The profiler object is ``prof`` for
+    ``key_averages()`` and the like.
+
+    Usage: ``with device_trace('/tmp/trace') as t: run_replay()``.
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path = os.path.join(log_dir, "trace.json")
+        self.prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        return False
+
+
+class EmaTimer:
+    """4-tap EMA in milliseconds; ``update`` takes seconds."""
+
+    def __init__(self):
+        self.ms = 0.0
+
+    def update(self, seconds: float) -> float:
+        self.ms = (3.0 * self.ms + seconds * 1000.0) / 4.0
+        return self.ms
+
+    def time(self):
+        return _TimerCtx(self)
+
+
+class _TimerCtx:
+    def __init__(self, ema: EmaTimer):
+        self.ema = ema
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.ema.update(time.perf_counter() - self.t0)
+        return False
+
+
+class RingLog:
+    """Append-only log trimmed like the simulator's buffer: when over
+    `high_water` entries, drop the oldest `drop` (MainWindow.xaml.cs:199-202)."""
+
+    def __init__(self, high_water: int = 130, drop: int = 100):
+        self.items: List[str] = []
+        self.high_water = high_water
+        self.drop = drop
+
+    def log(self, msg: str, level: str = "Information"):
+        self.items.append(f"{level}: {msg}")
+        if len(self.items) > self.high_water:
+            del self.items[: self.drop]
+
+    def tail(self, n: int = 30) -> List[str]:
+        return self.items[-n:]
+
+
+@dataclass
+class ScanMetrics:
+    """Structured per-scan record (SURVEY.md §5.5 target schema)."""
+
+    scan_index: int
+    pose: tuple
+    match_ms: float = 0.0
+    update_ms: float = 0.0
+    score: Optional[float] = None
+    map_updated: bool = False
+    gn_residual: Optional[float] = None
+
+
+class DivergenceMonitor:
+    """First-divergence oracle with log-dump, as real assertions.
+
+    dist_limit / ang_limit default to the simulator's 1 m / 10 deg
+    (MainWindow.xaml.cs:187).
+    """
+
+    def __init__(self, dist_limit: float = 1.0,
+                 ang_limit_deg: float = 10.0, log: RingLog | None = None):
+        self.dist_limit = dist_limit
+        self.ang_limit = math.radians(ang_limit_deg)
+        self.log = log
+        self.diverged_at: Optional[int] = None
+        self.report: List[str] = []
+
+    def check(self, scan_index: int, estimate, truth) -> bool:
+        """Returns True on the FIRST divergence (then latches)."""
+        if self.diverged_at is not None:
+            return False
+        dx = float(estimate[0]) - float(truth[0])
+        dy = float(estimate[1]) - float(truth[1])
+        dth = (float(estimate[2]) - float(truth[2]) + math.pi) \
+            % (2 * math.pi) - math.pi
+        dist = math.hypot(dx, dy)
+        if dist > self.dist_limit or abs(dth) > self.ang_limit:
+            self.diverged_at = scan_index
+            self.report = [
+                f"divergence at scan {scan_index}: "
+                f"dist {dist:.2f} m, ang {math.degrees(dth):.2f} deg",
+            ]
+            if self.log is not None:
+                self.report += self.log.tail(30)
+            return True
+        return False

@@ -161,6 +161,13 @@ def match_with_stats(maps: torch.Tensor, scan: Scan, hint_pose_world: torch.Tens
     return out[:3], stats
 
 
+def match(maps: torch.Tensor, scan: Scan, hint_pose_world: torch.Tensor,
+          cfg: HectorConfig) -> torch.Tensor:
+    """ScanMatcher.MatchData over the pyramid: the matched world pose
+    f32[3] (``match_with_stats`` without the stats)."""
+    return match_with_stats(maps, scan, hint_pose_world, cfg)[0]
+
+
 def update_maps(state: HectorState, scan: Scan, pose_world: torch.Tensor,
                 do_update: torch.Tensor, cfg: HectorConfig,
                 plain: bool = False) -> torch.Tensor:

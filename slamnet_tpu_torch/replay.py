@@ -80,12 +80,38 @@ with 4096 candidates, line updates) or ``coreslam_production_config``
 ``CORESLAM_NUDGES`` ulps) and ``CORESLAM_PARITY_JAX_REF_ATES_M`` (parity
 under ``PRNGKey(1..9)``) come from ``scripts/torch_port_ref_ate.py
 --coreslam``; ``coreslam_gate`` holds the port's medians to them.
+
+The particle layer's flow (``bench.py:714-822``): ``particle_replay`` and
+``particle_gate`` against ``PARTICLE_*JAX_REF_ATES_M``.
+
+The dataset flow of ``examples/replay_dataset.py:64-143`` over a CARMEN log
+(the checked-in ``SIM_LOOP_LOG`` and ``ADVERSARIAL_LOG``):
+
+  * ``load_carmen``: the log read by ``hostio.read_carmen_native`` (the
+    Python reader for a log without FLASER lines), recentred so its first
+    odometry pose sits at the map's centre, its clouds on a device;
+  * ``dataset_config``: Hector at 3 levels (7/4/4, 40 m / 400 px, gather +
+    line updates: K3 + K4; with ``robust`` the xy clamp 10 px, max jump 1 m,
+    damping 0.1) and CoreSLAM correlative with the dense fills;
+  * ``carmen_replay``: both pipelines over every scan, Hector hinted with
+    its match pose plus the odometry delta (on the device: no host read in
+    the loop), the first DATASET_FORCED scans forced and set to the
+    odometry; CoreSLAM with the odometry pose;
+  * ``dataset_metrics`` / ``dataset_gate``: the ATEs against the truth and
+    the gates against ``SIM_LOOP_JAX_REF_*`` / ``ADVERSARIAL_JAX_REF_*``
+    (``scripts/torch_port_ref_ate.py --dataset {sim_loop,adversarial}``).
+
+``COMPAT_JAX_REF_*`` is JAX's ``compat.HectorSLAMProcessor`` at the
+simulator's constructor (0.1 m, 400 px, 4 levels, 7/4/4/4) over
+``make_log(0)`` (``... --compat``).
 """
 from __future__ import annotations
 
 import functools
+import json
 import math
-from typing import NamedTuple, Tuple
+from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,7 +120,7 @@ from .core.config import (CoreSlamConfig, HectorConfig, ParticleConfig,
                           PoseGraphConfig, SimConfig)
 from .core.scan import Scan
 from .graph.frontend import ScanMatchConfig
-from .io.datasets import drifting_odometry
+from .io.datasets import LidarLog, drifting_odometry, log_points, read_carmen
 from .models import coreslam, fleet, graph_slam, hector, particle
 from .sim import default_field, office_field, revolution_angles, scan_revolution
 from .sim.trajectory import (loop_trajectory, office_tour_trajectory,
@@ -286,7 +312,7 @@ def make_log(seed: int = 0) -> ScanLog:
     sim = SimConfig()
     traj = loop_trajectory(speed=0.3)[:N_SCANS + BOOTSTRAP]
     angles = revolution_angles(NUM_BEAMS)
-    fld = default_field(sim.field_scale, sim.field_offset)
+    fld = default_field(sim.field_scale, sim.field_offset, device="cpu")
     gen = torch.Generator().manual_seed(seed)
     radii, valid = scan_revolution(fld, torch.from_numpy(traj),
                                    torch.from_numpy(angles),
@@ -530,7 +556,7 @@ def make_graph_log(seed: int = GRAPH_SEED) -> ScanLog:
                     (GRAPH_BOOTSTRAP, 1))
     traj = np.concatenate([still, drive[:take]])
     angles = revolution_angles(NUM_BEAMS)
-    fld = default_field(sim.field_scale, sim.field_offset)
+    fld = default_field(sim.field_scale, sim.field_offset, device="cpu")
     gen = torch.Generator().manual_seed(seed)
     radii, valid = scan_revolution(fld, torch.from_numpy(traj),
                                    torch.from_numpy(angles),
@@ -642,7 +668,8 @@ def make_office_log(seed: int = OFFICE_SEED) -> ScanLog:
     angles = revolution_angles(NUM_BEAMS)
     gen = torch.Generator().manual_seed(seed)
     radii, valid = scan_revolution(
-        office_field(), torch.from_numpy(traj), torch.from_numpy(angles),
+        office_field(device="cpu"), torch.from_numpy(traj),
+        torch.from_numpy(angles),
         OFFICE_MAX_RANGE, SimConfig().measure_error, gen,
         range_error_std=OFFICE_RANGE_ERROR_STD)
     return ScanLog(traj, angles, radii.numpy(), valid.numpy(),
@@ -979,4 +1006,231 @@ def particle_gate(exact_ates, grid_dense_ates) -> list:
     if not med_g <= med_e + 0.02:
         fails.append(f"grid_dense median ATE {med_g} > exact's {med_e} + "
                      "0.02")
+    return fails
+
+
+DATA_DIR = Path(__file__).resolve().parents[1] / "examples" / "data"
+SIM_LOOP_LOG = DATA_DIR / "sim_loop.clf"
+ADVERSARIAL_LOG = DATA_DIR / "adversarial_180.clf"
+# JAX's Hector track over sim_loop.clf, one pose a scan (``--dataset
+# sim_loop --out``)
+DATASET_REF_TRACKS = Path(__file__).resolve().parent / "dataset_ref_tracks.json"
+DATASET_MAP_SIZE_M = 40.0
+DATASET_FORCED = 10
+SIM_LOOP_SPEED = 0.25        # sim_loop.clf's generator's loop speed
+# JAX package (JAX 0.9.0 on the CPU) over the checked-in logs in this flow:
+# `python scripts/torch_port_ref_ate.py --dataset sim_loop` printed
+# "dataset_sim_loop": {"scans": 120, "beams": 180, "robust": false,
+# "hector_ate_m": 0.019746121019124985, "hector_max_err_m":
+# 0.03905916213989258, "odometry_ate_m": 0.08883528411388397,
+# "odometry_max_err_m": 0.14367449283599854, "coreslam_ate_m":
+# 0.22466006875038147 from each of the 7 CORESLAM_NUDGES starts,
+# "coreslam_max_err_m": 0.3985465466976166 from each} (29.3 s), and `...
+# --dataset adversarial` printed "dataset_adversarial": {"scans": 360,
+# "beams": 181, "robust": true, "hector_ate_m": 0.03407921642065048,
+# "hector_max_err_m": 0.23363980650901794, "odometry_ate_m":
+# 0.5055422782897949, "odometry_max_err_m": 1.0422847270965576,
+# "coreslam_ate_m": 0.43099716305732727 from each start,
+# "coreslam_max_err_m": 0.6831338405609131 from each} (73.9 s).
+SIM_LOOP_JAX_REF_HECTOR_ATE_M = 0.019746121019124985
+SIM_LOOP_JAX_REF_HECTOR_MAX_M = 0.03905916213989258
+SIM_LOOP_JAX_REF_ODOMETRY_ATE_M = 0.08883528411388397
+SIM_LOOP_JAX_REF_CORESLAM_ATES_M = (0.22466006875038147,) * 7
+ADVERSARIAL_JAX_REF_HECTOR_ATE_M = 0.03407921642065048
+ADVERSARIAL_JAX_REF_HECTOR_MAX_M = 0.23363980650901794
+ADVERSARIAL_JAX_REF_ODOMETRY_ATE_M = 0.5055422782897949
+ADVERSARIAL_JAX_REF_CORESLAM_ATES_M = (0.43099716305732727,) * 7
+DATASET_JAX_REFS = {
+    "sim_loop": {"hector_ate_m": SIM_LOOP_JAX_REF_HECTOR_ATE_M,
+                 "hector_max_err_m": SIM_LOOP_JAX_REF_HECTOR_MAX_M,
+                 "odometry_ate_m": SIM_LOOP_JAX_REF_ODOMETRY_ATE_M,
+                 "coreslam_ate_m": SIM_LOOP_JAX_REF_CORESLAM_ATES_M},
+    "adversarial": {"hector_ate_m": ADVERSARIAL_JAX_REF_HECTOR_ATE_M,
+                    "hector_max_err_m": ADVERSARIAL_JAX_REF_HECTOR_MAX_M,
+                    "odometry_ate_m": ADVERSARIAL_JAX_REF_ODOMETRY_ATE_M,
+                    "coreslam_ate_m": ADVERSARIAL_JAX_REF_CORESLAM_ATES_M}}
+# JAX's compat.HectorSLAMProcessor(0.1, 400, (20, 20, 0), 4, 4,
+# estimate_iterations=(7, 4, 4, 4)) over make_log(0), 10 forced + 512
+# tracked scans, JAX 0.9.0 on the CPU: `python scripts/torch_port_ref_ate.py
+# --compat` printed "compat": {"ate_m": 0.0020391789730638266, "max_err_m":
+# 0.008902426809072495, "map_updates": 34} (9.3 s).
+COMPAT_JAX_REF_ATE_M = 0.0020391789730638266
+COMPAT_JAX_REF_MAX_M = 0.008902426809072495
+
+
+class CarmenData(NamedTuple):
+    """A CARMEN log ready to replay: recentred odometry and truth on the
+    host, the clouds and the odometry on a device."""
+    log: LidarLog              # as read
+    offset: np.ndarray         # f32[2] subtracted from every x, y
+    odo: np.ndarray            # f32[T, 3] recentred odometry
+    deltas: np.ndarray         # f32[T, 3] odometry steps, heading wrapped
+    truth: Optional[np.ndarray]  # f32[T, 3] recentred, or None
+    points: torch.Tensor       # f32[T, N, 2] laser-frame clouds
+    valid: torch.Tensor        # bool[T, N]
+    odo_t: torch.Tensor        # f32[T, 3] ``odo`` on the device
+    deltas_t: torch.Tensor     # f32[T, 3] ``deltas`` on the device
+
+
+def sim_loop_truth(n: int) -> np.ndarray:
+    """sim_loop.clf's truth: the path its generator drove
+    (``loop_trajectory(speed=0.25)[:n]``,
+    ``slamnet_tpu/io/datasets.py:164-176``)."""
+    return loop_trajectory(speed=SIM_LOOP_SPEED)[:n].copy()
+
+
+def load_carmen(path, device: torch.device | str = "cuda",
+                max_scans: int | None = None,
+                truth: np.ndarray | None = None) -> CarmenData:
+    """Read a CARMEN log with the native parser and recentre it as
+    ``examples/replay_dataset.py:82-110`` does: the first odometry pose
+    moves to the map's centre, and the truth (the log's ``# TRUTH`` lines,
+    else ``truth``) moves with it.  The odometry steps are computed on the
+    host in f32 as the example computes them (heading by
+    ``math.remainder``)."""
+    from . import hostio
+
+    log = hostio.read_carmen_native(str(path), max_scans=max_scans)
+    if log is None:                  # no FLASER line: ROBOTLASER1's reader
+        log = read_carmen(str(path), max_scans=max_scans)
+    t_n = log.ranges.shape[0]
+    offset = log.odometry[0, :2] - DATASET_MAP_SIZE_M / 2.0
+    odo = log.odometry.copy()
+    odo[:, :2] -= offset[None, :]
+    tr = log.truth if log.truth is not None else truth
+    if tr is not None:
+        tr = np.asarray(tr, np.float32)[:t_n].copy()
+        tr[:, :2] -= offset[None, :]
+    deltas = np.zeros_like(odo)
+    for t in range(1, t_n):
+        d = odo[t] - odo[t - 1]
+        d[2] = math.remainder(d[2], 2.0 * math.pi)
+        deltas[t] = d
+    return CarmenData(
+        log, offset, odo, deltas, tr,
+        torch.as_tensor(log_points(log), device=device),
+        torch.as_tensor(log.valid, device=device),
+        torch.as_tensor(odo, device=device),
+        torch.as_tensor(deltas, device=device))
+
+
+def dataset_config(robust: bool = False
+                   ) -> Tuple[HectorConfig, CoreSlamConfig]:
+    """``examples/replay_dataset.py:88-101``'s configurations: Hector at 3
+    levels, 7/4/4, 40 m over 400 px (gather + line updates), with
+    ``robust`` the xy clamp 10 px, max jump 1 m and damping 0.1; CoreSLAM
+    correlative with the dense hole and obstacle fills."""
+    hcfg = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
+                        map_resolution=DATASET_MAP_SIZE_M / 400.0)
+    if robust:
+        hcfg = hcfg.overlay({"xy_step_clamp_px": 10.0, "max_match_jump": 1.0,
+                             "gn_damping": 0.1})
+    return hcfg, CoreSlamConfig(physical_map_size=DATASET_MAP_SIZE_M,
+                                search_mode="correlative",
+                                dense_hole_fill=True, dense_obstacle_fill=True)
+
+
+class DatasetOut(NamedTuple):
+    hector: Optional[torch.Tensor]     # f32[T, 3] match pose after each scan
+    coreslam: Optional[torch.Tensor]   # f32[T, 3] pose after each scan
+
+
+def carmen_replay(data: CarmenData, hcfg: HectorConfig | None,
+                  ccfg: CoreSlamConfig | None, nudge: int = 0):
+    """``examples/replay_dataset.py:112-140`` over every scan of ``data``:
+    Hector (unless ``hcfg`` is None) from the first odometry pose, each scan
+    hinted with the match pose plus the odometry step, the first
+    DATASET_FORCED scans mapped without matching and their pose then set to
+    the odometry;
+    CoreSLAM (unless ``ccfg`` is None) from the first odometry pose with its
+    x moved by ``nudge`` f32 ulps, each scan with its odometry pose.  No
+    host read in the loop.  Returns (Hector state, CoreSLAM state,
+    DatasetOut) on the log's device; a pipeline not run gives None."""
+    dev = data.points.device
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    hst = (hector.init(hcfg, data.odo_t[0], dev) if hcfg is not None
+           else None)
+    cst = (coreslam.init(ccfg, nudged_start(data.odo_t[0], nudge), device=dev)
+           if ccfg is not None else None)
+    hposes, cposes = [], []
+    for t in range(data.points.shape[0]):
+        scan = Scan(data.points[t], data.valid[t], zero)
+        if hst is not None:
+            forced = t < DATASET_FORCED
+            hst, _ = hector.update(hst, scan,
+                                   hst.match_pose + data.deltas_t[t], hcfg,
+                                   forced)
+            if forced:
+                hst = hst._replace(match_pose=data.odo_t[t])
+            hposes.append(hst.match_pose)
+        if cst is not None:
+            cst, _ = coreslam.update_cloud(cst, scan, data.odo_t[t], ccfg)
+            cposes.append(cst.pose)
+    return hst, cst, DatasetOut(torch.stack(hposes) if hposes else None,
+                                torch.stack(cposes) if cposes else None)
+
+
+def dataset_metrics(data: CarmenData, out: DatasetOut) -> dict:
+    """RMS and max position errors against ``data.truth`` of Hector's and
+    CoreSLAM's tracks (those run) and of the odometry alone."""
+    if data.truth is None:
+        raise ValueError("the log carries no truth")
+    res = {}
+    for name, poses in (("hector", out.hector), ("coreslam", out.coreslam),
+                        ("odometry", data.odo)):
+        if poses is not None:
+            p = poses.cpu().numpy() if isinstance(poses, torch.Tensor) \
+                else poses
+            res[f"{name}_ate_m"], res[f"{name}_max_err_m"] = ate_of(
+                p, data.truth)
+    return res
+
+
+def dataset_reference_track(name: str) -> np.ndarray:
+    """JAX's Hector track f32[T, 3] over the dataset ``name``
+    (``DATASET_REF_TRACKS``)."""
+    with open(DATASET_REF_TRACKS) as f:
+        return np.asarray(json.load(f)[name]["hector_track"], np.float32)
+
+
+def dataset_gate(name: str, got: dict, hector_poses: np.ndarray | None = None,
+                 coreslam_ates=None) -> list:
+    """The dataset gates (both logs: ``got`` as ``dataset_metrics`` gives
+    it, ``coreslam_ates`` the CoreSLAM ATEs over CORESLAM_NUDGES starts):
+
+    * sim_loop: Hector's track within 1e-3 m of JAX's at every scan;
+    * adversarial: Hector's RMS ATE <= 1.15 x JAX's, its max error <= JAX's
+      + 0.05 m, and JAX's own absolute bounds
+      (``tests/test_datasets.py:163-168``): RMS < 0.15 m, max < 0.6 m, RMS
+      < 0.5 x the odometry's;
+    * both: CoreSLAM's median ATE over the starts <= JAX's (from the first
+      odometry pose) + 2e-3 m, as ``coreslam_gate``.
+
+    Returns the failed conditions."""
+    ref = DATASET_JAX_REFS[name]
+    fails = []
+    if name == "sim_loop" and hector_poses is not None:
+        want = dataset_reference_track(name)
+        err = float(np.abs(np.asarray(hector_poses)[:, :2]
+                           - want[:, :2]).max())
+        if not err <= 1e-3:
+            fails.append(f"Hector track {err} m from JAX's (> 1e-3)")
+    if name == "adversarial" and "hector_ate_m" in got:
+        h, hm, o = (got["hector_ate_m"], got["hector_max_err_m"],
+                    got["odometry_ate_m"])
+        for cond, msg in (
+                (h <= 1.15 * ref["hector_ate_m"],
+                 f"RMS ATE {h} > 1.15 x JAX's {ref['hector_ate_m']}"),
+                (hm <= ref["hector_max_err_m"] + 0.05,
+                 f"max error {hm} > JAX's {ref['hector_max_err_m']} + 0.05"),
+                (h < 0.15, f"RMS ATE {h} >= 0.15"),
+                (hm < 0.6, f"max error {hm} >= 0.6"),
+                (h < 0.5 * o, f"RMS ATE {h} >= 0.5 x odometry's {o}")):
+            if not cond:
+                fails.append(f"Hector {msg}")
+    if coreslam_ates is not None:
+        med = float(np.median(coreslam_ates))
+        if not med <= ref["coreslam_ate_m"][0] + 2e-3:
+            fails.append(f"CoreSLAM median ATE {med} > JAX's "
+                         f"{ref['coreslam_ate_m'][0]} + 2e-3")
     return fails

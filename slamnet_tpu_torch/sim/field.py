@@ -6,6 +6,10 @@ replacing Box2D's World.RayCast (Field.cs:162-182).  The default field is
 CreateDefaultField's exact vertex lists (Field.cs:43-72) at scale 30, offset
 (5, 5), as MainWindow.xaml.cs:97 instantiates it.  ``office_field`` is the
 loop-closure world: four ~18 m rooms joined by 3 m doorways.
+
+``make_field``, ``default_field`` and ``office_field`` put the edges on the
+card unless the caller names another device (``device="cpu"`` for the CPU),
+as the JAX package's land on its default device.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ class Field(NamedTuple):
 
 def make_field(polygons: Sequence[np.ndarray], scale: float = 1.0,
                offset: Tuple[float, float] = (0.0, 0.0),
-               device: torch.device | str = "cpu") -> Field:
+               device: torch.device | str = "cuda") -> Field:
     """Build a field from closed polygons (each f32[V, 2] in unit coords);
     each polygon closes its loop (AddEdges(closeLoop=True), Field.cs:79-116)."""
     off = np.asarray(offset, np.float32)
@@ -55,7 +59,7 @@ def make_field(polygons: Sequence[np.ndarray], scale: float = 1.0,
 
 
 def default_field(scale: float = 30.0, offset: Tuple[float, float] = (5.0, 5.0),
-                  device: torch.device | str = "cpu") -> Field:
+                  device: torch.device | str = "cuda") -> Field:
     """The reference's default field (Field.cs:43-72 @ MainWindow.xaml.cs:97)."""
     return make_field([OUTER_VERTICES, INNER_VERTICES], scale, offset, device)
 
@@ -73,7 +77,7 @@ OFFICE_CROSS = (18.3, 18.7)      # the cross walls' faces (0.4 m thick)
 OFFICE_DOORS = (7.5, 10.5, 26.5, 29.5)   # two 3 m doors in each cross wall
 
 
-def office_field(device: torch.device | str = "cpu") -> Field:
+def office_field(device: torch.device | str = "cuda") -> Field:
     """Four ~18 m rooms joined by 3 m doorways: the loop-closure world of
     ``slamnet_tpu/sim/field.py:83-103``.  A tour of the rooms leaves the
     20 m benchmark map for most of each lap, so only the pose graph's loop

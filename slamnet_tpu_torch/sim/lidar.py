@@ -35,17 +35,22 @@ def scan_revolution(fld: field_mod.Field, real_pose: torch.Tensor,
                     angles: torch.Tensor, max_dist: float,
                     measure_error: float,
                     generator: torch.Generator,
-                    range_error_std: float = 0.0) -> tuple[torch.Tensor,
-                                                           torch.Tensor]:
+                    range_error_std: float = 0.0,
+                    dropout_prob: float = 0.0) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
     """Revolutions at ``real_pose`` f32[..., 3]; returns (radii f32[..., R],
     valid bool[..., R]).
 
     Noise model of MainWindow.xaml.cs:397: ``hit += (rnd.Next(-100,100)/100) *
     err``; ``range_error_std`` > 0 adds Gaussian range error (the
     reference's declared-but-unused Field.RayTraceError, Field.cs:36, as
-    ``slamnet_tpu/sim/lidar.py:33-57`` makes it real).  ``generator`` must
-    live on the device of ``real_pose``; it gives the uniform steps of every
-    ray first, then (with ``range_error_std``) the normals.
+    ``slamnet_tpu/sim/lidar.py:33-57`` makes it real), and ``dropout_prob``
+    > 0 drops each ray that hit with that probability (sensor dropouts,
+    ``slamnet_tpu/sim/lidar.py:55-56``).  ``generator`` must live on the
+    device of ``real_pose``; it gives, in this order, the uniform steps of
+    every ray, then (with ``dropout_prob``) the dropout draws, then (with
+    ``range_error_std``) the normals.  A draw that is not asked for takes
+    nothing from the generator.
     """
     lidar_angles = angles + real_pose[..., 2:3]
     hit, dist = field_mod.ray_cast(fld, real_pose[..., :2], lidar_angles,
@@ -53,10 +58,14 @@ def scan_revolution(fld: field_mod.Field, real_pose: torch.Tensor,
     steps = torch.randint(-100, 100, dist.shape, generator=generator,
                           device=dist.device)
     noise = steps.to(torch.float32) / 100.0 * measure_error
+    valid = hit
+    if dropout_prob > 0.0:
+        valid = hit & (torch.rand(dist.shape, generator=generator,
+                                  device=dist.device) >= dropout_prob)
     if range_error_std > 0.0:
         noise = noise + torch.randn(dist.shape, generator=generator,
                                     device=dist.device) * range_error_std
-    return torch.where(hit, dist + noise, torch.zeros_like(dist)), hit
+    return torch.where(valid, dist + noise, torch.zeros_like(dist)), valid
 
 
 def make_cloud(angles: torch.Tensor, radii: torch.Tensor,

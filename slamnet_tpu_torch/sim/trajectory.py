@@ -6,7 +6,9 @@ trajectory generator is the user's mouse (MainWindow.xaml.cs:414-465); for a
 deterministic test oracle the robot follows a waypoint path through the free
 space of the default field, rate-limited to HectorSLAM's operating envelope
 (README.md:35-40).  ``office_tour_trajectory`` drives the office's rooms
-with straight legs and turns in place (``waypoint_drive_trajectory``).
+with straight legs and turns in place (``waypoint_drive_trajectory``);
+``straight_trajectory``, ``rect_drive_trajectory`` and ``spin_trajectory``
+are the JAX package's short test paths.
 """
 from __future__ import annotations
 
@@ -85,6 +87,33 @@ def stationary_trajectory(pose=(20.0, 20.0, 0.0),
     return np.tile(np.asarray(pose, np.float32), (num_scans, 1))
 
 
+def straight_trajectory(start=(20.0, 20.0, 0.0), speed: float = 0.25,
+                        scan_rate: float = 17.0,
+                        num_scans: int = 200) -> np.ndarray:
+    """Straight line along the start heading."""
+    start = np.asarray(start, np.float64)
+    t = np.arange(num_scans) / scan_rate
+    x = start[0] + speed * t * math.cos(start[2])
+    y = start[1] + speed * t * math.sin(start[2])
+    return np.stack([x, y, np.full_like(x, start[2])],
+                    axis=-1).astype(np.float32)
+
+
+def rect_drive_trajectory(rect=((20.0, 20.0), (22.0, 20.0),
+                                (22.0, 21.2), (20.0, 21.2)),
+                          num_loops: int = 1, step: float = 0.3,
+                          turn_step: float = math.radians(10.0),
+                          closing_leg: int = 1) -> np.ndarray:
+    """A compact turning loop: the rectangle driven ``num_loops`` times plus
+    ``closing_leg`` extra legs, straight legs at ``step`` m a scan and the
+    corners turned in place at ``turn_step`` rad a scan, so the path comes
+    back to its start corner in a few dozen scans."""
+    n = len(rect)
+    legs = num_loops * n + closing_leg
+    return waypoint_drive_trajectory(
+        [rect[i % n] for i in range(legs + 1)], step=step, turn_step=turn_step)
+
+
 def waypoint_drive_trajectory(waypoints, step: float = 0.25,
                               turn_step: float = math.radians(10.0)
                               ) -> np.ndarray:
@@ -125,3 +154,16 @@ def office_tour_trajectory(num_loops: int = 2,
     lap = [d_ab, b, d_bc, c, d_cd, d, d_da, a]
     return waypoint_drive_trajectory([a] + lap * num_loops + [(12.5, 12.5)],
                                      step=step)
+
+
+def spin_trajectory(pose=(20.0, 20.0, 0.0),
+                    turn_rate: float = math.radians(40.0),
+                    scan_rate: float = 17.0,
+                    num_scans: int = 150) -> np.ndarray:
+    """Rotate in place at ``turn_rate`` rad/s (inside the ~20 deg/scan
+    envelope)."""
+    pose = np.asarray(pose, np.float64)
+    t = np.arange(num_scans) / scan_rate
+    th = pose[2] + turn_rate * t
+    return np.stack([np.full_like(th, pose[0]), np.full_like(th, pose[1]),
+                     th], axis=-1).astype(np.float32)

@@ -54,7 +54,12 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.ops.correlate, slamnet_tpu_torch.ops.holemap, "
             "slamnet_tpu_torch.ops.obstacle, slamnet_tpu_torch.sim.field, "
             "slamnet_tpu_torch.sim.trajectory, "
-            "slamnet_tpu_torch.models.particle, slamnet_tpu_torch.ops.match; "
+            "slamnet_tpu_torch.models.particle, slamnet_tpu_torch.ops.match, "
+            "slamnet_tpu_torch.compat, slamnet_tpu_torch.hostio, "
+            "slamnet_tpu_torch.core.debug, slamnet_tpu_torch.io.checkpoint, "
+            "slamnet_tpu_torch.io.export, slamnet_tpu_torch.io.metrics, "
+            "slamnet_tpu_torch.io.live, slamnet_tpu_torch.io.viz, "
+            "slamnet_tpu_torch.io.interactive, slamnet_tpu_torch.sim.lidar; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -210,7 +210,8 @@ def _mc_run(traj, seed, n_candidates=1024):
     the estimate fed back as odometry; the scans from ``seed`` too."""
     cfg = replay.coreslam_parity_config(num_candidates=n_candidates)
     angles = torch.from_numpy(revolution_angles(400))
-    r, v = scan_revolution(default_field(), torch.from_numpy(traj), angles,
+    r, v = scan_revolution(default_field(device="cpu"),
+                           torch.from_numpy(traj), angles,
                            40.0, 0.02, torch.Generator().manual_seed(seed))
     pts = torch.stack([r * torch.cos(angles), r * torch.sin(angles)], -1)
     st = coreslam.init(cfg, traj[0], seed=seed, device="cpu")

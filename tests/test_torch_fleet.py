@@ -73,7 +73,8 @@ def flog():
     traj = (STARTS[None] + np.arange(T, dtype=np.float32)[:, None, None]
             * VEL[None]).astype(np.float32)
     angles = revolution_angles(N)
-    hit, dist = ray_cast(default_field(), torch.from_numpy(traj[..., :2]),
+    hit, dist = ray_cast(default_field(device="cpu"),
+                         torch.from_numpy(traj[..., :2]),
                          torch.from_numpy(angles + traj[..., 2:3]), 40.0)
     rng = np.random.default_rng(0)
     hit = hit.numpy()

@@ -80,3 +80,25 @@ def test_pose_functions_match_jax(fn):
         # b expressed in a's frame, composed back onto a, is b
         back = tg.pose_compose(torch.from_numpy(a), torch.from_numpy(got))
         np.testing.assert_allclose(back[:, :2].numpy(), b[:, :2], atol=1e-4)
+
+
+def test_line_and_angle_helpers_match_jax():
+    rng = np.random.default_rng(4)
+    p, a, b = (rng.normal(0, 5, (50, 2)).astype(np.float32) for _ in range(3))
+    b[0] = a[0]                               # a degenerate line
+    for fn in ("find_position_on_line", "point_to_line_distance"):
+        want = np.asarray(getattr(jg, fn)(p, a, b))
+        got = getattr(tg, fn)(*(torch.from_numpy(x) for x in (p, a, b)))
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
+    x = rng.uniform(-400.0, 400.0, 100).astype(np.float32)
+    for fn in ("deg_to_rad", "rad_to_deg"):
+        np.testing.assert_allclose(getattr(tg, fn)(torch.from_numpy(x)).numpy(),
+                                   np.asarray(getattr(jg, fn)(x)), rtol=1e-6)
+    np.testing.assert_array_equal(tg.limit(torch.from_numpy(x), -10.0,
+                                           25.0).numpy(),
+                                  np.asarray(jg.limit(x, -10.0, 25.0)))
+    r, th = np.abs(x[:20]), x[20:40] / 50.0
+    np.testing.assert_allclose(
+        tg.polar_to_cartesian(torch.from_numpy(r), torch.from_numpy(th)).numpy(),
+        np.asarray(jg.polar_to_cartesian(r, th)), atol=1e-4, rtol=1e-6)
+

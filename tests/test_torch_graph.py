@@ -54,7 +54,8 @@ def log():
     still = np.tile(np.asarray([20.0, 20.0, 0.0], np.float32), (12, 1))
     traj = np.concatenate([still, fwd, fwd[::-1].copy()])
     angles = torch.from_numpy(revolution_angles(400))
-    r, v = scan_revolution(default_field(), torch.from_numpy(traj), angles,
+    r, v = scan_revolution(default_field(device="cpu"),
+                           torch.from_numpy(traj), angles,
                            40.0, 0.02, torch.Generator().manual_seed(11))
     pts = torch.stack([r * torch.cos(angles), r * torch.sin(angles)], -1)
     return traj, pts.numpy(), v.numpy()

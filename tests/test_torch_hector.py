@@ -44,7 +44,8 @@ def log():
     their scans as numpy clouds: the same inputs for both packages."""
     traj = loop_trajectory(0.3)[::8][:BOOT + TRACK]
     angles = torch.from_numpy(revolution_angles(400))
-    r, v = scan_revolution(default_field(), torch.from_numpy(traj), angles,
+    r, v = scan_revolution(default_field(device="cpu"),
+                           torch.from_numpy(traj), angles,
                            40.0, 0.02, torch.Generator().manual_seed(3))
     pts = torch.stack([r * torch.cos(angles), r * torch.sin(angles)], -1)
     return traj, pts.numpy(), v.numpy()
@@ -141,6 +142,24 @@ def test_same_state_same_scan_matches_jax(log, jax_run):
                                   st.match_pose.numpy())
     diff = st.maps.numpy() != np.asarray(jst.maps)
     assert diff.mean() <= 1e-3
+
+
+def test_public_match_matches_jax(log, jax_run):
+    # hector.match: the matched pose alone, as JAX's public match gives it
+    traj, pts, v = log
+    maps = np.asarray(jax_run[0].maps)
+    cfg, jcfg = replay.fixed_config(**SMALL), JHectorConfig(**SMALL)
+    t = BOOT + 2
+    hint = traj[t] + np.array([0.08, -0.05, 0.02], np.float32)
+    got = hector.match(torch.from_numpy(maps.copy()),
+                       Scan.from_points(pts[t], v[t]), torch.from_numpy(hint),
+                       cfg)
+    want = jhector.match(jnp.asarray(maps), JScan(
+        jnp.asarray(pts[t]), jnp.asarray(v[t]), jnp.zeros(3, jnp.float32)),
+        jnp.asarray(hint), jcfg)
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
 
 
 def test_map_queries_match_jax(jax_run):

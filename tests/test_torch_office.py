@@ -33,7 +33,7 @@ LEVELS = dict(num_levels=2, map_size=100, map_resolution=0.2,
 
 
 def test_office_field_equal():
-    jf, tf = jfield.office_field(), tfield.office_field()
+    jf, tf = jfield.office_field(), tfield.office_field(device="cpu")
     assert tf.num_edges == jf.num_edges == 28
     np.testing.assert_array_equal(tf.a.numpy(), np.asarray(jf.a))
     np.testing.assert_array_equal(tf.b.numpy(), np.asarray(jf.b))
@@ -74,7 +74,7 @@ def test_range_error_std_moments():
     """200 revolutions of 400 beams from the middle of room A (the walls
     within 10 m of half the beams): the noise is the uniform grid (mean
     -0.01 x err, variance ~err^2 / 3) plus N(0, std^2)."""
-    fld = tfield.office_field()
+    fld = tfield.office_field(device="cpu")
     angles = torch.from_numpy(tlidar.revolution_angles(400))
     pose = torch.tensor([[9.5, 9.5, 0.0]]).repeat(200, 1)
     gen = torch.Generator().manual_seed(0)

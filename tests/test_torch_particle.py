@@ -70,7 +70,8 @@ def plog():
     valid bool[T, N] (numpy seed 0)."""
     traj = loop_trajectory(speed=0.3)[:T].astype(np.float32)
     angles = revolution_angles(N)
-    hit, dist = ray_cast(default_field(), torch.from_numpy(traj[:, :2]),
+    hit, dist = ray_cast(default_field(device="cpu"),
+                         torch.from_numpy(traj[:, :2]),
                          torch.from_numpy(angles[None] + traj[:, 2:3]), 40.0)
     rng = np.random.default_rng(0)
     hit = hit.numpy()

@@ -28,7 +28,7 @@ def test_loop_trajectory_equal(speed):
 
 
 def test_default_field_edges_equal():
-    jf, tf = jfield.default_field(), tfield.default_field()
+    jf, tf = jfield.default_field(), tfield.default_field(device="cpu")
     assert tf.num_edges == jf.num_edges == 16
     np.testing.assert_array_equal(tf.a.numpy(), np.asarray(jf.a))
     np.testing.assert_array_equal(tf.b.numpy(), np.asarray(jf.b))
@@ -43,7 +43,7 @@ def test_ray_cast_noise_free_matches_jax():
     jhit, jdist = jfield.ray_cast_batch(jfield.default_field(),
                                         jnp.asarray(poses[:, :2]),
                                         jnp.asarray(la), 40.0)
-    thit, tdist = tfield.ray_cast(tfield.default_field(),
+    thit, tdist = tfield.ray_cast(tfield.default_field(device="cpu"),
                                   torch.from_numpy(poses[:, :2]),
                                   torch.from_numpy(la), 40.0)
     np.testing.assert_array_equal(thit.numpy(), np.asarray(jhit))
@@ -57,7 +57,7 @@ def test_scan_revolution_noise_grid():
     # caller's generator: same seed, same scan
     pose = torch.tensor([20.0, 20.0, 0.3])
     angles = torch.from_numpy(tlidar.revolution_angles(400))
-    fld = tfield.default_field()
+    fld = tfield.default_field(device="cpu")
     r1, v1 = tlidar.scan_revolution(fld, pose, angles, 40.0, 0.02,
                                     torch.Generator().manual_seed(5))
     r2, _ = tlidar.scan_revolution(fld, pose, angles, 40.0, 0.02,
@@ -96,3 +96,37 @@ def test_make_log_is_the_bench_log():
     k = (log.radii[:4] - np.asarray(dist)) / 0.02 * 100.0
     assert np.abs(k).max() <= 100.05
     np.testing.assert_allclose(k, np.round(k), atol=2e-2)
+
+
+# sha256 of (traj, angles, radii, valid) of each log as the parent tree of
+# the sim's change of default device (to the card) made them: the logs the
+# JAX references in replay.py were computed over
+LOG_SHA256 = {
+    "make_log": "6c8ccda3d011bafd207b3f9c4b1d71321e7d7a44664bfd24ece190bd1cb6f66e",
+    "make_graph_log":
+        "32b28dfa3e2d6376756ceca640cb36f23faa37b088bf03b70234bb7ea2b2b17b",
+    "make_office_log":
+        "3315444a3eac8a6e332547c97bf924f114c4e91dbc2bb65181a82f5c78cb1304",
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOG_SHA256))
+def test_replay_logs_unchanged(name):
+    import hashlib
+
+    from slamnet_tpu_torch import replay
+    log = getattr(replay, name)()
+    h = hashlib.sha256()
+    for a in (log.traj, log.angles, log.radii, log.valid):
+        h.update(a.tobytes())
+    assert h.hexdigest() == LOG_SHA256[name]
+
+
+def test_sim_defaults_to_the_card():
+    import inspect
+    for fn in (tfield.make_field, tfield.default_field, tfield.office_field):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            tfield.default_field()
+
