@@ -232,7 +232,35 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 step, CoreSLAM MC), no divergence, frames of levels 0-3 and
                 the hole map, serve() answering GET /state and POST /pose on
                 127.0.0.1, the session's scan rate.
-Phases 17-27 print their seconds.
+ 28. mesh     — phases 28-33 run in ONE launch of 8 ranks
+                (slamnet_tpu_torch/parallel/launch.py) sharing the card over
+                gloo (NCCL refuses two ranks on one device); the 2x4 and 4x2
+                (tile x search) meshes over that world: psum / pmax / pmin
+                on each axis and both, all_gather and ppermute on each axis,
+                equal to their definitions on every rank; each one's us;
+ 29. hector sharded — models/hector_sharded at full width (fixed config,
+                400x400x3, 400 beams) on both meshes, 10 forced + 118
+                matched scans of make_log(0): the forced maps = the dense
+                hector.update's bit for bit; the same map updates as the
+                dense fixed replay on the card, poses within 5e-3 m of it at
+                every scan, maps within 1e-2; ATE <= SHARDED_JAX_REF_ATE_M +
+                1e-4; scans/s, collectives and host copies a scan; a
+                bootstrap + 10 scans in onehot_bf16 and in the exit at 0.3 px;
+ 30. coreslam sharded — models/coreslam_sharded on 2x4, production and
+                parity (4096 candidates), 24 scans each: track, sums, hole
+                and obstacle maps = the dense pipeline's bit for bit;
+ 31. fleet mesh — models/fleet.make_fleet_step / make_fleet_replay, 64
+                robots over the 2x4 mesh's search axis (16 a rank),
+                sub4_pallas_dense and sub1, 10 + 64 batch-scans: every
+                rank's robots = the single-process fleet's bit for bit,
+                74 K5 + 74 K2 / 74 batched K3 + 74 batched K4 on every rank;
+                the four kernels at a rank's 16 robots against plain, timed;
+ 32. posegraph — graph/distributed.sharded_optimize over 8 ranks within
+                rtol/atol 1e-4 of posegraph.optimize;
+ 33. checkpoint — io/checkpoint.save_sharded at 2x4 after scan 100; the
+                resume at 2x4 = the uninterrupted replay bit for bit, at 4x2
+                within phase 29's tolerances.
+Phases 17-33 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -494,6 +522,571 @@ def graph_ms(torch, fn, reps: int) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(torch, graph.replay, reps)
+
+
+# ---- phases 28-33: the multi-device layer, 8 gloo ranks sharing the card --
+SHARDED_RANKS = 8
+SHARDED_CUT = 100         # phase 33's checkpoint: after this many scans
+SHARDED_SHORT = 10        # matched scans of the onehot_bf16 and exit runs
+SHARDED_FLEET_B = 16      # robots a rank at S = 4 (phase 31)
+COLLECTIVE_REPS = 20
+SHARDED_TIMEOUT_S = 600
+SHARDED_POSE_TOL = 5e-3   # JAX's sharded-vs-dense tolerances
+SHARDED_MAP_TOL = 1e-2    # (tests/test_hector_sharded.py:215-219)
+GRAPH_TOL = 1e-4          # tests/test_posegraph.py:155's rtol and atol
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from slamnet_tpu_torch.ops import fill, line, match
+    return {"match": match.match.launches,
+            "match_f32": match.match.launches_f32,
+            "match_batch": match.match_batch.launches,
+            "match_batch_f32": match.match_batch.launches_f32,
+            "match_batch_exit": match.match_batch.exit_launches,
+            "match_packed": match.match_packed.launches,
+            "fill": fill.update_maps.launches,
+            "fill_batch": fill.update_maps_batch.launches,
+            "line": line.update_maps_line.launches,
+            "line_batch": line.update_maps_line_batch.launches}
+
+
+def zero_launch_counts() -> None:
+    from slamnet_tpu_torch.ops import fill, line, match
+    for f in (match.match, match.match_batch, match.match_packed,
+              fill.update_maps, fill.update_maps_batch,
+              line.update_maps_line, line.update_maps_line_batch):
+        f.launches = 0
+    match.match.launches_f32 = 0
+    match.match_batch.launches_f32 = 0
+    match.match_batch.exit_launches = 0
+
+
+def circle_graph(torch, dev, n: int = 24, max_nodes: int = 32,
+                 max_edges: int = 64):
+    """tests/test_posegraph.py's circle: noisy odometry edges (numpy seed 0)
+    and two exact closures, nodes at the drifted odometry poses."""
+    import numpy as np
+    from slamnet_tpu_torch.core.geometry import pose_between, pose_compose
+    from slamnet_tpu_torch.graph import posegraph
+    rng = np.random.default_rng(0)
+    ths = np.linspace(0, 2 * math.pi, n, endpoint=False)
+    truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
+                                   ths + math.pi / 2], -1), dtype=torch.float32)
+    g = posegraph.init(max_nodes, max_edges, dev)
+    est = truth[0]
+    g, _ = posegraph.add_node(g, est.to(dev))
+    for t in range(1, n):
+        noisy = pose_between(truth[t - 1], truth[t]) + torch.tensor(
+            rng.normal(0, 0.03, 3), dtype=torch.float32)
+        est = pose_compose(est, noisy)
+        g, _ = posegraph.add_node(g, est.to(dev))
+        g = posegraph.add_edge(g, t - 1, t, noisy.to(dev), (10.0, 10.0, 40.0))
+    for i, j in ((0, n // 2), (n - 1, 0)):
+        g = posegraph.add_edge(g, i, j, pose_between(truth[i], truth[j]).to(dev),
+                               (100.0, 100.0, 400.0))
+    return g, n
+
+
+def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
+    """Phases 28-33 on one rank of the 8-rank gloo world ``sharded_smoke``
+    launches (every rank on the card, cuda:0 on a one-card machine, unless
+    ``device`` names another: a rehearsal on the CPU): any failed check
+    raises, which fails the launch.  Rank 0's result carries the numbers."""
+    import numpy as np
+    import torch
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.graph import distributed, posegraph
+    from slamnet_tpu_torch.io import checkpoint
+    from slamnet_tpu_torch.models import coreslam_sharded, fleet, hector
+    from slamnet_tpu_torch.models import hector_sharded as hs
+    from slamnet_tpu_torch.parallel import make_mesh, shard_range
+
+    R = dict(np.load(f"{ref}/ref.npz"))
+    meshes = {n: make_mesh(a, device)
+              for n, a in replay.SHARDED_MESHES.items()}
+    m24 = meshes["2x4"]
+    world = make_mesh({"edge": SHARDED_RANKS}, device)
+    dev = m24.device
+    check(device is not None or dev.type == "cuda",
+          f"rank {m24.rank} on {dev}, not the card")
+    res = {"device": str(dev), "backend": m24.backend}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def every_rank(x: float) -> list:
+        return world.all_gather(torch.tensor([float(x)], device=dev),
+                                "edge", tiled=True).tolist()
+
+    # ---- 28. every collective against its definition, and its time --------
+    t28 = time.perf_counter()
+    coll = {}
+    for name, m in meshes.items():
+        T, S = m.shape["tile"], m.shape["search"]
+        t, s = m.coords["tile"], m.coords["search"]
+        x = torch.arange(4, dtype=torch.float32, device=dev) * 10 + m.rank
+
+        def xs(ranks):
+            return torch.stack([torch.arange(4, dtype=torch.float32) * 10 + q
+                                for q in ranks])
+        lines = {"tile": [u * S + s for u in range(T)],
+                 "search": [t * S + v for v in range(S)],
+                 "both": list(range(m.size))}
+        ops = {}
+        for key, ranks in lines.items():
+            axes = ("tile", "search") if key == "both" else key
+            v = xs(ranks)
+            ops[f"psum {key}"] = (lambda a=axes: m.psum(x, a), v.sum(0))
+            ops[f"pmax {key}"] = (lambda a=axes: m.pmax(x, a), v.max(0).values)
+            ops[f"pmin {key}"] = (lambda a=axes: m.pmin(-x, a),
+                                  (-v).min(0).values)
+        for axis in ("tile", "search"):
+            ranks = lines[axis]
+            i, k = ranks.index(m.rank), len(ranks)
+            ops[f"all_gather {axis}"] = (
+                lambda a=axis: m.all_gather(x, a, tiled=True),
+                xs(ranks).reshape(-1))
+            ops[f"ppermute {axis}"] = (
+                lambda a=axis, k=k: m.ppermute(x, a, [(j, j - 1)
+                                                       for j in range(1, k)]),
+                xs([ranks[i + 1]])[0] if i + 1 < k else torch.zeros(4))
+        for op, (fn, want) in ops.items():
+            got = fn().cpu()
+            check(torch.equal(got, want), f"{name} {op} on rank {m.rank}: "
+                  f"{got.tolist()}, want {want.tolist()}")
+            sync()
+            tt = time.perf_counter()
+            for _ in range(COLLECTIVE_REPS):
+                fn()
+            sync()
+            coll[f"{name} {op}"] = (time.perf_counter() - tt) \
+                / COLLECTIVE_REPS * 1e6
+    res["collective_us"] = coll
+    res["seconds_28"] = time.perf_counter() - t28
+
+    # ---- 29. sharded Hector at full width on both meshes -------------------
+    t29 = time.perf_counter()
+    cfg = replay.fixed_config()
+    log = replay.make_log(0)
+    n, boot = replay.SHARDED_N, log.bootstrap
+    dlog = replay.head(replay.to_device(log, dev), n)
+    per_scan = sum(cfg.estimate_iterations) + 2
+    ref_poses = torch.from_numpy(R["h_poses"]).to(dev)
+    ref_maps = torch.from_numpy(R["h_maps"]).to(dev)
+    boot_maps = torch.from_numpy(R["h_boot_maps"]).to(dev)
+    hec, final = {}, {}
+    for name, m in meshes.items():
+        st, _ = replay.sharded_replay(m, replay.head(dlog, boot), cfg)
+        check(torch.equal(hs.unshard_maps(m, st, cfg), boot_maps),
+              f"{name}: the forced updates' maps differ from hector.update's")
+        c0, s0 = dict(m.counts), m.seconds
+        sync()
+        tt = time.perf_counter()
+        if name == "2x4":       # phase 33's checkpoint at SHARDED_CUT
+            st, o1 = replay.sharded_replay(m, replay.head(dlog, SHARDED_CUT),
+                                           cfg, state=st, start=boot)
+            sync()
+            t_cut = time.perf_counter()
+            c_cut, s_cut = dict(m.counts), m.seconds
+            checkpoint.save_sharded(f"{work}/hector", st, cfg, m,
+                                    {"scan": SHARDED_CUT})
+            save_s = time.perf_counter() - t_cut
+            saved = {k: m.counts[k] - c_cut[k] for k in c_cut}
+            save_coll_s = m.seconds - s_cut
+            st, o2 = replay.sharded_replay(m, dlog, cfg, state=st,
+                                           start=SHARDED_CUT)
+            poses = torch.cat([o1.poses, o2.poses])
+            upd = torch.cat([o1.map_updated, o2.map_updated])
+            iters = torch.cat([o1.gn_iterations, o2.gn_iterations])
+        else:
+            st, o = replay.sharded_replay(m, dlog, cfg, state=st, start=boot)
+            poses, upd, iters = o.poses, o.map_updated, o.gn_iterations
+            save_s, saved = 0.0, {"collectives": 0, "host_copies": 0}
+            save_coll_s = 0.0
+        sync()
+        wall = time.perf_counter() - tt - save_s
+        scans = n - boot
+        coll_scan = (m.counts["collectives"] - c0["collectives"]
+                     - saved["collectives"]) / scans
+        copies_scan = (m.counts["host_copies"] - c0["host_copies"]
+                       - saved["host_copies"]) / scans
+        coll_ms = (m.seconds - s0 - save_coll_s) / scans * 1e3
+        maps = hs.unshard_maps(m, st, cfg)
+        final[name] = (maps, poses)
+        perr = float((poses - ref_poses).abs().max())
+        merr = float((maps - ref_maps).abs().max())
+        nupd, nref = int(upd.sum()), int(R["h_updates"])
+        ate, mx = replay.ate_of(poses.cpu().numpy(), log.traj[boot:n])
+        ref_ate = replay.SHARDED_JAX_REF_ATE_M[name]
+        check(perr <= SHARDED_POSE_TOL, f"{name}: poses {perr} m from the "
+              f"dense replay's (tol {SHARDED_POSE_TOL})")
+        check(merr <= SHARDED_MAP_TOL, f"{name}: maps {merr} from the dense "
+              f"replay's (tol {SHARDED_MAP_TOL})")
+        check(nupd == nref, f"{name}: {nupd} map updates, dense {nref}")
+        check(ate <= ref_ate + 1e-4, f"{name}: ATE {ate} above "
+              f"SHARDED_JAX_REF_ATE_M {ref_ate} + 1e-4")
+        check(coll_scan == per_scan, f"{name}: {coll_scan} collectives a "
+              f"scan, want {per_scan}")
+        check(int(iters.sum()) == scans * sum(cfg.estimate_iterations),
+              f"{name}: GN iterations {int(iters.sum())}")
+        hec[name] = {"ate_m": ate, "max_err_m": mx, "pose_err_m": perr,
+                     "map_err": merr, "map_updates": nupd,
+                     "dense_map_updates": nref, "scans_per_s": scans / wall,
+                     "collectives_per_scan": coll_scan,
+                     "host_copies_per_scan": copies_scan,
+                     "collective_ms_per_scan": coll_ms,
+                     "checkpoint_s": save_s,
+                     "jax_ref_ate_m": ref_ate,
+                     "rank_scans_per_s": every_rank(scans / wall)}
+    # one bootstrap in onehot_bf16, one in the exit at EXIT_TOL_FIRES px
+    short = replay.head(dlog, boot + SHARDED_SHORT)
+    g_poses = final["2x4"][1][:SHARDED_SHORT]
+    for mode, c, want, tol in (
+            ("onehot_bf16", cfg.overlay({"matcher_mode": "onehot_bf16"}),
+             g_poses, SHARDED_POSE_TOL),
+            ("exit", cfg.overlay({"early_exit_tol": EXIT_TOL_FIRES}),
+             torch.from_numpy(R["x_poses"]).to(dev), SHARDED_POSE_TOL)):
+        st, _ = replay.sharded_replay(m24, replay.head(dlog, boot), c)
+        check(torch.equal(hs.unshard_maps(m24, st, c), boot_maps),
+              f"{mode}: the forced updates' maps differ")
+        st, o = replay.sharded_replay(m24, short, c, state=st, start=boot)
+        err = float((o.poses - want).abs().max())
+        check(err <= tol, f"{mode}: poses {err} m off (tol {tol})")
+        its = int(o.gn_iterations.sum())
+        if mode == "exit":
+            check(its < SHARDED_SHORT * sum(cfg.estimate_iterations),
+                  f"the exit at {EXIT_TOL_FIRES} px never fired ({its})")
+        hec[mode] = {"pose_err_m": err, "gn_iterations": its}
+    hec["exit"]["dense_gn_iterations"] = int(R["x_iters"])
+    res["hector"] = hec
+    res["seconds_29"] = time.perf_counter() - t29
+
+    # ---- 30. sharded CoreSLAM = the dense pipeline, bit for bit ------------
+    t30 = time.perf_counter()
+    core = {}
+    for mode, c in (("production", replay.coreslam_production_config()),
+                    ("parity", replay.coreslam_parity_config())):
+        cl = replay.head(dlog, replay.SHARDED_CORESLAM_N)
+        sync()
+        tt = time.perf_counter()
+        st, o = replay.sharded_coreslam_replay(m24, cl, c, seed=1)
+        sync()
+        wall = time.perf_counter() - tt
+        dense = coreslam_sharded.to_dense(m24, st)
+        for key, got in (("poses", o.poses), ("sums", o.best_sum),
+                         ("hole", dense.hole_map),
+                         ("obst", dense.obstacle_map)):
+            check(torch.equal(got.cpu(), torch.from_numpy(
+                R[f"c_{mode}_{key}"])), f"CoreSLAM {mode}: the {key} differ "
+                "from the dense pipeline's")
+        core[mode] = {"ate_m": replay.ate_of(o.poses.cpu().numpy(),
+                                             log.traj[:cl.points.shape[0]])[0],
+                      "scans_per_s": cl.points.shape[0] / wall}
+    res["coreslam"] = core
+    res["seconds_30"] = time.perf_counter() - t30
+
+    # ---- 31. the fleet over the search axis: each rank's K5/K2, K3/K4 -----
+    t31 = time.perf_counter()
+    flog = replay.make_fleet_log(log)
+    fdlog = replay.to_device(flog, dev)
+    fb, nb = flog.radii.shape[1], flog.radii.shape[0]
+    lo, hi = shard_range(fb, m24, "search")
+    fl = {}
+    for mode, want in (("sub4_pallas_dense", ("match_batch", "fill_batch")),
+                       ("sub1", ("match_batch_f32", "line_batch"))):
+        c = replay.FLEET_MODES[mode]()
+        st = fleet.shard_fleet(m24, fleet.init_fleet(c, flog.traj[0], dev), c)
+        step = fleet.make_fleet_step(m24, c)
+        rep = fleet.make_fleet_replay(m24, c)
+        pts, val = fdlog.points[:, lo:hi], fdlog.valid[:, lo:hi]
+        truth = fdlog.traj[:, lo:hi]
+        zero_launch_counts()
+        for t in range(boot):
+            st = st._replace(match_pose=truth[t].clone())
+            st, _ = step(st, pts[t], val[t], True)
+        stf, poses = rep(st, pts[boot:], val[boot:])
+        sync()
+        counts = launch_counts()
+        expect = dict.fromkeys(counts, 0)
+        if dev.type == "cuda":      # the plain versions launch nothing
+            expect.update(dict.fromkeys(want, nb))
+        check(counts == expect, f"{mode} rank {m24.rank}: launches {counts}, "
+              f"want {expect}")
+        cells = c.total_cells
+        rposes = np.load(f"{ref}/fleet_{mode}_poses.npy")[:, lo:hi]
+        rmaps = np.load(f"{ref}/fleet_{mode}_maps.npy",
+                        mmap_mode="r")[lo * cells:hi * cells]
+        check(np.array_equal(poses.cpu().numpy(), rposes)
+              and np.array_equal(stf.maps.cpu().numpy(), rmaps),
+              f"{mode} rank {m24.rank}: robots {lo}-{hi} differ from the "
+              "single-process fleet's")
+        sync()
+        tt = time.perf_counter()
+        rep(st, pts[boot:], val[boot:])
+        sync()
+        rate = (hi - lo) * (nb - boot) / (time.perf_counter() - tt)
+        fl[mode] = {"launches": {k: v for k, v in counts.items() if v},
+                    "rank_launches": every_rank(counts[want[0]]),
+                    "rank_launches_update": every_rank(counts[want[1]]),
+                    "rank_instance_scans_per_s": every_rank(rate)}
+    res["fleet"] = fl
+    res["seconds_31"] = time.perf_counter() - t31
+
+    # ---- 32. the edge-sharded pose graph -----------------------------------
+    t32 = time.perf_counter()
+    g, nodes = circle_graph(torch, dev)
+    dense_g = posegraph.optimize(g, 3, num_nodes=nodes)
+    sync()
+    tt = time.perf_counter()
+    shard_g = distributed.sharded_optimize(world, g, 3)
+    sync()
+    gwall = time.perf_counter() - tt
+    gerr = float((shard_g.poses - dense_g.poses).abs().max())
+    check(bool(((shard_g.poses - dense_g.poses).abs()
+                <= GRAPH_TOL + GRAPH_TOL * dense_g.poses.abs()).all()),
+          f"sharded_optimize {gerr} from posegraph.optimize (rtol/atol "
+          f"{GRAPH_TOL})")
+    res["posegraph"] = {"max_abs_err": gerr, "ms_per_step": gwall / 3 * 1e3,
+                        "edges": int(g.num_edges), "nodes": nodes}
+    res["seconds_32"] = time.perf_counter() - t32
+
+    # ---- 33. resume the checkpoint at 2x4 and at 4x2 -----------------------
+    t33 = time.perf_counter()
+    like = hector.init(cfg, (0.0, 0.0, 0.0), dev)
+    ck = {}
+    k = SHARDED_CUT - boot
+    for name, m in meshes.items():
+        st = checkpoint.restore_sharded(f"{work}/hector", m, cfg, like)
+        st, o = replay.sharded_replay(m, dlog, cfg, state=st,
+                                      start=SHARDED_CUT)
+        maps = hs.unshard_maps(m, st, cfg)
+        if name == "2x4":
+            check(torch.equal(maps, final["2x4"][0])
+                  and torch.equal(o.poses, final["2x4"][1][k:]),
+                  "the resume at 2x4 differs from the uninterrupted replay")
+        perr = float((o.poses - ref_poses[k:]).abs().max())
+        merr = float((maps - ref_maps).abs().max())
+        check(perr <= SHARDED_POSE_TOL and merr <= SHARDED_MAP_TOL,
+              f"the resume at {name}: poses {perr}, maps {merr} from the "
+              "dense replay's")
+        ck[name] = {"pose_err_m": perr, "map_err": merr,
+                    "bit_for_bit": name == "2x4"}
+    res["checkpoint"] = ck
+    res["seconds_33"] = time.perf_counter() - t33
+    res["counts"] = {name: dict(m.counts) for name, m in meshes.items()}
+    return res if m24.rank == 0 else {"rank": m24.rank}
+
+
+def sharded_smoke(torch, dev) -> dict:
+    """Phases 28-33: the dense references on this process's card, then ONE
+    launch of SHARDED_RANKS ranks sharing it over gloo (``sharded_phases``),
+    a line a phase, and the mesh fleet's kernels at a rank's shape (B =
+    SHARDED_FLEET_B) against their plain versions.  Returns rank 0's
+    numbers and the kernels' entries."""
+    import numpy as np
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.models import fleet, hector
+    from slamnet_tpu_torch.ops import fill, match
+    from slamnet_tpu_torch.ops import line as line_ops
+    from slamnet_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        log = replay.make_log(0)
+        dlog = replay.to_device(log, dev)
+        n, boot = replay.SHARDED_N, log.bootstrap
+        cfg = replay.fixed_config()
+        h = replay.head(dlog, n)
+        R = {}
+        st = replay.bootstrap(hector.init(cfg, log.traj[0], dev), h, boot, cfg)
+        R["h_boot_maps"] = st.maps.cpu().numpy()
+        stf, out = replay.replay(st, h, boot, cfg)
+        R["h_poses"] = out.poses.cpu().numpy()
+        R["h_maps"] = stf.maps.cpu().numpy()
+        R["h_updates"] = int(out.map_updated.sum())
+        xcfg = cfg.overlay({"early_exit_tol": EXIT_TOL_FIRES})
+        hx = replay.head(dlog, boot + SHARDED_SHORT)
+        _, xo = replay.replay(replay.bootstrap(hector.init(
+            xcfg, log.traj[0], dev), hx, boot, xcfg), hx, boot, xcfg)
+        R["x_poses"] = xo.poses.cpu().numpy()
+        R["x_iters"] = int(xo.gn_iterations.sum())
+        for mode, c in (("production", replay.coreslam_production_config()),
+                        ("parity", replay.coreslam_parity_config())):
+            cst, co = replay.coreslam_replay(
+                replay.head(dlog, replay.SHARDED_CORESLAM_N), c, seed=1)
+            R[f"c_{mode}_poses"] = co.poses.cpu().numpy()
+            R[f"c_{mode}_sums"] = co.best_sum.cpu().numpy()
+            R[f"c_{mode}_hole"] = cst.hole_map.cpu().numpy()
+            R[f"c_{mode}_obst"] = cst.obstacle_map.cpu().numpy()
+        flog = replay.make_fleet_log(log)
+        fdlog = replay.to_device(flog, dev)
+        fleet_boot = {}
+        for mode in ("sub4_pallas_dense", "sub1"):
+            c = replay.FLEET_MODES[mode]()
+            fst = replay.fleet_bootstrap(fleet.init_fleet(c, flog.traj[0],
+                                                          dev), fdlog, boot, c)
+            fleet_boot[mode] = (c, fst)
+            fstf, fo = fleet.replay_fleet(fst, fdlog.points[boot:],
+                                          fdlog.valid[boot:], c)
+            np.save(f"{tmp}/fleet_{mode}_poses.npy", fo.cpu().numpy())
+            np.save(f"{tmp}/fleet_{mode}_maps.npy", fstf.maps.cpu().numpy())
+        np.savez(f"{tmp}/ref.npz", **R)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        r = launch.launch("chip_smoke:sharded_phases", SHARDED_RANKS,
+                          {"ref": tmp, "work": tmp,
+                           "device": None if dev.type == "cuda" else str(dev)},
+                          backend="gloo", timeout_s=SHARDED_TIMEOUT_S)[0]
+        launch_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    where = (f"{SHARDED_RANKS} gloo ranks sharing one card ({r['device']}); "
+             "host-staged collectives")
+
+    # ---- 28 ----------------------------------------------------------------
+    us = r["collective_us"]
+    for name in replay.SHARDED_MESHES:
+        say(f"[mesh] {name} over {where}: every collective equals its "
+            f"definition on every rank; us a call (rank 0, {COLLECTIVE_REPS} "
+            "calls): " + ", ".join(f"{k[len(name) + 1:]} {v:.1f}"
+                                    for k, v in us.items()
+                                    if k.startswith(name)))
+    # ---- 29 ----------------------------------------------------------------
+    hec = r["hector"]
+    for name in replay.SHARDED_MESHES:
+        o = hec[name]
+        say(f"[hector sharded] {name}, fixed (gather + line), 400x400x3, 400 "
+            f"beams, {boot} forced + {n - boot} matched scans of make_log(0), "
+            f"{where}: forced maps = hector.update's bit for bit; ATE "
+            f"{o['ate_m']:.6f} m (JAX {name} ref {o['jax_ref_ate_m']:.6f}, "
+            f"gate +1e-4), max err {o['max_err_m']:.4f}; poses within "
+            f"{o['pose_err_m']:.3g} m of the dense fixed replay on the card at "
+            f"every scan (tol {SHARDED_POSE_TOL}), maps within "
+            f"{o['map_err']:.3g} (tol {SHARDED_MAP_TOL}), map updates "
+            f"{o['map_updates']} (dense {o['dense_map_updates']}); "
+            f"{o['scans_per_s']:.1f} scans/s (rank 0; ranks "
+            f"{min(o['rank_scans_per_s']):.1f}-{max(o['rank_scans_per_s']):.1f})"
+            f", {o['collectives_per_scan']:.0f} collectives and "
+            f"{o['host_copies_per_scan']:.0f} host copies a scan, "
+            f"{o['collective_ms_per_scan']:.1f} ms of a scan's "
+            f"{1e3 / o['scans_per_s']:.1f} inside them (rank 0)")
+    say(f"[hector sharded] 2x4 onehot_bf16: forced maps bit for bit, "
+        f"{SHARDED_SHORT} matched scans within {hec['onehot_bf16']['pose_err_m']:.3g}"
+        f" m of gather's; the exit at {EXIT_TOL_FIRES} px: within "
+        f"{hec['exit']['pose_err_m']:.3g} m of the dense exit replay, "
+        f"{hec['exit']['gn_iterations']} GN iterations (dense "
+        f"{hec['exit']['dense_gn_iterations']}, fixed "
+        f"{SHARDED_SHORT * sum(cfg.estimate_iterations)}); checkpoint at scan "
+        f"{SHARDED_CUT} written in {hec['2x4']['checkpoint_s']:.2f} s")
+    # ---- 30 ----------------------------------------------------------------
+    core = r["coreslam"]
+    say(f"[coreslam sharded] 2x4, {replay.SHARDED_CORESLAM_N} scans, {where}: "
+        f"production (correlative + dense fills) and parity (Monte-Carlo "
+        f"{replay.coreslam_parity_config().num_candidates}, line updates): "
+        "track, best sums, hole and obstacle maps = the dense pipeline's on "
+        f"the card bit for bit; ATE {core['production']['ate_m']:.6f} / "
+        f"{core['parity']['ate_m']:.6f} m (JAX production ref "
+        f"{replay.SHARDED_CORESLAM_JAX_REF_ATE_M}); "
+        f"{core['production']['scans_per_s']:.1f} / "
+        f"{core['parity']['scans_per_s']:.1f} scans/s")
+    # ---- 31 ----------------------------------------------------------------
+    fl = r["fleet"]
+    nb = flog.radii.shape[0]
+    for mode, o in fl.items():
+        rates = o["rank_instance_scans_per_s"]
+        say(f"[fleet mesh] {mode}, {flog.radii.shape[1]} robots over the 2x4 "
+            f"mesh's search axis ({SHARDED_FLEET_B} a rank, 2 tile replicas), "
+            f"{boot} + {nb - boot} batch-scans, {where}: every rank's robots "
+            f"= the single-process fleet's bit for bit; launches a rank "
+            f"{o['launches']} (each of the 8 ranks: {o['rank_launches']} / "
+            f"{o['rank_launches_update']}); {sum(rates):.1f} instance-scans/s "
+            f"summed over the 8 ranks ({min(rates):.1f}-{max(rates):.1f} a "
+            "rank)")
+    # ---- 32, 33 ------------------------------------------------------------
+    pg = r["posegraph"]
+    say(f"[posegraph sharded] sharded_optimize over {SHARDED_RANKS} ranks "
+        f"(edge axis; {pg['nodes']} nodes, {pg['edges']} of 64 edge slots "
+        f"valid) within {pg['max_abs_err']:.3g} of posegraph.optimize (rtol, "
+        f"atol {GRAPH_TOL}); {pg['ms_per_step']:.2f} ms a GN step")
+    ck = r["checkpoint"]
+    say(f"[sharded checkpoint] saved at 2x4 after scan {SHARDED_CUT}: the "
+        f"resume at 2x4 = the uninterrupted replay bit for bit (poses "
+        f"{ck['2x4']['pose_err_m']:.3g} m from the dense replay); at 4x2 "
+        f"poses within {ck['4x2']['pose_err_m']:.3g} m and maps "
+        f"{ck['4x2']['map_err']:.3g} of the dense replay (tol "
+        f"{SHARDED_POSE_TOL} / {SHARDED_MAP_TOL})")
+
+    # ---- the mesh fleet's kernels at a rank's shape vs plain --------------
+    b = SHARDED_FLEET_B
+    pts, val = fdlog.points[boot][:b].contiguous(), \
+        fdlog.valid[boot][:b].contiguous()
+    hints = (fdlog.traj[boot][:b]
+             + torch.tensor((0.05, -0.03, 0.02), device=dev)).contiguous()
+    zero = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    fire = torch.ones(b, dtype=torch.bool, device=dev)
+    entries = {}
+    for mode, (mname, uname, tol) in (
+            ("sub4_pallas_dense", ("match_batch", "fill_batch", 2e-3)),
+            ("sub1", ("match_batch_f32", "line_batch", K3_POSE_TOL))):
+        c, fst = fleet_boot[mode]
+        maps = fst.maps[:b * c.total_cells].clone()
+        ok_ = match.match_batch(maps, pts, val, hints, c)
+        op = match.match_batch_plain(maps, pts, val, hints, c)
+        merr = float((ok_[:, :3] - op[:, :3]).abs().max())
+        check(merr <= tol and torch.equal(ok_[:, 3], op[:, 3]),
+              f"{mname} at B={b}: pose {merr} from plain (tol {tol})")
+        m_ms = graph_ms(torch, lambda: match.match_batch(maps, pts, val,
+                                                         hints, c),
+                        REPS_KERNEL)
+        m_plain = graph_ms(torch, lambda: match.match_batch_plain(
+            maps, pts, val, hints, c), REPS_PLAIN)
+        m_bound = bound(*match_work(maps, pts, val, hints, c))
+        upd = fill if c.dense_free_fill else line_ops
+        ufn = upd.update_maps_batch if c.dense_free_fill \
+            else upd.update_maps_line_batch
+        pfn = upd.update_maps_batch_plain if c.dense_free_fill \
+            else upd.update_maps_line_batch_plain
+        mk = maps.clone()
+        ufn(mk, pts, val, hints, zero, fire, c)
+        mp = pfn(maps, pts, val, hints, zero, fire, c)
+        diff = mk != mp
+        uerr = float((mk - mp).abs().max())
+        if c.dense_free_fill:        # phase 8's bound: cells off by |lof|
+            gap = (mk[diff] - mp[diff]).abs()
+            check(float(diff.float().mean()) <= 1e-3 and bool(
+                ((gap - abs(c.log_odds_free)).abs() <= 1e-4).all()),
+                f"{uname} at B={b}: {int(diff.sum())} cells differ")
+        else:
+            check(not bool(diff.any()), f"{uname} at B={b}: {int(diff.sum())}"
+                  " cells differ from plain")
+        changed = int((mk != maps).sum())
+        mt = maps.clone()
+        u_ms = graph_ms(torch, lambda: ufn(mt, pts, val, hints, zero, fire, c),
+                        REPS_KERNEL)
+        u_plain = graph_ms(torch, lambda: pfn(mt, pts, val, hints, zero, fire,
+                                              c), REPS_PLAIN)
+        work = (fill_work(c, changed, pts.shape[1], b, b) if c.dense_free_fill
+                else line_work(changed, pts.shape[1], b, b))
+        entries[mname] = (sum(fl[mode]["rank_launches"]), merr, m_ms, m_plain,
+                          m_bound)
+        entries[uname] = (sum(fl[mode]["rank_launches_update"]), uerr, u_ms,
+                          u_plain, bound(*work))
+    say(f"[fleet mesh] the kernels at a rank's {b} robots vs plain: "
+        + ", ".join(f"{k} {v[2]:.4f} ms (plain {v[3]:.4f}, bound "
+                    f"{v[4][0]:.6f} by {v[4][1]}, err {v[1]:.3g}, "
+                    f"{v[0]:.0f} launches over the ranks)"
+                    for k, v in entries.items()))
+    say(f"[seconds] phases 28-33: references {ref_s:.1f}, the launch "
+        f"{launch_s:.1f} (28 {r['seconds_28']:.1f} / 29 {r['seconds_29']:.1f} "
+        f"/ 30 {r['seconds_30']:.1f} / 31 {r['seconds_31']:.1f} / 32 "
+        f"{r['seconds_32']:.1f} / 33 {r['seconds_33']:.1f}), all "
+        f"{time.perf_counter() - t0:.1f}")
+    return {"results": r, "entries": entries,
+            "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -3205,6 +3798,9 @@ def main() -> int:
     say(f"[seconds] phases 24-27: {t25 - t24:.1f} / {t26 - t25:.1f} / "
         f"{t27 - t26:.1f} / {time.perf_counter() - t27:.1f}")
 
+    # ---- 28-33. the multi-device layer: 8 gloo ranks sharing the card -----
+    sharded = sharded_smoke(torch, dev)
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -3283,7 +3879,15 @@ def main() -> int:
               d_err["K3"], *l4_ms["K3_181"]),
         entry("line_181", "line.cu", "pallas_scatter.py:71",
               sum(r["launches"]["line"] for r in ds_runs.values()), 0.0,
-              *l4_ms["K4_181"])],
+              *l4_ms["K4_181"]),
+        # the fleet over the mesh (phase 31): every rank's launches summed,
+        # timed at a rank's 16 robots
+        *[entry(f"{name}_mesh", source, replaces, *sharded["entries"][name])
+          for name, source, replaces in (
+              ("match_batch", "match.cu", "pallas_onehot.py:235"),
+              ("fill_batch", "fill.cu", "pallas_fill.py:86"),
+              ("match_batch_f32", "match.cu", "pallas_gn.py:133"),
+              ("line_batch", "line.cu", "pallas_scatter.py:71"))]],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -3364,6 +3968,7 @@ def main() -> int:
                         "launches": {k: v for k, v in ilaunch.items() if v},
                         "diverged_at": sess.diverged_at},
         "match_bits": {"K1": k1_bits, "K3": k3_bits},
+        "sharded": sharded["results"],
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -26,10 +26,19 @@ the default, or another of ``replay.PARTICLE_MODES``: ``sub4``, ``grid``,
 scan of the dataset replay of a checked-in CARMEN log (Hector's K3 + K4 and
 CoreSLAM correlative, ``replay.carmen_replay``; ``--mode adversarial``, the
 default, the 360 scans of ``adversarial_180.clf`` with the robust guards, or
-``sim_loop``, the 120 scans of ``sim_loop.clf``).
+``sim_loop``, the 120 scans of ``sim_loop.clf``), or with ``--sharded`` a
+scan of ``models/hector_sharded`` (the fixed config at full width over the
+loop log, 10 forced and 10 warm-up scans first, then ``SHARDED_STEPS``
+timed and traced) on gloo ranks sharing the card: ``--mode 2x4``, the
+default, or ``4x2`` (8 ranks), or ``1x1`` (one rank, no other process on
+the card).  Rank 0 is traced; beside its kernels the JSON gives its host
+time inside collectives a scan (``Mesh.seconds``: the gloo ops, their host
+copies and the wait for the other ranks, from the untraced run) and its
+collectives and host copies a scan.
 
     python3 scripts/torch_port_profile.py [--fleet | --graph | --office |
-        --coreslam | --particle | --dataset] [--mode M] [--out DIR]
+        --coreslam | --particle | --dataset | --sharded] [--mode M]
+        [--out DIR]
 """
 import argparse
 import json
@@ -63,6 +72,8 @@ PARTICLE = {name: (lambda cfgs=cfgs: cfgs)
             for name, cfgs in replay.PARTICLE_MODES.items()}
 DATASET = {"adversarial": lambda: (replay.ADVERSARIAL_LOG, True),
            "sim_loop": lambda: (replay.SIM_LOOP_LOG, False)}
+SHARDED = {"2x4": 8, "4x2": 8, "1x1": 1}       # mesh -> ranks
+SHARDED_STEPS = 40
 
 
 def _single(dev, cfg):
@@ -117,6 +128,66 @@ def _dataset(dev, spec):
     return data.points.shape[0], lambda: replay.carmen_replay(data, *cfgs)
 
 
+def _busy_us(kernels) -> tuple:
+    """The union of the kernels' intervals (us) and the span they cover."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, (spans[-1][1] - spans[0][0]) if spans else 0.0
+
+
+def sharded_rank(mesh_name: str) -> dict:
+    """One rank of ``--sharded``: the replay timed, then traced on rank 0."""
+    from slamnet_tpu_torch.parallel import make_mesh
+    axes = {"1x1": {"tile": 1, "search": 1}, **replay.SHARDED_MESHES}
+    m = make_mesh(axes[mesh_name])
+    cfg = replay.fixed_config()
+    log = replay.make_log(seed=0)
+    start = log.bootstrap + 10
+    dlog = replay.head(replay.to_device(log, m.device), start + SHARDED_STEPS)
+    st, _ = replay.sharded_replay(m, replay.head(dlog, start), cfg)
+
+    def run():
+        replay.sharded_replay(m, dlog, cfg, state=st, start=start)
+        torch.cuda.synchronize(m.device)
+
+    c0, s0 = dict(m.counts), m.seconds
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    per = {k: (m.counts[k] - c0[k]) / SHARDED_STEPS for k in c0}
+    in_coll = (m.seconds - s0) / SHARDED_STEPS
+    if m.rank != 0:
+        run()                                   # the traced run's partners
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        traced = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, window = _busy_us(kernels)
+    return {"device": torch.cuda.get_device_name(0), "path": "sharded",
+            "mode": mesh_name, "ranks": m.size, "backend": m.backend,
+            "steps": SHARDED_STEPS,
+            "wall_us_per_step": wall / SHARDED_STEPS * 1e6,
+            "traced_wall_us_per_step": traced / SHARDED_STEPS * 1e6,
+            "rank0_kernels_per_step": len(kernels) / SHARDED_STEPS,
+            "rank0_device_busy_us_per_step": busy / SHARDED_STEPS,
+            "rank0_busy_share_of_traced_wall": busy / (traced * 1e6),
+            "rank0_collective_host_us_per_step": in_coll * 1e6,
+            "collectives_per_step": per["collectives"],
+            "host_copies_per_step": per["host_copies"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the Chrome trace")
@@ -133,26 +204,37 @@ def main() -> int:
                       help="the particle layer instead of the single robot")
     path.add_argument("--dataset", action="store_true",
                       help="the dataset replay of a checked-in CARMEN log")
+    path.add_argument("--sharded", action="store_true",
+                      help="hector_sharded on gloo ranks sharing the card")
     ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH,
                                               *OFFICE, *CORESLAM, *PARTICLE,
-                                              *DATASET}),
+                                              *DATASET, *SHARDED}),
                     help="the configuration (default pallas_dense, "
                          "sub4_pallas_dense with --fleet, gather with "
                          "--graph, graph with --office, production with "
                          "--coreslam, exact with --particle, adversarial "
-                         "with --dataset)")
+                         "with --dataset, 2x4 with --sharded)")
     args = ap.parse_args()
     kind = ("fleet" if args.fleet else "graph" if args.graph else "office"
             if args.office else "coreslam" if args.coreslam else "particle"
-            if args.particle else "dataset" if args.dataset else "single")
+            if args.particle else "dataset" if args.dataset else "sharded"
+            if args.sharded else "single")
     modes = {"fleet": FLEET, "graph": GRAPH, "office": OFFICE,
              "coreslam": CORESLAM, "particle": PARTICLE, "dataset": DATASET,
-             "single": SINGLE}[kind]
+             "sharded": SHARDED, "single": SINGLE}[kind]
     mode = args.mode or next(iter(modes))
     if mode not in modes:
         ap.error(f"--mode {mode} is not a {kind} mode: {sorted(modes)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    if kind == "sharded":
+        from slamnet_tpu_torch.parallel import launch
+        out = launch.launch("torch_port_profile:sharded_rank", modes[mode],
+                            {"mesh_name": mode}, backend="gloo",
+                            timeout_s=900, pythonpath=[os.path.dirname(
+                                os.path.abspath(__file__))])
+        print(json.dumps(out[0]))
+        return 0
     dev = torch.device("cuda", 0)
     make = {"fleet": _fleet, "graph": _graph, "office": _office,
             "coreslam": _coreslam, "particle": _particle,
@@ -171,18 +253,7 @@ def main() -> int:
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:                       # union of kernel intervals
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    busy, window = _busy_us(kernels)
     by_name = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())

@@ -84,6 +84,16 @@ simulator's constructor (0.1 m, 400 px, 4 levels, 7/4/4/4 iterations) over
 ``make_log(0)``: 10 forced updates at the true poses, then 512 tracked ones;
 the ATE over the tracked scans (``replay.COMPAT_JAX_REF_*``).
 
+``--sharded`` runs ``dryrun_multichip``'s meshes (``__graft_entry__.py:
+74-200``) on 8 virtual CPU devices: ``models/hector_sharded`` (the fixed
+config: gather + line updates) over the first ``replay.SHARDED_N`` scans of
+``make_log(0)`` on the 2x4 and 4x2 (tile x search) meshes, the first 10
+forced with the match pose set to the truth, the rest matched; its ATE over
+the matched scans and its map updates (``replay.SHARDED_JAX_REF_*``); and
+``models/coreslam_sharded`` in the production mode over the first
+``replay.SHARDED_CORESLAM_N`` scans on the 2x4 mesh from ``PRNGKey(1)``
+(``replay.SHARDED_CORESLAM_JAX_REF_ATE_M``).
+
 Runs on the CPU (a few minutes); prints one JSON object.
 
     python scripts/torch_port_ref_ate.py [--seed 0] [--exit]
@@ -91,7 +101,7 @@ Runs on the CPU (a few minutes); prints one JSON object.
         [--coreslam [--mode parity|production] [--seed 1] [--nudge 0]]
         [--particle [--mode exact|sub4|grid|grid_small|grid_dense]
          [--seed 1]] [--dataset sim_loop|adversarial [--out FILE]]
-        [--compat]
+        [--compat] [--sharded]
 """
 import argparse
 import dataclasses
@@ -102,6 +112,9 @@ import sys
 import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
+if "--sharded" in sys.argv:         # the meshes' 8 devices
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                               " --xla_force_host_platform_device_count=8")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
@@ -461,6 +474,43 @@ def run_compat(log):
                        "estimate_iterations": proc.cfg.estimate_iterations}}
 
 
+def run_sharded(log):
+    from slamnet_tpu.models import coreslam_sharded, hector_sharded
+    from slamnet_tpu.parallel import make_mesh
+    n, b = port.SHARDED_N, log.bootstrap
+    angles = np.asarray(log.angles)
+    pts = np.stack([log.radii * np.cos(angles), log.radii * np.sin(angles)],
+                   -1).astype(np.float32)
+    cfg = _jax_cfg(HectorConfig, port.fixed_config())
+    out = {}
+    for name, axes in port.SHARDED_MESHES.items():
+        mesh = make_mesh(axes)
+        st = hector_sharded.init(mesh, cfg, log.traj[0])
+        step = hector_sharded.make_step(mesh, cfg, pts.shape[1])
+        poses, upd = [], 0
+        for t in range(n):
+            if t < b:
+                st = st._replace(match_pose=jnp.asarray(log.traj[t]))
+            st, info = step(st, pts[t], log.valid[t], jnp.asarray(t < b))
+            poses.append(np.asarray(st.match_pose))
+            upd += int(info.map_updated)
+        ate, mx = ate_of(np.asarray(poses[b:]), log.traj[b:n])
+        out[f"hector_{name}"] = {"ate_m": ate, "max_err_m": mx,
+                                 "map_updates": upd}
+    ccfg = _jax_cfg(CoreSlamConfig, port.coreslam_production_config())
+    mesh = make_mesh(port.SHARDED_MESHES["2x4"])
+    st = coreslam_sharded.init(mesh, ccfg, log.traj[0],
+                               key=jax.random.PRNGKey(1))
+    step = coreslam_sharded.make_step(mesh, ccfg)
+    poses = []
+    for t in range(port.SHARDED_CORESLAM_N):
+        st, _ = step(st, pts[t], log.valid[t], st.pose)
+        poses.append(np.asarray(st.pose))
+    ate, mx = ate_of(np.asarray(poses), log.traj[:port.SHARDED_CORESLAM_N])
+    out["coreslam_production_2x4"] = {"ate_m": ate, "max_err_m": mx}
+    return out
+
+
 def _jax_cfg(cls, cfg):
     """The JAX config with the port config's fields."""
     return cls(**dataclasses.asdict(cfg))
@@ -502,7 +552,18 @@ def main():
                                   "as JSON")
     ap.add_argument("--compat", action="store_true",
                     help="compat.HectorSLAMProcessor over the loop log")
+    ap.add_argument("--sharded", action="store_true",
+                    help="hector_sharded and coreslam_sharded on 8 virtual "
+                         "CPU devices")
     args = ap.parse_args()
+    if args.sharded:
+        t0 = time.time()
+        res = run_sharded(make_log(0))
+        res["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps({"sharded": res, "seed": 0, "n": port.SHARDED_N,
+                          "jax": jax.__version__,
+                          "devices": len(jax.devices())}))
+        return
     if args.dataset:
         t0 = time.time()
         res, track = run_dataset(args.dataset)

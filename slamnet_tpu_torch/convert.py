@@ -29,6 +29,15 @@ caller's choice.
 a particle state (``slamnet_tpu.models.particle.ParticleState``): the
 CoreSLAM arrays plus ``particles`` f32[P, 3] and ``scores`` i32[P]; the
 port's draws come from a generator seeded with ``seed``.
+
+The sharded states (``slamnet_tpu.models.hector_sharded`` /
+``coreslam_sharded``): JAX holds every tile in one array with a leading
+tile axis (``local_maps`` f32[T, local_cells], ``local_hole`` i32[T,
+rows * S]); a rank of the port holds its own tile.
+``sharded_hector_state_from_numpy`` / ``sharded_coreslam_state_from_numpy``
+take JAX's arrays and keep this rank's row (tile ``t`` of the mesh, on the
+mesh's device); ``*_to_numpy`` gather the tiles back into JAX's arrays (a
+collective every rank of the mesh calls).
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ import numpy as np
 import torch
 
 from .graph.posegraph import PoseGraph
-from .models import coreslam, particle
+from .models import coreslam, coreslam_sharded, hector_sharded, particle
 from .models.graph_slam import GraphSlamState
 from .models.hector import HectorState
 
@@ -180,3 +189,62 @@ def particle_state_from_numpy(particles, scores, hole_map, obstacle_map, pose,
 def particle_state_to_numpy(state: particle.ParticleState) -> dict:
     """``state``'s arrays as ``particle_state_from_numpy`` takes them."""
     return {k: _np(getattr(state, k)) for k in PARTICLE_FIELDS}
+
+
+SHARDED_HECTOR_FIELDS = ("local_maps", "match_pose", "last_update_pose")
+SHARDED_CORESLAM_FIELDS = ("local_hole",) + CORESLAM_FIELDS[1:]
+
+
+def sharded_hector_state_from_numpy(local_maps, match_pose, last_update_pose,
+                                    mesh, tile_axis: str = "tile"
+                                    ) -> hector_sharded.ShardedHectorState:
+    """This rank's sharded Hector state from JAX's arrays (``local_maps``
+    f32[T, local_cells] with T the mesh's tile axis)."""
+    tiles = np.asarray(local_maps, np.float32)
+    if tiles.ndim != 2 or tiles.shape[0] != mesh.axis_size(tile_axis):
+        raise ValueError(f"local_maps must be [{mesh.axis_size(tile_axis)}, "
+                         f"cells], got {tiles.shape}")
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=mesh.device)
+    return hector_sharded.ShardedHectorState(
+        t(tiles[mesh.axis_index(tile_axis)]), t(match_pose),
+        t(last_update_pose))
+
+
+def sharded_hector_state_to_numpy(state: hector_sharded.ShardedHectorState,
+                                  mesh, tile_axis: str = "tile") -> dict:
+    """JAX's arrays of the sharded state (every tile gathered)."""
+    return {"local_maps": _np(hector_sharded.gather_tiles(mesh, state,
+                                                          tile_axis)),
+            "match_pose": _np(state.match_pose),
+            "last_update_pose": _np(state.last_update_pose)}
+
+
+def sharded_coreslam_state_from_numpy(local_hole, obstacle_map, pose,
+                                      last_odometry, scan_count, mesh,
+                                      seed: int = 0, tile_axis: str = "tile"
+                                      ) -> coreslam_sharded.ShardedCoreSlamState:
+    """This rank's sharded CoreSLAM state from JAX's arrays (``local_hole``
+    i32[T, rows * S]), drawing from a generator seeded with ``seed``."""
+    tiles = np.asarray(local_hole)
+    if tiles.ndim != 2 or tiles.shape[0] != mesh.axis_size(tile_axis):
+        raise ValueError(f"local_hole must be [{mesh.axis_size(tile_axis)}, "
+                         f"cells], got {tiles.shape}")
+    dense = coreslam_state_from_numpy(
+        tiles.reshape(-1), obstacle_map, pose, last_odometry, scan_count,
+        seed, mesh.device)
+    return coreslam_sharded.ShardedCoreSlamState(
+        local_hole=dense.hole_map.view(tiles.shape)[
+            mesh.axis_index(tile_axis)].clone(),
+        obstacle_map=dense.obstacle_map, pose=dense.pose,
+        last_odometry=dense.last_odometry, scan_count=dense.scan_count,
+        generator=dense.generator, scans=dense.scans)
+
+
+def sharded_coreslam_state_to_numpy(
+        state: coreslam_sharded.ShardedCoreSlamState, mesh,
+        tile_axis: str = "tile") -> dict:
+    """JAX's arrays of the sharded state (every tile gathered)."""
+    return {"local_hole": _np(mesh.all_gather(state.local_hole, tile_axis)),
+            **{k: _np(getattr(state, k)) for k in CORESLAM_FIELDS[1:]}}

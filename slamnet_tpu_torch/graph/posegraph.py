@@ -171,6 +171,40 @@ def robust_scale(r: torch.Tensor, w: torch.Tensor, delta: float,
     raise ValueError(f"unknown robust kernel {kernel!r}")
 
 
+def edge_normal_terms(poses: torch.Tensor, edge_i: torch.Tensor,
+                      edge_j: torch.Tensor, edge_meas: torch.Tensor,
+                      edge_w: torch.Tensor, edge_valid: torch.Tensor, k: int,
+                      huber_delta: float = 0.0, robust_kernel: str = "dcs"):
+    """The edges' share of the dense normal equations, (H f32[3k, 3k],
+    b f32[3k]) over nodes 0..k-1, without the gauge prior or damping (a
+    sum over edges: shards of the edges add up to it)."""
+    r, ji, jj = edge_residuals_and_jacobians(poses, edge_i, edge_j, edge_meas,
+                                             edge_valid)
+    w = edge_w * edge_valid[:, None]                         # [E, 3]
+    if huber_delta > 0.0:
+        w = w * robust_scale(r, w, huber_delta, robust_kernel)[:, None]
+    nodes = torch.arange(k, device=poses.device)
+    oi = (edge_i.long()[:, None] == nodes).to(torch.float32)     # [E, k]
+    oj = (edge_j.long()[:, None] == nodes).to(torch.float32)
+    # J[3e + r, 3a + c] = [a = i_e] Ji[e, r, c] + [a = j_e] Jj[e, r, c]
+    J = (oi[:, None, :, None] * ji[:, :, None, :]
+         + oj[:, None, :, None] * jj[:, :, None, :]).reshape(-1, 3 * k)
+    wr = w.reshape(-1, 1)
+    # full-f32 products (allow_tf32 False, PyTorch's default): see above
+    return J.T @ (wr * J), J.T @ (wr[:, 0] * r.reshape(-1))
+
+
+def prior_diagonal(node_valid: torch.Tensor, k: int, anchor_weight: float,
+                   damping: float) -> torch.Tensor:
+    """f32[3k]: the damping on every row, the gauge prior on node 0's, and
+    1 on an invalid node's (an identity row)."""
+    diag = torch.full((3 * k,), damping, dtype=torch.float32,
+                      device=node_valid.device)
+    diag[:3] += anchor_weight
+    invalid = (~node_valid[:k]).repeat_interleave(3)
+    return torch.where(invalid, 1.0, diag)
+
+
 def build_normal_equations(g: PoseGraph, anchor_weight: float = 1e6,
                            damping: float = 1e-6, huber_delta: float = 0.0,
                            robust_kernel: str = "dcs",
@@ -182,27 +216,11 @@ def build_normal_equations(g: PoseGraph, anchor_weight: float = 1e6,
     ``robust_kernel``.  Invalid nodes get identity rows.  Deterministic: see
     the module's note on the incidence product."""
     k = g.poses.shape[0] if active_k is None else active_k
-    dev = g.poses.device
-    r, ji, jj = edge_residuals_and_jacobians(g.poses, g.edge_i, g.edge_j,
-                                             g.edge_meas, g.edge_valid)
-    w = g.edge_w * g.edge_valid[:, None]                     # [E, 3]
-    if huber_delta > 0.0:
-        w = w * robust_scale(r, w, huber_delta, robust_kernel)[:, None]
-    nodes = torch.arange(k, device=dev)
-    oi = (g.edge_i.long()[:, None] == nodes).to(torch.float32)   # [E, k]
-    oj = (g.edge_j.long()[:, None] == nodes).to(torch.float32)
-    # J[3e + r, 3a + c] = [a = i_e] Ji[e, r, c] + [a = j_e] Jj[e, r, c]
-    J = (oi[:, None, :, None] * ji[:, :, None, :]
-         + oj[:, None, :, None] * jj[:, :, None, :]).reshape(-1, 3 * k)
-    wr = w.reshape(-1, 1)
-    # full-f32 products (allow_tf32 False, PyTorch's default): see above
-    H = J.T @ (wr * J)
-    b = J.T @ (wr[:, 0] * r.reshape(-1))
-    diag = torch.full((3 * k,), damping, dtype=torch.float32, device=dev)
-    diag[:3] += anchor_weight
-    invalid = (~g.node_valid[:k]).repeat_interleave(3)
-    diag = torch.where(invalid, 1.0, diag)
-    return H + torch.diag(diag), b
+    H, b = edge_normal_terms(g.poses, g.edge_i, g.edge_j, g.edge_meas,
+                             g.edge_w, g.edge_valid, k, huber_delta,
+                             robust_kernel)
+    return H + torch.diag(prior_diagonal(g.node_valid, k, anchor_weight,
+                                         damping)), b
 
 
 def _size_buckets(k: int) -> list:

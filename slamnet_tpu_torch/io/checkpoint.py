@@ -23,7 +23,11 @@ without it is JAX's.  ``restore`` reads JAX's leaves through ``convert``
 as it is; a CoreSLAM, particle or graph-SLAM state gets a generator seeded
 with ``seed`` in place of JAX's key.
 
-``save_sharded`` / ``restore_sharded`` wait for the port's sharded states;
+``save_sharded`` / ``restore_sharded`` (JAX's ``:58-98``) checkpoint a
+sharded Hector or CoreSLAM state densified: every rank of the mesh gathers
+the tiles, rank 0 writes the dense state's checkpoint with ``sharded_kind``
+in its metadata, so a checkpoint does not depend on the mesh's shape, and
+``restore_sharded`` shards it onto any mesh the config divides over.
 ``save_orbax`` / ``restore_orbax`` wrap orbax, which has no PyTorch
 counterpart: the npz pair is the port's format.
 """
@@ -152,3 +156,48 @@ def restore(path: str, like: Any, device: torch.device | str | None = None,
                          f"{type(like).__name__} has {len(like_leaves)}")
     return _unflatten(like, iter(
         _restore_leaf(a, l, device) for a, l in zip(saved, like_leaves)))
+
+
+def save_sharded(path: str, state: Any, cfg: Any, mesh,
+                 metadata: dict | None = None, tile_axis: str = "tile"
+                 ) -> None:
+    """Checkpoint a sharded state (``ShardedHectorState`` /
+    ``ShardedCoreSlamState``) densified.  Every rank of ``mesh`` calls it
+    (the tiles are gathered); rank 0 writes; it returns once the files are
+    written (a barrier)."""
+    from ..models import coreslam_sharded, hector_sharded
+
+    kind = type(state).__name__
+    if kind == "ShardedHectorState":
+        dense = hector_sharded.to_dense(mesh, state, cfg, tile_axis)
+    elif kind == "ShardedCoreSlamState":
+        dense = coreslam_sharded.to_dense(mesh, state, tile_axis)
+    elif kind == "ShardedGraphSlamState":
+        raise NotImplementedError(
+            "the sharded graph-SLAM state comes with slice 7b of the port "
+            "(models/graph_slam_sharded.py)")
+    else:
+        raise TypeError(f"not a sharded state: {kind}")
+    if mesh.rank == 0:
+        save(path, dense, {**(metadata or {}), "sharded_kind": kind})
+    mesh.barrier()
+
+
+def restore_sharded(path: str, mesh, cfg: Any, like_dense: Any,
+                    tile_axis: str = "tile") -> Any:
+    """Restore a ``save_sharded`` checkpoint onto ``mesh`` (any shape the
+    config divides over): every rank reads the dense state (``like_dense``
+    gives its structure, e.g. ``hector.init(cfg, pose, device)``) and keeps
+    its own share."""
+    from ..models import coreslam_sharded, hector_sharded
+
+    kind = load_metadata(path).get("sharded_kind")
+    shard = {"ShardedHectorState": hector_sharded.shard_state,
+             "ShardedCoreSlamState": coreslam_sharded.shard_state}.get(kind)
+    if kind == "ShardedGraphSlamState":
+        raise NotImplementedError(
+            "the sharded graph-SLAM state comes with slice 7b of the port")
+    if shard is None:
+        raise TypeError(f"{path} holds no sharded checkpoint (kind {kind!r})")
+    return shard(mesh, restore(path, like_dense, device=mesh.device), cfg,
+                 tile_axis)

@@ -107,6 +107,19 @@ def search(state: CoreSlamState, cloud: Scan, search_pose: torch.Tensor,
         cfg.num_candidates, state.generator)
 
 
+def update_obstacle(obstacle_map: torch.Tensor, cloud: Scan,
+                    pose: torch.Tensor, cfg: CoreSlamConfig) -> torch.Tensor:
+    """The obstacle map updated at ``pose``, line or dense by the config."""
+    if cfg.dense_obstacle_fill:
+        return obstacle.update_obstacle_map_dense(
+            obstacle_map, cfg.obstacle_map_size, cfg.obstacle_scale,
+            cloud.points, cloud.valid, pose, cfg.max_obstacle_hits,
+            cfg.angle_bins)
+    return obstacle.update_obstacle_map(
+        obstacle_map, cfg.obstacle_map_size, cfg.obstacle_scale,
+        cloud.points, cloud.valid, pose, cfg.max_obstacle_hits)
+
+
 def update_maps(state: CoreSlamState, cloud: Scan, pose: torch.Tensor,
                 cfg: CoreSlamConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both maps updated at ``pose``, line or dense by the config."""
@@ -118,16 +131,7 @@ def update_maps(state: CoreSlamState, cloud: Scan, pose: torch.Tensor,
         hole = holemap.update_hole_map(
             state.hole_map, cfg.hole_map_size, cfg.hole_scale, cloud.points,
             cloud.valid, pose, cfg.hole_width, cfg.quality)
-    if cfg.dense_obstacle_fill:
-        obst = obstacle.update_obstacle_map_dense(
-            state.obstacle_map, cfg.obstacle_map_size, cfg.obstacle_scale,
-            cloud.points, cloud.valid, pose, cfg.max_obstacle_hits,
-            cfg.angle_bins)
-    else:
-        obst = obstacle.update_obstacle_map(
-            state.obstacle_map, cfg.obstacle_map_size, cfg.obstacle_scale,
-            cloud.points, cloud.valid, pose, cfg.max_obstacle_hits)
-    return hole, obst
+    return hole, update_obstacle(state.obstacle_map, cloud, pose, cfg)
 
 
 def update_cloud(state: CoreSlamState, cloud: Scan, odometry_pose,

@@ -30,6 +30,13 @@ PLACE (JAX returns a new array).
 
 Semantics are per-instance ``models/hector.update``'s: a 1-robot fleet equals
 it (``tests/test_torch_fleet.py``).
+
+The fleet over a mesh (``make_fleet_step`` / ``make_fleet_replay``, JAX's
+``fleet.py:293-358``): robots are independent, so the robot axis shards
+over one mesh axis with no collective at all.  Each rank of the axis runs
+this single-card fleet (its kernels) on its B / S robots and its slice of
+the flat map table (``shard_fleet``), replicated over the mesh's other axes.
+As in JAX, the update budget (``fleet_update_capacity``) applies per shard.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import torch
 from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, rad_diff
 from ..ops import fill, line, match as match_op
+from ..parallel.mesh import Mesh, shard_range
 from .hector import FLOAT_MIN, HectorInfo, HectorState, _check_cfg
 
 
@@ -165,3 +173,62 @@ def replay_fleet(states: HectorState, points: torch.Tensor,
                                  plain)
         poses.append(states.match_pose)
     return states, torch.stack(poses)
+
+
+# --------------------------- fleet over the mesh -----------------------------
+
+def shard_fleet(mesh: Mesh, states: HectorState, cfg: HectorConfig,
+                axis: str = "search") -> HectorState:
+    """This rank's robots of a whole fleet's state (B divisible by the axis
+    size): its poses and its rows of the flat map table, on the mesh's
+    device."""
+    lo, hi = shard_range(states.match_pose.shape[0], mesh, axis)
+    c = fleet_cells(cfg)
+    return HectorState(
+        states.maps[lo * c:hi * c].to(mesh.device).clone(),
+        states.match_pose[lo:hi].to(mesh.device).clone(),
+        states.last_update_pose[lo:hi].to(mesh.device).clone())
+
+
+def gather_fleet(mesh: Mesh, states: HectorState,
+                 axis: str = "search") -> HectorState:
+    """The whole fleet's state from every rank's robots along ``axis`` (one
+    all_gather a field; a collective every rank of the axis calls)."""
+    return HectorState(*(mesh.all_gather(t, axis, tiled=True)
+                         for t in states))
+
+
+def _check_shard(states: HectorState, robots: int) -> None:
+    if states.match_pose.shape[0] != robots:
+        raise ValueError(f"{states.match_pose.shape[0]} robots in the state, "
+                         f"scans of {robots}")
+
+
+def make_fleet_step(mesh: Mesh, cfg: HectorConfig, axis: str = "search"):
+    """The sharded fleet step: ``step(states, points f32[b, N, 2], valid
+    bool[b, N], force=False)`` on this rank's b = B / S robots of the
+    ``axis`` (``shard_fleet``): ``update_fleet``'s contract, no
+    collective."""
+    _check_cfg(cfg)
+
+    def step(states: HectorState, points: torch.Tensor, valid: torch.Tensor,
+             force: bool | torch.Tensor = False):
+        _check_shard(states, points.shape[0])
+        return update_fleet(states, points, valid, cfg, force)
+
+    return step
+
+
+def make_fleet_replay(mesh: Mesh, cfg: HectorConfig, axis: str = "search"):
+    """The sharded fleet replay: ``replay(states, points f32[T, b, N, 2],
+    valid bool[T, b, N])`` on this rank's robots of the ``axis``:
+    ``replay_fleet``'s contract (the final states and the poses
+    f32[T, b, 3]), no collective."""
+    _check_cfg(cfg)
+
+    def replay(states: HectorState, points: torch.Tensor,
+               valid: torch.Tensor):
+        _check_shard(states, points.shape[1])
+        return replay_fleet(states, points, valid, cfg)
+
+    return replay

@@ -1,6 +1,7 @@
 """Gauss-Newton scan-matching pieces in PyTorch: the math of K1's plain version.
 
-Port of ``slamnet_tpu/ops/gn.py`` ``_gn_coords`` (:142-151), ``_gn_tail``
+Port of ``slamnet_tpu/ops/gn.py`` ``hessian_derivs`` (:25-55),
+``solve_gn_step`` (:58-73), ``_gn_coords`` (:142-151), ``_gn_tail``
 (:154-183) and ``_solve_scalar`` (:76-117) — ScanMatcher.GetCompleteHessianDerivs
 + EstimateTransformationLogLh (ScanMatcher.cs:93-204).  The 3x3 symmetric
 system is solved by the adjugate with the reference's guards: H00 != 0 &&
@@ -14,6 +15,42 @@ instance's numbers are the same either way.
 from __future__ import annotations
 
 import torch
+
+from .bilinear import interp_value_and_gradients
+
+
+def hessian_derivs(logodds_flat: torch.Tensor, width: int,
+                   points: torch.Tensor, valid: torch.Tensor,
+                   pose_px: torch.Tensor, scale_to_map: float):
+    """(H f32[3, 3], dTr f32[3]) at the map-pixel pose ``pose_px`` (x_px,
+    y_px, theta) from the beams ``points`` f32[N, 2] (robot-local meters,
+    ``valid`` bool[N]): p_map = R(theta) p * scale + (x_px, y_px), the
+    rotation derivative from the raw point with sin/cos pre-scaled
+    (ScanMatcher.cs:139-196)."""
+    sin_r = torch.sin(pose_px[2]) * scale_to_map
+    cos_r = torch.cos(pose_px[2]) * scale_to_map
+    X, Y = points[:, 0], points[:, 1]
+    mx = cos_r * X - sin_r * Y + pose_px[0]
+    my = sin_r * X + cos_r * Y + pose_px[1]
+    value, gx, gy = interp_value_and_gradients(
+        logodds_flat, width, torch.stack([mx, my], dim=1), valid)
+    fun = 1.0 - value
+    rot = (-sin_r * X - cos_r * Y) * gx + (cos_r * X - sin_r * Y) * gy
+    dtr = torch.stack([(gx * fun).sum(), (gy * fun).sum(), (rot * fun).sum()])
+    h00, h11, h22 = (gx * gx).sum(), (gy * gy).sum(), (rot * rot).sum()
+    h01, h02, h12 = (gx * gy).sum(), (gx * rot).sum(), (gy * rot).sum()
+    H = torch.stack([torch.stack([h00, h01, h02]), torch.stack([h01, h11, h12]),
+                     torch.stack([h02, h12, h22])])
+    return H, dtr
+
+
+def solve_gn_step(H: torch.Tensor, dtr: torch.Tensor,
+                  deriv_clamp: float = 0.2) -> torch.Tensor:
+    """The guarded symmetric 3x3 solve of (H, dTr), the rotation step
+    clamped; a zero step when the guards fail (``_solve_scalar``'s math)."""
+    s0, s1, s2, _ = _solve_scalar(H[0, 0], H[0, 1], H[0, 2], H[1, 1], H[1, 2],
+                                  H[2, 2], dtr[0], dtr[1], dtr[2], deriv_clamp)
+    return torch.stack([s0, s1, s2])
 
 
 def _solve_scalar(H00, H01, H02, H11, H12, H22, d0, d1, d2, clamp: float,

@@ -108,16 +108,23 @@ def update_hole_map(hole_map_flat: torch.Tensor, size: int, scale: float,
     pixv = torch.where(mask, rays.pixval, torch.zeros_like(rays.pixval))
     vsum = torch.zeros(ncells, dtype=torch.int32,
                        device=flat.device).index_add_(0, idx, pixv.reshape(-1))
-    vbar = vsum.to(torch.float32) / visits.clamp(min=1).to(torch.float32)
+    return torch.where(robot_in, blend_visits(hole_map_flat, visits, vsum,
+                                              quality), hole_map_flat)
 
+
+def blend_visits(hole: torch.Tensor, visits: torch.Tensor, vsum: torch.Tensor,
+                 quality: int) -> torch.Tensor:
+    """Every visited pixel's composed blend ``floor(beta^k (p - v_bar) +
+    v_bar)`` from its visit count ``visits`` and value sum ``vsum`` (i32,
+    shaped as ``hole``); unvisited pixels unchanged."""
+    vbar = vsum.to(torch.float32) / visits.clamp(min=1).to(torch.float32)
     beta = (256.0 - quality) / 256.0
     decay = torch.pow(torch.full((), beta, dtype=torch.float64,
-                                 device=flat.device),
+                                 device=hole.device),
                       visits.to(torch.float64)).to(torch.float32)
-    old = hole_map_flat.to(torch.float32)
+    old = hole.to(torch.float32)
     blended = torch.floor(decay * (old - vbar) + vbar).to(torch.int32)
-    new = torch.where(visits > 0, blended, hole_map_flat)
-    return torch.where(robot_in, new, hole_map_flat)
+    return torch.where(visits > 0, blended, hole)
 
 
 def lookup_values(table: torch.Tensor) -> torch.Tensor:
@@ -155,13 +162,16 @@ def min_range_table(x2p: torch.Tensor, y2p: torch.Tensor, dist: torch.Tensor,
 
 
 def cell_ranges(f: PoseFrame, size: int, table: torch.Tensor,
-                angle_bins: int):
+                angle_bins: int, r0: int = 0, rows: int | None = None):
     """Every cell's distance from the robot (cell centres at +0.5) and its
-    sector's looked-up beam range, both f32[size, size]."""
+    sector's looked-up beam range, both f32[rows, size], for the map rows
+    [r0, r0 + rows) (default all)."""
+    rows = size if rows is None else rows
     ii = torch.arange(size, dtype=torch.float32, device=table.device)
+    yy = torch.arange(r0, r0 + rows, dtype=torch.float32, device=table.device)
     dx = (ii + 0.5)[None, :] - f.px
-    dy = (ii + 0.5)[:, None] - f.py
-    dx, dy = dx.expand(size, size), dy.expand(size, size)
+    dy = (yy + 0.5)[:, None] - f.py
+    dx, dy = dx.expand(rows, size), dy.expand(rows, size)
     r_c = sqrt_rn(dx * dx + dy * dy)
     r_m = lookup_values(table)[_bins(dy, dx, angle_bins).long()]
     return r_c, r_m
@@ -171,12 +181,16 @@ def update_hole_map_dense(hole_map_flat: torch.Tensor, size: int,
                           scale: float, points: torch.Tensor,
                           valid: torch.Tensor, pose: torch.Tensor,
                           hole_width: float, quality: int,
-                          angle_bins: int = 256) -> torch.Tensor:
+                          angle_bins: int = 256, r0: int = 0,
+                          rows: int | None = None) -> torch.Tensor:
     """The scatter-free update: every cell nearer than its sector's beam
     plus hole_width / 2 blends once with the V-profile's value at its range
     (``v = NO_OBSTACLE`` short of the hit, ramping to ``OBSTACLE`` at it and
     back at the extended end).  JAX's documented divergence from the line
-    mode (``slamnet_tpu/ops/holemap.py:149-157``)."""
+    mode (``slamnet_tpu/ops/holemap.py:149-157``).  With ``rows``,
+    ``hole_map_flat`` holds only the map rows [r0, r0 + rows) (a row tile:
+    each cell's update depends on nothing but the replicated range table)."""
+    rows = size if rows is None else rows
     f = pose_frame(pose, size, scale)
     x2p = f.c * points[:, 0] - f.s * points[:, 1]
     y2p = f.s * points[:, 0] + f.c * points[:, 1]
@@ -185,12 +199,12 @@ def update_hole_map_dense(hole_map_flat: torch.Tensor, size: int,
     hw2 = hole_width * scale / 2.0          # the hole's half-width, pixels
 
     table = min_range_table(x2p, y2p, dist, beam_ok, angle_bins)
-    r_c, r_m = cell_ranges(f, size, table, angle_bins)
+    r_c, r_m = cell_ranges(f, size, table, angle_bins, r0, rows)
     covered = r_c < r_m + hw2
     ramp = (1.0 - true_div((r_c - r_m).abs(), max(hw2, 1e-6))).clamp(0.0, 1.0)
     v = TS_NO_OBSTACLE + (TS_OBSTACLE - TS_NO_OBSTACLE) * ramp
 
-    old = hole_map_flat.view(size, size)
+    old = hole_map_flat.view(rows, size)
     blended = torch.div((256 - quality) * old + quality * v.to(torch.int32),
                         256, rounding_mode="floor")
     new = torch.where(covered, blended, old).reshape(-1)

@@ -104,6 +104,17 @@ The dataset flow of ``examples/replay_dataset.py:64-143`` over a CARMEN log
 ``COMPAT_JAX_REF_*`` is JAX's ``compat.HectorSLAMProcessor`` at the
 simulator's constructor (0.1 m, 400 px, 4 levels, 7/4/4/4) over
 ``make_log(0)`` (``... --compat``).
+
+The multi-device flows of ``__graft_entry__.dryrun_multichip`` (sections
+1, 1b and 2), each called by every rank of a mesh (``parallel.launch``
+starts the ranks): ``sharded_replay`` runs ``models.hector_sharded`` over
+the first SHARDED_N scans of a log, the bootstrap forced at the true poses,
+then every scan matched from the previous pose; ``sharded_coreslam_replay``
+runs ``models.coreslam_sharded`` as ``coreslam_replay`` runs the dense one.
+``SHARDED_JAX_REF_*`` are JAX's ``hector_sharded`` over the first
+SHARDED_N scans of ``make_log(0)`` on the 2x4 and 4x2 meshes of 8 virtual
+CPU devices, ``SHARDED_CORESLAM_JAX_REF_ATE_M`` its production CoreSLAM on
+the 2x4 mesh (``scripts/torch_port_ref_ate.py --sharded``).
 """
 from __future__ import annotations
 
@@ -121,7 +132,8 @@ from .core.config import (CoreSlamConfig, HectorConfig, ParticleConfig,
 from .core.scan import Scan
 from .graph.frontend import ScanMatchConfig
 from .io.datasets import LidarLog, drifting_odometry, log_points, read_carmen
-from .models import coreslam, fleet, graph_slam, hector, particle
+from .models import (coreslam, coreslam_sharded, fleet, graph_slam, hector,
+                     hector_sharded, particle)
 from .sim import default_field, office_field, revolution_angles, scan_revolution
 from .sim.trajectory import (loop_trajectory, office_tour_trajectory,
                              rect_revisit_trajectory)
@@ -1234,3 +1246,85 @@ def dataset_gate(name: str, got: dict, hector_poses: np.ndarray | None = None,
             fails.append(f"CoreSLAM median ATE {med} > JAX's "
                          f"{ref['coreslam_ate_m'][0]} + 2e-3")
     return fails
+
+
+# The multi-device flows: every rank of a mesh calls them (the bench's loop
+# log, JAX's dryrun_multichip meshes: tile x search over 8 devices).
+SHARDED_N = 128                 # 10 forced + 118 matched scans
+SHARDED_MESHES = {"2x4": {"tile": 2, "search": 4},
+                  "4x2": {"tile": 4, "search": 2}}
+SHARDED_CORESLAM_N = 24
+# JAX package hector_sharded (fixed: gather + line updates) on the first 128
+# scans of make_log(seed=0), 10 forced + 118 matched, on 8 virtual CPU
+# devices, JAX 0.9.0: `python scripts/torch_port_ref_ate.py --sharded`
+# printed "hector_2x4": {"ate_m": 0.0034172534942626953, "max_err_m":
+# 0.008902426809072495, "map_updates": 15}, "hector_4x2": {"ate_m":
+# 0.003417252330109477, "max_err_m": 0.008902426809072495, "map_updates":
+# 15} and, for coreslam_sharded production on 2x4 over the first 24 scans
+# from PRNGKey(1), "coreslam_production_2x4": {"ate_m": 0.04702622815966606,
+# "max_err_m": 0.07058906555175781}.
+SHARDED_JAX_REF_ATE_M = {"2x4": 0.0034172534942626953,
+                         "4x2": 0.003417252330109477}
+SHARDED_JAX_REF_MAP_UPDATES = {"2x4": 15, "4x2": 15}
+SHARDED_CORESLAM_JAX_REF_ATE_M = 0.04702622815966606
+
+
+def head(dlog: DeviceLog, n: int) -> DeviceLog:
+    """The first ``n`` scans of ``dlog``."""
+    return DeviceLog(dlog.points[:n], dlog.valid[:n], dlog.traj[:n])
+
+
+class ShardedOut(NamedTuple):
+    poses: torch.Tensor           # f32[T, 3] match pose after each scan
+    map_updated: torch.Tensor     # bool[T]
+    gn_iterations: torch.Tensor   # i32[T]
+
+
+def sharded_replay(mesh, dlog: DeviceLog, cfg: HectorConfig,
+                   bootstrap: int = BOOTSTRAP,
+                   state: Optional[hector_sharded.ShardedHectorState] = None,
+                   start: int = 0
+                   ) -> Tuple[hector_sharded.ShardedHectorState, ShardedOut]:
+    """``hector_sharded`` over scans ``start``.. of ``dlog`` on ``mesh``
+    (every rank calls it with the whole log and keeps its beam chunk), from
+    ``state`` (default a fresh one at the first true pose): scans below
+    ``bootstrap`` forced with the match pose set to the truth first
+    (``__graft_entry__.py:95-99``), the rest matched from the previous
+    pose.  The outputs stay on the device; the ranks' host copies are
+    gloo's own."""
+    if state is None:
+        state = hector_sharded.init(mesh, cfg, dlog.traj[0])
+    step = hector_sharded.make_step(mesh, cfg, dlog.points.shape[1])
+    poses, upd, iters = [], [], []
+    for t in range(start, dlog.points.shape[0]):
+        if t < bootstrap:
+            state = state._replace(match_pose=dlog.traj[t].clone())
+        state, info = step(state, dlog.points[t], dlog.valid[t],
+                           t < bootstrap)
+        poses.append(state.match_pose)
+        upd.append(info.map_updated)
+        iters.append(info.gn_iterations)
+    return state, ShardedOut(torch.stack(poses), torch.stack(upd),
+                             torch.stack(iters))
+
+
+def sharded_coreslam_replay(mesh, dlog: DeviceLog, cfg: CoreSlamConfig,
+                            seed: int = 1,
+                            state: Optional[
+                                coreslam_sharded.ShardedCoreSlamState] = None,
+                            start: int = 0):
+    """``coreslam_sharded`` over scans ``start``.. of ``dlog`` on ``mesh``,
+    as ``coreslam_replay`` runs the dense pipeline (from a fresh state at the
+    first true pose with the generator seeded ``seed``, unless ``state``;
+    the state's own pose as the odometry).  Returns (state, CoreSlamOut)."""
+    if state is None:
+        state = coreslam_sharded.init(mesh, cfg, dlog.traj[0], seed=seed)
+    step = coreslam_sharded.make_step(mesh, cfg)
+    poses, searched, sums = [], [], []
+    for t in range(start, dlog.points.shape[0]):
+        state, info = step(state, dlog.points[t], dlog.valid[t], state.pose)
+        poses.append(state.pose)
+        searched.append(info.searched)
+        sums.append(info.best_sum)
+    return state, CoreSlamOut(torch.stack(poses), torch.stack(searched),
+                              torch.stack(sums))

@@ -59,7 +59,16 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.core.debug, slamnet_tpu_torch.io.checkpoint, "
             "slamnet_tpu_torch.io.export, slamnet_tpu_torch.io.metrics, "
             "slamnet_tpu_torch.io.live, slamnet_tpu_torch.io.viz, "
-            "slamnet_tpu_torch.io.interactive, slamnet_tpu_torch.sim.lidar; "
+            "slamnet_tpu_torch.io.interactive, slamnet_tpu_torch.sim.lidar, "
+            "slamnet_tpu_torch.parallel, slamnet_tpu_torch.parallel.mesh, "
+            "slamnet_tpu_torch.parallel.launch, "
+            "slamnet_tpu_torch.parallel.rank, "
+            "slamnet_tpu_torch.parallel.hessian, "
+            "slamnet_tpu_torch.parallel.tiles, "
+            "slamnet_tpu_torch.parallel.search, "
+            "slamnet_tpu_torch.models.hector_sharded, "
+            "slamnet_tpu_torch.models.coreslam_sharded, "
+            "slamnet_tpu_torch.graph.distributed; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
