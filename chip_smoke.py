@@ -239,8 +239,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 on each axis and both, all_gather and ppermute on each axis,
                 equal to their definitions on every rank; each one's us;
  29. hector sharded — models/hector_sharded at full width (fixed config,
-                400x400x3, 400 beams) on both meshes, 10 forced + 118
-                matched scans of make_log(0): the forced maps = the dense
+                400x400x3, 400 beams) on both meshes, 10 forced + 54
+                matched scans of make_log(0) (cut from 118 for the
+                script's time limit): the forced maps = the dense
                 hector.update's bit for bit; the same map updates as the
                 dense fixed replay on the card, poses within 5e-3 m of it at
                 every scan, maps within 1e-2; ATE <= SHARDED_JAX_REF_ATE_M +
@@ -257,10 +258,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 the four kernels at a rank's 16 robots against plain, timed;
  32. posegraph — graph/distributed.sharded_optimize over 8 ranks within
                 rtol/atol 1e-4 of posegraph.optimize;
- 33. checkpoint — io/checkpoint.save_sharded at 2x4 after scan 100; the
+ 33. checkpoint — io/checkpoint.save_sharded at 2x4 after scan 40; the
                 resume at 2x4 = the uninterrupted replay bit for bit, at 4x2
                 within phase 29's tolerances.
-Phases 17-33 print their seconds.
+ 34. graph sharded — ONE more launch of 8 gloo ranks sharing the card:
+                (a) graph/schur.schur_gn_step over a node axis of 8 on the
+                128-node circle graph within rtol/atol 2e-4 / 5e-4 of
+                posegraph.gn_step on the card after 1 / 2 steps, 3
+                collectives a step, the cluster graph's overflow at 2 slots
+                (check_separator_capacity: does not fit), its us; (b)
+                dryrun_multichip's section 3 (replay.sharded_graph_replay:
+                6 still + 65 drive scans, onehot_bf16 400x400x3, a
+                onehot_bf16 + dense-fill frontend, 8 separator slots) on 2x4
+                through replay.sharded_graph_gate, K1 = K2 = the loop
+                searches and K3 = K4 = 0 on every rank, every rank's due /
+                has_cand / looped equal at every scan, 1 + 3 x 3
+                collectives a keyframe event; (c) the same with the default
+                gather frontend: K3 = K4 = the searches, K1 = K2 = 0; (d)
+                graph_slam.rebuild_maps_sharded on 4x2 from (b)'s state
+                (to_dense / shard_dense) = rebuild_maps on the card bit for
+                bit; (e) a checkpoint at scan 36 of (b): the resume at 2x4 =
+                the uninterrupted replay bit for bit, restored at 4x2 its
+                to_dense = the saved state.
+Then 8 one-scan device traces (metrics.device_trace over one fixed
+hector.update each, late in this long process) must each hold a K3 and a
+K4 kernel.
+Phases 17-34 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -526,7 +549,7 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 # ---- phases 28-33: the multi-device layer, 8 gloo ranks sharing the card --
 SHARDED_RANKS = 8
-SHARDED_CUT = 100         # phase 33's checkpoint: after this many scans
+SHARDED_CUT = 40          # phase 33's checkpoint: after this many scans
 SHARDED_SHORT = 10        # matched scans of the onehot_bf16 and exit runs
 SHARDED_FLEET_B = 16      # robots a rank at S = 4 (phase 31)
 COLLECTIVE_REPS = 20
@@ -1087,6 +1110,314 @@ def sharded_smoke(torch, dev) -> dict:
         f"{time.perf_counter() - t0:.1f}")
     return {"results": r, "entries": entries,
             "seconds": time.perf_counter() - t0}
+
+
+# ---- phase 34: the sharded graph, 8 gloo ranks sharing the card ----------
+GRAPH_CUT = 36            # phase 34e's checkpoint: after this many scans
+SCHUR_NODES = 128         # phase 34a's circle graph (tests/test_posegraph.py)
+SCHUR_CAP = 8             # its separator slots a rank
+SCHUR_TOLS = (2e-4, 5e-4)  # after one and two steps (test_posegraph.py:113-122)
+SCHUR_REPS = 10
+GRAPH_TIMEOUT_S = 400
+ONE_SCAN_TRACES = 8       # one-scan device traces late in the script
+
+
+def cluster_graph(torch, dev):
+    """tests/test_posegraph.py:125's graph: the 64-node circle with block 0
+    of 8 tied to block 4 by a loop edge a node (every node of block 0 a
+    separator)."""
+    import numpy as np
+    from slamnet_tpu_torch.core.geometry import pose_between
+    from slamnet_tpu_torch.graph import posegraph
+    g, n = circle_graph(torch, dev, 64, 64, 256)
+    ths = np.linspace(0, 2 * math.pi, n, endpoint=False)
+    truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
+                                   ths + math.pi / 2], -1), dtype=torch.float32)
+    m = n // SHARDED_RANKS
+    for t in range(m):
+        g = posegraph.add_edge(g, t, t + 4 * m, pose_between(
+            truth[t], truth[t + 4 * m]).to(dev), (10.0, 10.0, 40.0))
+    return g
+
+
+def _cat_out(a, b):
+    """Two ``replay.ShardedGraphOut`` of consecutive scans as one."""
+    import numpy as np
+    import torch
+    return type(a)(*(np.concatenate([x, y]) if isinstance(x, np.ndarray)
+                     else torch.cat([x, y]) for x, y in zip(a, b)))
+
+
+def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
+    """Phase 34 on one rank of the 8-rank gloo world ``graph_smoke``
+    launches (every rank on the card unless ``device`` names another): any
+    failed check raises, which fails the launch.  Rank 0's result carries
+    the numbers."""
+    import numpy as np
+    import torch
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.graph import schur
+    from slamnet_tpu_torch.io import checkpoint
+    from slamnet_tpu_torch.models import graph_slam
+    from slamnet_tpu_torch.models import graph_slam_sharded as gss
+    from slamnet_tpu_torch.models import hector_sharded as hs
+    from slamnet_tpu_torch.parallel import make_mesh
+
+    R = dict(np.load(f"{ref}/ref.npz"))
+    node = make_mesh({"node": SHARDED_RANKS}, device)
+    meshes = {n: make_mesh(a, device)
+              for n, a in replay.SHARDED_MESHES.items()}
+    m24, m42 = meshes["2x4"], meshes["4x2"]
+    dev = node.device
+    check(device is not None or dev.type == "cuda",
+          f"rank {node.rank} on {dev}, not the card")
+    res = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def every_rank(x: float) -> list:
+        return node.all_gather(torch.tensor([float(x)], device=dev), "node",
+                               tiled=True).tolist()
+
+    # ---- 34a. the node-sharded Schur GN step against the dense one -------
+    t34 = time.perf_counter()
+    g, _ = circle_graph(torch, dev, SCHUR_NODES, SCHUR_NODES, 256)
+    c0 = node.counts["collectives"]
+    g1, of1 = schur.schur_gn_step(node, g, sep_capacity=SCHUR_CAP)
+    g2, of2 = schur.schur_gn_step(node, g1, sep_capacity=SCHUR_CAP)
+    per_step = (node.counts["collectives"] - c0) / 2
+    errs = []
+    for got, key, tol in ((g1, "schur_dense1", SCHUR_TOLS[0]),
+                          (g2, "schur_dense2", SCHUR_TOLS[1])):
+        want = torch.from_numpy(R[key]).to(dev)
+        errs.append(float((got.poses - want).abs().max()))
+        check(bool(((got.poses - want).abs()
+                    <= tol + tol * want.abs()).all()),
+              f"schur_gn_step {errs[-1]} from posegraph.gn_step (rtol/atol "
+              f"{tol})")
+    check(int(of1) == int(of2) == 0, f"overflow {int(of1)}, {int(of2)} at "
+          f"{SCHUR_CAP} slots")
+    check(per_step == 3, f"{per_step} collectives a Schur step, want 3")
+    cg = cluster_graph(torch, dev)
+    fits = schur.check_separator_capacity(cg, SHARDED_RANKS, 2)
+    _, of_small = schur.schur_gn_step(node, cg, sep_capacity=2)
+    _, of_big = schur.schur_gn_step(node, cg, sep_capacity=16)
+    check(not fits and int(of_small) > 0 and int(of_big) == 0
+          and schur.check_separator_capacity(cg, SHARDED_RANKS, 16),
+          f"the overflow at 2 slots is {int(of_small)} (the host check: "
+          f"fits {fits}), at 16 {int(of_big)}")
+    sync()
+    tt = time.perf_counter()
+    for _ in range(SCHUR_REPS):
+        schur.schur_gn_step(node, g, sep_capacity=SCHUR_CAP)
+    sync()
+    res["schur"] = {"err_step1": errs[0], "err_step2": errs[1],
+                    "collectives_per_step": per_step,
+                    "overflow_cap2": int(of_small),
+                    "us_per_step": (time.perf_counter() - tt) / SCHUR_REPS
+                    * 1e6}
+    res["schur"]["rank_us_per_step"] = every_rank(res["schur"]["us_per_step"])
+    res["seconds_34a"] = time.perf_counter() - t34
+
+    # ---- 34b-c. section 3 on 2x4, in both frontends -----------------------
+    log = replay.make_sharded_graph_log()
+    dlog = replay.to_device(log, dev)
+    nb, n = dlog.points.shape[1], dlog.points.shape[0]
+    runs, final = {}, {}
+    for mode, kernels in (("onehot_bf16", ("match", "fill")),
+                          ("gather", ("match_f32", "line"))):
+        tm = time.perf_counter()
+        hcfg, gcfg, mcfg, cap = replay.sharded_graph_config(mode)
+        step = gss.make_step(m24, hcfg, gcfg, nb, mcfg, sep_capacity=cap)
+        zero_launch_counts()
+        c0, s0 = dict(m24.counts), m24.seconds
+        saved = {"collectives": 0, "host_copies": 0}
+        save_s = save_coll_s = 0.0
+        sync()
+        tt = time.perf_counter()
+        if mode == "onehot_bf16":     # 34e's checkpoint at GRAPH_CUT
+            st, o1 = replay.sharded_graph_replay(
+                m24, replay.head(dlog, GRAPH_CUT), hcfg, gcfg, mcfg, cap,
+                step=step)
+            sync()
+            t_cut, c_cut, s_cut = time.perf_counter(), dict(m24.counts), \
+                m24.seconds
+            checkpoint.save_sharded(f"{work}/graph", st, hcfg, m24,
+                                    {"scan": GRAPH_CUT})
+            save_s = time.perf_counter() - t_cut
+            saved = {k: m24.counts[k] - c_cut[k] for k in c_cut}
+            save_coll_s = m24.seconds - s_cut
+            st, o2 = replay.sharded_graph_replay(
+                m24, dlog, hcfg, gcfg, mcfg, cap, state=st, start=GRAPH_CUT,
+                step=step)
+            out = _cat_out(o1, o2)
+        else:
+            st, out = replay.sharded_graph_replay(m24, dlog, hcfg, gcfg, mcfg,
+                                                  cap, step=step)
+        sync()
+        wall = time.perf_counter() - tt - save_s
+        counts = launch_counts()
+        expect = dict.fromkeys(counts, 0)
+        if dev.type == "cuda":          # the plain versions launch nothing
+            expect.update(dict.fromkeys(kernels, step.searches))
+        check(counts == expect, f"{mode} frontend rank {m24.rank}: launches "
+              f"{counts}, want {expect} ({step.searches} searches)")
+        got = replay.sharded_graph_metrics(st, out, log.traj)
+        fails = replay.sharded_graph_gate(
+            got, replay.sharded_graph_reference(mode))
+        check(not fails, f"sharded graph ({mode} frontend): {fails}")
+        flags = torch.from_numpy(out.flags.astype(np.uint8)).reshape(-1)
+        every = node.all_gather(flags.to(dev), "node").cpu()
+        check(bool((every == every[:1]).all()), f"{mode}: the ranks read "
+              "different due / has_cand / looped flags")
+        events = int(out.flags[:, 0].sum())
+        coll = m24.counts["collectives"] - c0["collectives"] \
+            - saved["collectives"]
+        copies = m24.counts["host_copies"] - c0["host_copies"] \
+            - saved["host_copies"]
+        per_scan = sum(hcfg.estimate_iterations) + 2
+        per_event = (coll - n * per_scan) / max(events, 1)
+        check(per_event == 1 + 3 * 3, f"{mode}: {per_event} collectives a "
+              "keyframe event, want the cloud's psum + 3 Schur steps x 3")
+        runs[mode] = {**got, "scans_per_s": n / wall,
+                      "rank_scans_per_s": every_rank(n / wall),
+                      "keyframe_events": events,
+                      "searches": step.searches, "host_reads": step.syncs,
+                      "collectives_per_scan": coll / n,
+                      "collectives_per_keyframe_event": per_event,
+                      "host_copies_per_scan": copies / n,
+                      "collective_ms_per_scan":
+                          (m24.seconds - s0 - save_coll_s) / n * 1e3,
+                      "launches": {k: v for k, v in counts.items() if v},
+                      "rank_launches": every_rank(counts[kernels[0]]),
+                      "rank_launches_update": every_rank(counts[kernels[1]]),
+                      "checkpoint_s": save_s,
+                      "seconds": time.perf_counter() - tm}
+        final[mode] = (st, out)
+    res["graph"] = runs
+
+    # ---- 34d. the sharded rebuild on 4x2 = the serial one on the card -----
+    td = time.perf_counter()
+    hcfg, gcfg, mcfg, cap = replay.sharded_graph_config()
+    st_b, out_b = final["onehot_bf16"]
+    dense_b = gss.to_dense(m24, st_b, hcfg)
+    zero_launch_counts()
+    loc = graph_slam.rebuild_maps_sharded(m42, gss.shard_dense(m42, dense_b,
+                                                               hcfg), hcfg)
+    tiles_ = m42.all_gather(loc, "tile")
+    serial = graph_slam.rebuild_maps(dense_b, hcfg)
+    sync()
+    rb_launch = launch_counts()
+    check(torch.equal(hs.unshard_tiles_host(tiles_, hcfg), serial)
+          and torch.equal(tiles_, hs.shard_tiles_host(serial, hcfg, 4)),
+          "rebuild_maps_sharded on 4x2 differs from rebuild_maps")
+    res["rebuild"] = {"nodes": dense_b.nodes,
+                      "serial_launches": {k: v for k, v in rb_launch.items()
+                                          if v},
+                      "seconds": time.perf_counter() - td}
+
+    # ---- 34e. the checkpoint: resumed on 2x4, restored on 4x2 -------------
+    te = time.perf_counter()
+    like = graph_slam.init(hcfg, gcfg, (0.0, 0.0, 0.0), nb, dev)
+    rst = checkpoint.restore_sharded(f"{work}/graph", m24, hcfg, like)
+    st_r, out_r = replay.sharded_graph_replay(m24, dlog, hcfg, gcfg, mcfg,
+                                              cap, state=rst,
+                                              start=GRAPH_CUT)
+    check(torch.equal(out_r.poses, out_b.poses[GRAPH_CUT:])
+          and torch.equal(st_r.local_maps, st_b.local_maps)
+          and torch.equal(st_r.graph.poses, st_b.graph.poses)
+          and torch.equal(st_r.kf_points, st_b.kf_points)
+          and st_r.nodes == st_b.nodes,
+          "the resume at 2x4 differs from the uninterrupted replay")
+    saved_st = checkpoint.restore(f"{work}/graph", like)
+    d42 = gss.to_dense(m42, checkpoint.restore_sharded(
+        f"{work}/graph", m42, hcfg, like), hcfg)
+    check(torch.equal(d42.hector.maps, saved_st.hector.maps)
+          and torch.equal(d42.kf_points, saved_st.kf_points)
+          and torch.equal(d42.kf_valid, saved_st.kf_valid)
+          and torch.equal(d42.graph.poses, saved_st.graph.poses)
+          and d42.nodes == saved_st.nodes,
+          "the checkpoint restored on 4x2 differs from the saved state")
+    res["checkpoint"] = {"cut": GRAPH_CUT, "nodes_at_cut": saved_st.nodes,
+                         "seconds": time.perf_counter() - te}
+    res["seconds_34"] = time.perf_counter() - t34
+    return res if node.rank == 0 else {"rank": node.rank}
+
+
+def graph_smoke(torch, dev) -> dict:
+    """Phase 34: the dense Schur references on this process's card, then
+    ONE launch of SHARDED_RANKS ranks sharing it over gloo
+    (``graph_phases``), a line a part.  Returns rank 0's numbers."""
+    import numpy as np
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.graph import posegraph
+    from slamnet_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    try:
+        g, _ = circle_graph(torch, dev, SCHUR_NODES, SCHUR_NODES, 256)
+        g1 = posegraph.gn_step(g, num_nodes=SCHUR_NODES)
+        g2 = posegraph.gn_step(g1, num_nodes=SCHUR_NODES)
+        np.savez(f"{tmp}/ref.npz", schur_dense1=g1.poses.cpu().numpy(),
+                 schur_dense2=g2.poses.cpu().numpy())
+        t1 = time.perf_counter()
+        r = launch.launch("chip_smoke:graph_phases", SHARDED_RANKS,
+                          {"ref": tmp, "work": tmp,
+                           "device": None if dev.type == "cuda" else str(dev)},
+                          backend="gloo", timeout_s=GRAPH_TIMEOUT_S)[0]
+        launch_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    where = f"{SHARDED_RANKS} gloo ranks sharing one card"
+    sc = r["schur"]
+    say(f"[schur] schur_gn_step over a node axis of {SHARDED_RANKS} ({where})"
+        f", the {SCHUR_NODES}-node circle, {SCHUR_CAP} separator slots a "
+        f"rank: within {sc['err_step1']:.3g} / {sc['err_step2']:.3g} of "
+        f"posegraph.gn_step on the card after 1 / 2 steps (rtol/atol "
+        f"{SCHUR_TOLS[0]} / {SCHUR_TOLS[1]}), no overflow; at 2 slots the "
+        f"cluster graph overflows by {sc['overflow_cap2']} "
+        "(check_separator_capacity: does not fit); "
+        f"{sc['collectives_per_step']:.0f} collectives a step; "
+        f"{sc['us_per_step']:.1f} us a step (rank 0; ranks "
+        f"{min(sc['rank_us_per_step']):.1f}-{max(sc['rank_us_per_step']):.1f}"
+        "; the edge-sharded step of phase 32 took 83.0 / 26.1 ms in earlier "
+        "runs)")
+    log = replay.make_sharded_graph_log()
+    for mode, o in r["graph"].items():
+        ref = replay.sharded_graph_reference(mode)
+        say(f"[graph sharded] section 3 on 2x4, {mode} frontend"
+            f"{' + dense fill' if mode != 'gather' else ''}, onehot_bf16 "
+            f"400x400x3, {log.traj.shape[0]} scans ({log.bootstrap} forced), "
+            f"{where}: {o['keyframes']} keyframes (JAX {ref['keyframes']}), "
+            f"{o['loop_closures']} closures (JAX {ref['loop_closures']}), "
+            f"final error {o['final_err_m']:.4f} m, ATE {o['ate_m']:.6f} "
+            f"(JAX {ref['ate_m']:.6f}), max {o['max_err_m']:.4f} (JAX "
+            f"{ref['max_err_m']:.4f}), overflow {o['max_overflow']}: "
+            f"sharded_graph_gate holds; launches a rank {o['launches']} = "
+            f"the {o['searches']} loop searches (every rank: "
+            f"{o['rank_launches']} / {o['rank_launches_update']}); every "
+            f"rank read the same flags at every scan; {o['scans_per_s']:.2f} "
+            f"scans/s (ranks {min(o['rank_scans_per_s']):.2f}-"
+            f"{max(o['rank_scans_per_s']):.2f}), "
+            f"{o['collectives_per_scan']:.2f} collectives and "
+            f"{o['host_copies_per_scan']:.2f} host copies a scan "
+            f"({o['collectives_per_keyframe_event']:.0f} a keyframe event), "
+            f"{o['collective_ms_per_scan']:.1f} ms a scan inside them; host "
+            f"reads {o['host_reads']}; {o['seconds']:.1f} s")
+    rb, ck = r["rebuild"], r["checkpoint"]
+    say(f"[graph sharded] rebuild_maps_sharded on 4x2 from the 2x4 state "
+        f"(to_dense / shard_dense), {rb['nodes']} nodes: = rebuild_maps on "
+        f"the card bit for bit (its launches {rb['serial_launches']}), "
+        f"halos included; checkpoint at scan {ck['cut']} ({ck['nodes_at_cut']}"
+        " nodes): the resume at 2x4 = the uninterrupted replay bit for bit, "
+        "restored at 4x2 its to_dense = the saved state")
+    say(f"[seconds] phase 34: the launch {launch_s:.1f} (34a "
+        f"{r['seconds_34a']:.1f}, in the ranks {r['seconds_34']:.1f}), all "
+        f"{time.perf_counter() - t0:.1f}")
+    return {"results": r, "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -3800,6 +4131,39 @@ def main() -> int:
 
     # ---- 28-33. the multi-device layer: 8 gloo ranks sharing the card -----
     sharded = sharded_smoke(torch, dev)
+    # ---- 34. the sharded graph: 8 gloo ranks sharing the card -------------
+    graph_sh = graph_smoke(torch, dev)
+    gsh = graph_sh["results"]["graph"]
+
+    # ---- a one-scan device trace late in the process -----------------------
+    # (such a window once held no kernel; the 266-scan trace of phase 26
+    # stays)
+    t35 = time.perf_counter()
+    one_dir = tempfile.mkdtemp(prefix="chip_smoke_trace1_")
+    try:
+        one_st = replay.bootstrap(hector.init(xcfg, log.traj[0], dev), dlog,
+                                  log.bootstrap, xcfg)
+        one_scan = Scan(dlog.points[log.bootstrap], dlog.valid[log.bootstrap],
+                        zero3)
+        hector.update(one_st, one_scan, one_st.match_pose, xcfg)  # warm
+        torch.cuda.synchronize()
+        one_k3, one_k4 = [], []
+        for _ in range(ONE_SCAN_TRACES):
+            with io_metrics.device_trace(one_dir) as tr:
+                hector.update(one_st, one_scan, one_st.match_pose, xcfg)
+            with open(tr.path) as f:
+                names = [e.get("name", "") for e in
+                         json.load(f)["traceEvents"]
+                         if e.get("cat") == "kernel"]
+            one_k3.append(sum("match_kernel<true" in nm for nm in names))
+            one_k4.append(sum("line_kernel" in nm for nm in names))
+    finally:
+        shutil.rmtree(one_dir, ignore_errors=True)
+    check(min(one_k3) >= 1 and min(one_k4) >= 1, f"one-scan device traces "
+          f"hold {one_k3} K3 and {one_k4} K4 kernels")
+    say(f"[trace] one fixed hector.update scan after phase 34 traced "
+        f"{ONE_SCAN_TRACES} times with metrics.device_trace: K3 kernels "
+        f"{one_k3}, K4 {one_k4}; {time.perf_counter() - t35:.1f} s")
 
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
@@ -3887,7 +4251,19 @@ def main() -> int:
               ("match_batch", "match.cu", "pallas_onehot.py:235"),
               ("fill_batch", "fill.cu", "pallas_fill.py:86"),
               ("match_batch_f32", "match.cu", "pallas_gn.py:133"),
-              ("line_batch", "line.cu", "pallas_scatter.py:71"))]],
+              ("line_batch", "line.cu", "pallas_scatter.py:71"))],
+        # the sharded graph's frontend on every rank (phase 34b-c): every
+        # rank's launches summed, timed at the frontend's shape (phase 15)
+        entry("match_graph_sharded", "match.cu", "pallas_onehot.py:500",
+              sum(gsh["onehot_bf16"]["rank_launches"]), fr_err["K1"],
+              *fr["K1"]),
+        entry("fill_graph_sharded", "fill.cu", "pallas_fill.py:86",
+              sum(gsh["onehot_bf16"]["rank_launches_update"]), fr_fill_err,
+              *fr["K2"]),
+        entry("match_f32_graph_sharded", "match.cu", "pallas_gn.py:133",
+              sum(gsh["gather"]["rank_launches"]), fr_err["K3"], *fr["K3"]),
+        entry("line_graph_sharded", "line.cu", "pallas_scatter.py:71",
+              sum(gsh["gather"]["rank_launches_update"]), 0.0, *fr["K4"])],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -3969,6 +4345,8 @@ def main() -> int:
                         "diverged_at": sess.diverged_at},
         "match_bits": {"K1": k1_bits, "K3": k3_bits},
         "sharded": sharded["results"],
+        "graph_sharded": graph_sh["results"],
+        "one_scan_trace": {"k3_events": one_k3, "k4_events": one_k4},
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -34,11 +34,17 @@ default, or ``4x2`` (8 ranks), or ``1x1`` (one rank, no other process on
 the card).  Rank 0 is traced; beside its kernels the JSON gives its host
 time inside collectives a scan (``Mesh.seconds``: the gloo ops, their host
 copies and the wait for the other ranks, from the untraced run) and its
-collectives and host copies a scan.
+collectives and host copies a scan.  With ``--sharded-graph`` the whole of
+``dryrun_multichip``'s section 3 (``replay.sharded_graph_replay``: 71 scans
+of ``models/graph_slam_sharded`` on the 2x4 mesh, the onehot_bf16 pyramid)
+is run once, then timed and traced on rank 0: ``--mode onehot_bf16``, the
+default (the frontend's K1 + K2), or ``gather`` (K3 + K4); beside rank 0's
+kernels a scan and busy time, the JSON gives the collectives a scan and a
+keyframe event and the host time inside them.
 
     python3 scripts/torch_port_profile.py [--fleet | --graph | --office |
-        --coreslam | --particle | --dataset | --sharded] [--mode M]
-        [--out DIR]
+        --coreslam | --particle | --dataset | --sharded | --sharded-graph]
+        [--mode M] [--out DIR]
 """
 import argparse
 import json
@@ -74,6 +80,7 @@ DATASET = {"adversarial": lambda: (replay.ADVERSARIAL_LOG, True),
            "sim_loop": lambda: (replay.SIM_LOOP_LOG, False)}
 SHARDED = {"2x4": 8, "4x2": 8, "1x1": 1}       # mesh -> ranks
 SHARDED_STEPS = 40
+SHARDED_GRAPH = {"onehot_bf16": 8, "gather": 8}   # frontend -> ranks
 
 
 def _single(dev, cfg):
@@ -188,6 +195,65 @@ def sharded_rank(mesh_name: str) -> dict:
             "host_copies_per_step": per["host_copies"]}
 
 
+def sharded_graph_rank(frontend_mode: str) -> dict:
+    """One rank of ``--sharded-graph``: section 3 once (the warm-up), then
+    timed, then traced on rank 0."""
+    from slamnet_tpu_torch.models import graph_slam_sharded as gss
+    from slamnet_tpu_torch.parallel import make_mesh
+    m = make_mesh(replay.SHARDED_MESHES[replay.SHARDED_GRAPH_MESH])
+    hcfg, gcfg, mcfg, cap = replay.sharded_graph_config(frontend_mode)
+    log = replay.make_sharded_graph_log()
+    dlog = replay.to_device(log, m.device)
+    n = dlog.points.shape[0]
+    step = gss.make_step(m, hcfg, gcfg, dlog.points.shape[1], mcfg,
+                         sep_capacity=cap)
+
+    def run():
+        replay.sharded_graph_replay(m, dlog, hcfg, gcfg, mcfg, cap,
+                                    step=step)
+        torch.cuda.synchronize(m.device)
+
+    run()
+    c0, s0, flags0 = dict(m.counts), m.seconds, len(step.flags)
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    per = {k: (m.counts[k] - c0[k]) / n for k in c0}
+    events = sum(f[0] for f in step.flags[flags0:])
+    hector_coll = sum(hcfg.estimate_iterations) + 2
+    in_coll = (m.seconds - s0) / n
+    if m.rank != 0:
+        run()                                   # the traced run's partners
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        traced = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, window = _busy_us(kernels)
+    by_name = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    return {"device": torch.cuda.get_device_name(0), "path": "sharded_graph",
+            "mode": frontend_mode, "ranks": m.size, "backend": m.backend,
+            "steps": n, "keyframe_events": events,
+            "wall_us_per_step": wall / n * 1e6,
+            "traced_wall_us_per_step": traced / n * 1e6,
+            "rank0_kernels_per_step": len(kernels) / n,
+            "rank0_device_busy_us_per_step": busy / n,
+            "rank0_busy_share_of_traced_wall": busy / (traced * 1e6),
+            "rank0_collective_host_us_per_step": in_coll * 1e6,
+            "collectives_per_step": per["collectives"],
+            "collectives_per_keyframe_event":
+                (per["collectives"] - hector_coll) * n / max(events, 1),
+            "host_copies_per_step": per["host_copies"],
+            "rank0_kernels_by_total_us": [
+                {"name": k[:90], "calls": len(d), "total_us": sum(d)}
+                for k, d in top]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the Chrome trace")
@@ -206,31 +272,41 @@ def main() -> int:
                       help="the dataset replay of a checked-in CARMEN log")
     path.add_argument("--sharded", action="store_true",
                       help="hector_sharded on gloo ranks sharing the card")
+    path.add_argument("--sharded-graph", action="store_true",
+                      help="graph_slam_sharded on gloo ranks sharing the "
+                           "card")
     ap.add_argument("--mode", choices=sorted({*SINGLE, *FLEET, *GRAPH,
                                               *OFFICE, *CORESLAM, *PARTICLE,
-                                              *DATASET, *SHARDED}),
+                                              *DATASET, *SHARDED,
+                                              *SHARDED_GRAPH}),
                     help="the configuration (default pallas_dense, "
                          "sub4_pallas_dense with --fleet, gather with "
                          "--graph, graph with --office, production with "
                          "--coreslam, exact with --particle, adversarial "
-                         "with --dataset, 2x4 with --sharded)")
+                         "with --dataset, 2x4 with --sharded, "
+                         "onehot_bf16 with --sharded-graph)")
     args = ap.parse_args()
     kind = ("fleet" if args.fleet else "graph" if args.graph else "office"
             if args.office else "coreslam" if args.coreslam else "particle"
             if args.particle else "dataset" if args.dataset else "sharded"
-            if args.sharded else "single")
+            if args.sharded else "sharded_graph" if args.sharded_graph
+            else "single")
     modes = {"fleet": FLEET, "graph": GRAPH, "office": OFFICE,
              "coreslam": CORESLAM, "particle": PARTICLE, "dataset": DATASET,
-             "sharded": SHARDED, "single": SINGLE}[kind]
+             "sharded": SHARDED, "sharded_graph": SHARDED_GRAPH,
+             "single": SINGLE}[kind]
     mode = args.mode or next(iter(modes))
     if mode not in modes:
         ap.error(f"--mode {mode} is not a {kind} mode: {sorted(modes)}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    if kind == "sharded":
+    if kind in ("sharded", "sharded_graph"):
         from slamnet_tpu_torch.parallel import launch
-        out = launch.launch("torch_port_profile:sharded_rank", modes[mode],
-                            {"mesh_name": mode}, backend="gloo",
+        target, kwargs = (("sharded_rank", {"mesh_name": mode})
+                          if kind == "sharded" else
+                          ("sharded_graph_rank", {"frontend_mode": mode}))
+        out = launch.launch(f"torch_port_profile:{target}", modes[mode],
+                            kwargs, backend="gloo",
                             timeout_s=900, pythonpath=[os.path.dirname(
                                 os.path.abspath(__file__))])
         print(json.dumps(out[0]))

@@ -94,6 +94,14 @@ the matched scans and its map updates (``replay.SHARDED_JAX_REF_*``); and
 ``replay.SHARDED_CORESLAM_N`` scans on the 2x4 mesh from ``PRNGKey(1)``
 (``replay.SHARDED_CORESLAM_JAX_REF_ATE_M``).
 
+``--sharded-graph`` runs ``dryrun_multichip``'s section 3
+(``__graft_entry__.py:152-199``) on the 2x4 mesh of 8 virtual CPU devices
+over the port's ``make_sharded_graph_log()``: ``models/graph_slam_sharded``
+with the ``onehot_bf16`` pyramid and a ``onehot_bf16`` + dense-fill
+frontend (``--mode gather``: the default frontend), 8 separator slots, the
+first 5 scans forced; its keyframes, closures, final error, ATE and largest
+overflow (``replay.SHARDED_GRAPH_JAX_REF_*``).
+
 Runs on the CPU (a few minutes); prints one JSON object.
 
     python scripts/torch_port_ref_ate.py [--seed 0] [--exit]
@@ -101,7 +109,7 @@ Runs on the CPU (a few minutes); prints one JSON object.
         [--coreslam [--mode parity|production] [--seed 1] [--nudge 0]]
         [--particle [--mode exact|sub4|grid|grid_small|grid_dense]
          [--seed 1]] [--dataset sim_loop|adversarial [--out FILE]]
-        [--compat] [--sharded]
+        [--compat] [--sharded] [--sharded-graph [--mode gather]]
 """
 import argparse
 import dataclasses
@@ -112,7 +120,7 @@ import sys
 import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-if "--sharded" in sys.argv:         # the meshes' 8 devices
+if {"--sharded", "--sharded-graph"} & set(sys.argv):   # 8 devices
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                                " --xla_force_host_platform_device_count=8")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -511,6 +519,39 @@ def run_sharded(log):
     return out
 
 
+def run_sharded_graph(log, frontend_mode):
+    from slamnet_tpu.models import graph_slam_sharded
+    from slamnet_tpu.parallel import make_mesh
+    axes = port.SHARDED_MESHES[port.SHARDED_GRAPH_MESH]
+    hcfg, gcfg, mcfg, cap = port.sharded_graph_config(frontend_mode)
+    hcfg, gcfg = _jax_cfg(HectorConfig, hcfg), _jax_cfg(PoseGraphConfig, gcfg)
+    mcfg = frontend.ScanMatchConfig(**mcfg._asdict())
+    angles = np.asarray(log.angles)
+    pts = np.stack([log.radii * np.cos(angles), log.radii * np.sin(angles)],
+                   -1).astype(np.float32)
+    mesh = make_mesh(axes)
+    st = graph_slam_sharded.init(mesh, hcfg, gcfg, log.traj[0], pts.shape[1])
+    step = graph_slam_sharded.make_step(mesh, hcfg, gcfg, pts.shape[1],
+                                        mcfg=mcfg, sep_capacity=cap)
+    poses, over, kf, loops = [], 0, [], []
+    for t in range(pts.shape[0]):
+        st, info = step(st, pts[t], log.valid[t],
+                        jnp.asarray(t < log.bootstrap))
+        poses.append(np.asarray(st.match_pose))
+        over = max(over, int(info.sep_overflow))
+        kf.append(bool(info.keyframe_added))
+        loops.append(bool(info.loop_closed))
+    poses = np.asarray(poses)
+    ate, mx = ate_of(poses[log.bootstrap:], log.traj[log.bootstrap:])
+    return {"keyframes": int(st.graph.num_nodes),
+            "loop_closures": int(st.loop_count),
+            "final_err_m": float(np.linalg.norm(poses[-1, :2]
+                                                - log.traj[-1, :2])),
+            "ate_m": ate, "max_err_m": mx, "max_overflow": over,
+            "keyframe_scans": [t for t, k in enumerate(kf) if k],
+            "loop_scans": [t for t, k in enumerate(loops) if k]}
+
+
 def _jax_cfg(cls, cfg):
     """The JAX config with the port config's fields."""
     return cls(**dataclasses.asdict(cfg))
@@ -540,6 +581,7 @@ def main():
     ap.add_argument("--nudge", type=int, default=0,
                     help="CoreSLAM: move the start's x by this many f32 ulps")
     ap.add_argument("--mode", choices=(*FLEET_PORT_MODES, "gather",
+                                       "onehot_bf16",
                                        "onehot_full", "parity", "production",
                                        *port.PARTICLE_MODES),
                     help="the fleet's mode (default sub4_onehot_dense), the "
@@ -555,7 +597,20 @@ def main():
     ap.add_argument("--sharded", action="store_true",
                     help="hector_sharded and coreslam_sharded on 8 virtual "
                          "CPU devices")
+    ap.add_argument("--sharded-graph", action="store_true",
+                    help="graph_slam_sharded (dryrun_multichip's section 3) "
+                         "on the 2x4 mesh of 8 virtual CPU devices")
     args = ap.parse_args()
+    if args.sharded_graph:
+        mode = args.mode or "onehot_bf16"
+        t0 = time.time()
+        res = run_sharded_graph(port.make_sharded_graph_log(), mode)
+        res["seconds"] = round(time.time() - t0, 1)
+        print(json.dumps({f"sharded_graph_{mode}": res,
+                          "seed": port.SHARDED_GRAPH_SEED,
+                          "jax": jax.__version__,
+                          "devices": len(jax.devices())}))
+        return
     if args.sharded:
         t0 = time.time()
         res = run_sharded(make_log(0))

@@ -38,6 +38,13 @@ rows * S]); a rank of the port holds its own tile.
 take JAX's arrays and keep this rank's row (tile ``t`` of the mesh, on the
 mesh's device); ``*_to_numpy`` gather the tiles back into JAX's arrays (a
 collective every rank of the mesh calls).
+
+``sharded_graph_state_from_numpy`` / ``sharded_graph_state_to_numpy`` carry
+a ``slamnet_tpu.models.graph_slam_sharded.ShardedGraphSlamState`` as a dict
+of its names: ``local_maps`` f32[T, local_cells], ``match_pose``,
+``last_update_pose``, ``graph`` (the ``PoseGraph`` arrays), ``kf_points``
+f32[K, N, 2], ``kf_valid`` bool[K, N], ``last_kf_pose`` and ``loop_count``;
+a rank keeps its tile's row and its search shard of the clouds.
 """
 from __future__ import annotations
 
@@ -45,9 +52,11 @@ import numpy as np
 import torch
 
 from .graph.posegraph import PoseGraph
-from .models import coreslam, coreslam_sharded, hector_sharded, particle
+from .models import (coreslam, coreslam_sharded, graph_slam_sharded,
+                     hector_sharded, particle)
 from .models.graph_slam import GraphSlamState
 from .models.hector import HectorState
+from .parallel.mesh import shard_range
 
 FIELDS = ("maps", "match_pose", "last_update_pose")
 GRAPH_FIELDS = PoseGraph._fields
@@ -248,3 +257,49 @@ def sharded_coreslam_state_to_numpy(
     """JAX's arrays of the sharded state (every tile gathered)."""
     return {"local_hole": _np(mesh.all_gather(state.local_hole, tile_axis)),
             **{k: _np(getattr(state, k)) for k in CORESLAM_FIELDS[1:]}}
+
+
+SHARDED_GRAPH_FIELDS = SHARDED_HECTOR_FIELDS + GRAPH_STATE_FIELDS[1:]
+
+
+def sharded_graph_state_from_numpy(arrays: dict, mesh,
+                                   tile_axis: str = "tile",
+                                   search_axis: str = "search"
+                                   ) -> graph_slam_sharded.ShardedGraphSlamState:
+    """This rank's sharded graph-SLAM state from JAX's arrays (the dict
+    ``sharded_graph_state_to_numpy`` gives): its tile's row of
+    ``local_maps``, its search shard of the clouds, the rest replicated,
+    on the mesh's device."""
+    missing = set(SHARDED_GRAPH_FIELDS) - set(arrays)
+    if missing:
+        raise ValueError(f"sharded graph state arrays lack {sorted(missing)}")
+    h = sharded_hector_state_from_numpy(
+        *(arrays[k] for k in SHARDED_HECTOR_FIELDS), mesh, tile_axis)
+    g = graph_state_from_numpy(
+        {"hector": {"maps": np.zeros(1, np.float32),
+                    "match_pose": arrays["match_pose"],
+                    "last_update_pose": arrays["last_update_pose"]},
+         **{k: arrays[k] for k in GRAPH_STATE_FIELDS[1:]}}, mesh.device)
+    lo, hi = shard_range(g.kf_points.shape[0], mesh, search_axis)
+    return graph_slam_sharded.ShardedGraphSlamState(
+        local_maps=h.local_maps, match_pose=h.match_pose,
+        last_update_pose=h.last_update_pose, graph=g.graph,
+        kf_points=g.kf_points[lo:hi].clone(),
+        kf_valid=g.kf_valid[lo:hi].clone(), last_kf_pose=g.last_kf_pose,
+        loop_count=g.loop_count, nodes=g.nodes)
+
+
+def sharded_graph_state_to_numpy(
+        state: graph_slam_sharded.ShardedGraphSlamState, mesh,
+        tile_axis: str = "tile", search_axis: str = "search") -> dict:
+    """JAX's arrays of the sharded state (the tiles and the clouds
+    gathered: collectives every rank of the mesh calls)."""
+    pts, val = graph_slam_sharded.gather_clouds(mesh, state, search_axis)
+    return {**sharded_hector_state_to_numpy(
+                hector_sharded.ShardedHectorState(
+                    state.local_maps, state.match_pose,
+                    state.last_update_pose), mesh, tile_axis),
+            "graph": {k: _np(getattr(state.graph, k)) for k in GRAPH_FIELDS},
+            "kf_points": _np(pts), "kf_valid": _np(val),
+            "last_kf_pose": _np(state.last_kf_pose),
+            "loop_count": _np(state.loop_count)}

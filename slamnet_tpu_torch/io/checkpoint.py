@@ -24,10 +24,12 @@ as it is; a CoreSLAM, particle or graph-SLAM state gets a generator seeded
 with ``seed`` in place of JAX's key.
 
 ``save_sharded`` / ``restore_sharded`` (JAX's ``:58-98``) checkpoint a
-sharded Hector or CoreSLAM state densified: every rank of the mesh gathers
-the tiles, rank 0 writes the dense state's checkpoint with ``sharded_kind``
-in its metadata, so a checkpoint does not depend on the mesh's shape, and
-``restore_sharded`` shards it onto any mesh the config divides over.
+sharded Hector, CoreSLAM or graph-SLAM state densified: every rank of the
+mesh gathers the tiles (and a graph state's keyframe clouds over the search
+axis), rank 0 writes the dense state's checkpoint with ``sharded_kind`` in
+its metadata, so a checkpoint does not depend on the mesh's shape, and
+``restore_sharded`` shards it onto any mesh the config divides over (for a
+graph state, any search size that divides ``max_keyframes``).
 ``save_orbax`` / ``restore_orbax`` wrap orbax, which has no PyTorch
 counterpart: the npz pair is the port's format.
 """
@@ -159,13 +161,14 @@ def restore(path: str, like: Any, device: torch.device | str | None = None,
 
 
 def save_sharded(path: str, state: Any, cfg: Any, mesh,
-                 metadata: dict | None = None, tile_axis: str = "tile"
-                 ) -> None:
+                 metadata: dict | None = None, tile_axis: str = "tile",
+                 search_axis: str = "search") -> None:
     """Checkpoint a sharded state (``ShardedHectorState`` /
-    ``ShardedCoreSlamState``) densified.  Every rank of ``mesh`` calls it
-    (the tiles are gathered); rank 0 writes; it returns once the files are
-    written (a barrier)."""
-    from ..models import coreslam_sharded, hector_sharded
+    ``ShardedCoreSlamState`` / ``ShardedGraphSlamState``, ``cfg`` its
+    ``HectorConfig`` or ``CoreSlamConfig``) densified.  Every rank of
+    ``mesh`` calls it (the tiles and clouds are gathered); rank 0 writes;
+    it returns once the files are written (a barrier)."""
+    from ..models import coreslam_sharded, graph_slam_sharded, hector_sharded
 
     kind = type(state).__name__
     if kind == "ShardedHectorState":
@@ -173,9 +176,8 @@ def save_sharded(path: str, state: Any, cfg: Any, mesh,
     elif kind == "ShardedCoreSlamState":
         dense = coreslam_sharded.to_dense(mesh, state, tile_axis)
     elif kind == "ShardedGraphSlamState":
-        raise NotImplementedError(
-            "the sharded graph-SLAM state comes with slice 7b of the port "
-            "(models/graph_slam_sharded.py)")
+        dense = graph_slam_sharded.to_dense(mesh, state, cfg, tile_axis,
+                                            search_axis)
     else:
         raise TypeError(f"not a sharded state: {kind}")
     if mesh.rank == 0:
@@ -184,20 +186,22 @@ def save_sharded(path: str, state: Any, cfg: Any, mesh,
 
 
 def restore_sharded(path: str, mesh, cfg: Any, like_dense: Any,
-                    tile_axis: str = "tile") -> Any:
+                    tile_axis: str = "tile", search_axis: str = "search"
+                    ) -> Any:
     """Restore a ``save_sharded`` checkpoint onto ``mesh`` (any shape the
     config divides over): every rank reads the dense state (``like_dense``
-    gives its structure, e.g. ``hector.init(cfg, pose, device)``) and keeps
-    its own share."""
-    from ..models import coreslam_sharded, hector_sharded
+    gives its structure, e.g. ``hector.init(cfg, pose, device)`` or
+    ``graph_slam.init(hcfg, gcfg, pose, beams, device)``) and keeps its own
+    share."""
+    from ..models import coreslam_sharded, graph_slam_sharded, hector_sharded
 
     kind = load_metadata(path).get("sharded_kind")
-    shard = {"ShardedHectorState": hector_sharded.shard_state,
-             "ShardedCoreSlamState": coreslam_sharded.shard_state}.get(kind)
-    if kind == "ShardedGraphSlamState":
-        raise NotImplementedError(
-            "the sharded graph-SLAM state comes with slice 7b of the port")
+    shard = {"ShardedHectorState": lambda d: hector_sharded.shard_state(
+                 mesh, d, cfg, tile_axis),
+             "ShardedCoreSlamState": lambda d: coreslam_sharded.shard_state(
+                 mesh, d, cfg, tile_axis),
+             "ShardedGraphSlamState": lambda d: graph_slam_sharded.shard_dense(
+                 mesh, d, cfg, tile_axis, search_axis)}.get(kind)
     if shard is None:
         raise TypeError(f"{path} holds no sharded checkpoint (kind {kind!r})")
-    return shard(mesh, restore(path, like_dense, device=mesh.device), cfg,
-                 tile_axis)
+    return shard(restore(path, like_dense, device=mesh.device))

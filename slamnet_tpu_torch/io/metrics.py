@@ -26,12 +26,44 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 
+def _cuda_probe_session() -> bool:
+    """A throwaway profiler session over 100 tiny kernels, launched 10 ms
+    into it; True when the session recorded any of them (see
+    ``device_trace``: the session after a teardown records none, and a
+    long-running CUPTI drops only a window's first few)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        time.sleep(0.01)
+        x = torch.zeros(1, device="cuda")
+        for _ in range(100):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    return any(e.device_type == DeviceType.CUDA for e in p.events())
+
+
 class device_trace:
     """Context manager: ``torch.profiler.profile`` over the CPU and (when
     there is one) the CUDA device; on exit the trace is written to
     ``log_dir/trace.json`` (Chrome trace format: chrome://tracing or
     Perfetto), and ``path`` names it.  The profiler object is ``prof`` for
     ``key_averages()`` and the like.
+
+    On the card the traced session runs on a freshly started CUPTI (the
+    tracer under ``torch.profiler``).  Two faults drop kernel records from
+    a short window while every CUDA runtime launch record is kept, as
+    measured on an H100 (PERF.md): the session that follows a CUPTI
+    teardown records no kernel, and when CUPTI has run long without a
+    restart, the first kernels of a window fall outside it (7 of a scan's
+    28 after 90 s idle).  So ``__enter__`` asks for a teardown at the end
+    of each session (``TEARDOWN_CUPTI=1``), runs throwaway sessions of
+    tiny kernels until one records nothing (the restart: the next session
+    is a fresh one), and then starts the traced session with the device
+    idle; ``__exit__`` restores the variable and runs one more throwaway
+    session, so that a later profiler in the process does not start on
+    the torn-down CUPTI.
 
     Usage: ``with device_trace('/tmp/trace') as t: run_replay()``.
     """
@@ -40,6 +72,7 @@ class device_trace:
         self.log_dir = log_dir
         self.path = os.path.join(log_dir, "trace.json")
         self.prof = None
+        self._teardown = None
 
     def __enter__(self):
         import torch
@@ -48,15 +81,28 @@ class device_trace:
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize()
+            self._teardown = os.environ.get("TEARDOWN_CUPTI")
+            os.environ["TEARDOWN_CUPTI"] = "1"
+            for _ in range(2):        # the sessions alternate: <= 2 tries
+                if not _cuda_probe_session():
+                    break
         self.prof = profile(activities=acts)
         self.prof.__enter__()
         return self
 
     def __exit__(self, *exc):
         import torch
-        if torch.cuda.is_available():
+        cuda = torch.cuda.is_available()
+        if cuda:
             torch.cuda.synchronize()
         self.prof.__exit__(*exc)
+        if cuda:
+            if self._teardown is None:
+                os.environ.pop("TEARDOWN_CUPTI", None)
+            else:
+                os.environ["TEARDOWN_CUPTI"] = self._teardown
+            _cuda_probe_session()
         os.makedirs(self.log_dir, exist_ok=True)
         self.prof.export_chrome_trace(self.path)
         return False

@@ -1,8 +1,7 @@
 """Graph-SLAM: Hector odometry + a keyframe pose graph with loop closures.
 
 Port of ``slamnet_tpu/models/graph_slam.py`` (``init``, ``update``,
-``_spawn_keyframe``, ``rebuild_maps``; ``rebuild_maps_sharded`` waits for
-the multi-device slice):
+``_spawn_keyframe``, ``rebuild_maps``, ``rebuild_maps_sharded``):
 
   scan -> hector.update (K1/K3 match, K2/K4 map update)
        -> keyframe gate (frontend.keyframe_due)
@@ -205,3 +204,72 @@ def rebuild_maps(state: GraphSlamState, hcfg: HectorConfig,
         cloud = Scan(state.kf_points[k], state.kf_valid[k] & is_kf, zero)
         hector.update_maps(st, cloud, g.poses[k], is_kf, hcfg, plain)
     return maps
+
+
+def rebuild_maps_sharded(mesh, state, hcfg: HectorConfig,
+                         tile_axis: str = "tile",
+                         search_axis: str = "search") -> torch.Tensor:
+    """``rebuild_maps`` over a ('tile' x 'search') mesh: the keyframe clouds
+    sharded over ``search_axis`` (slot ``k`` on search index ``k // (K /
+    S)``), the pyramid's rows over ``tile_axis``.  Every rank of the mesh
+    calls it with its ``graph_slam_sharded.ShardedGraphSlamState`` (its K /
+    S clouds; ``graph_slam_sharded.shard_dense`` makes one of a dense
+    state).  The graph's node slots are walked in order; at each, the
+    owner broadcasts its cloud by ONE psum over ``search_axis`` (the others
+    add zeros) and every tile applies the line update to its rows
+    (``parallel/tiles.line_marks`` + ``apply_marks``, the sharded Hector's
+    update); one ppermute over ``tile_axis`` refreshes every level's halo
+    row at the end.  Equal to ``rebuild_maps`` bit for bit under the line
+    update (JAX's ``rebuild_maps_sharded`` runs the line update whatever
+    ``dense_free_fill`` says).
+
+    Returns this rank's tile table f32[local_cells] (halos refreshed), a
+    ``ShardedHectorState``'s ``local_maps``."""
+    from ..parallel import tiles
+    from . import hector_sharded as hs
+
+    g = state.graph
+    k = g.poses.shape[0]
+    kf_pts, kf_val = state.kf_points, state.kf_valid
+    per = kf_pts.shape[0]
+    if per * mesh.axis_size(search_axis) != k:
+        raise ValueError(f"{per} clouds a rank over a search axis of "
+                         f"{mesh.axis_size(search_axis)} for {k} slots")
+    n_tiles = mesh.axis_size(tile_axis)
+    loffs = hs.local_level_offsets(hcfg, n_tiles)
+    lrows = hs.level_rows(hcfg, n_tiles)
+    tile = mesh.axis_index(tile_axis)
+    srank = mesh.axis_index(search_axis)
+    dev = kf_pts.device
+    n = kf_pts.shape[1]
+    local = torch.zeros(hs.local_cells(hcfg, n_tiles), dtype=torch.float32,
+                        device=dev)
+    # slots past the host's node count hold no node: they change nothing
+    for slot in range(state.nodes):
+        if slot // per == srank:
+            mine = torch.cat([kf_pts[slot - srank * per].reshape(-1),
+                              kf_val[slot - srank * per].to(torch.float32)])
+        else:
+            mine = torch.zeros(3 * n, dtype=torch.float32, device=dev)
+        red = mesh.psum(mine, search_axis)
+        pts = red[:2 * n].reshape(n, 2)
+        v = (red[2 * n:] > 0) & g.node_valid[slot]
+        for level in range(hcfg.num_levels):
+            size, rows = hcfg.level_sizes[level], lrows[level]
+            marks = tiles.line_marks(pts[:, 0], pts[:, 1], v, g.poses[slot],
+                                     1.0 / hcfg.level_resolutions[level],
+                                     size, tile * rows, rows)
+            o = loffs[level]
+            local[o:o + rows * size] = tiles.apply_marks(
+                local[o:o + rows * size], marks, hcfg.log_odds_free,
+                hcfg.log_odds_occupied, hcfg.occupied_cap)
+    # one halo refresh: every level's first owned row to the north tile
+    halos = mesh.ppermute(
+        torch.cat([local[o:o + size] for o, size in zip(loffs,
+                                                         hcfg.level_sizes)]),
+        tile_axis, [(i, i - 1) for i in range(1, n_tiles)])
+    h0 = 0
+    for o, size, rows in zip(loffs, hcfg.level_sizes, lrows):
+        local[o + rows * size:o + (rows + 1) * size] = halos[h0:h0 + size]
+        h0 += size
+    return local

@@ -31,8 +31,9 @@ exactly: ``max_match_jump``, and NO ``min_match_in_map_frac`` (JAX's sharded
 step does not apply it, ``hector_sharded.py:367-372``, so a scan whose
 in-map fraction is under it moves here where the dense step keeps its
 pose).  JAX's sharded step reads neither ``dense_free_fill`` nor
-``match_subsample`` nor ``gn_damping``; this port refuses configs that set
-them rather than ignore them.
+``match_subsample`` nor ``gn_damping``, and neither does this one: a config
+that sets them (``serving_hector_config()``) runs the line update on every
+beam without damping, as in JAX.
 
 JAX's ``lax.cond(do_update, ...)`` and its early-exit ``while_loop`` become
 computed-and-masked steps: every rank runs every iteration and every update,
@@ -72,12 +73,6 @@ def _check_cfg(cfg: HectorConfig) -> None:
         raise NotImplementedError(
             f"the sharded Hector step runs matcher_mode in {MATCHERS} with "
             f"offset (0, 0); got {cfg.matcher_mode!r}, {cfg.offset}")
-    if cfg.dense_free_fill or cfg.match_subsample != 1 or cfg.gn_damping:
-        raise NotImplementedError(
-            "JAX's sharded step runs the line update on every beam without "
-            "damping; dense_free_fill, match_subsample and gn_damping are "
-            f"not read there (got {cfg.dense_free_fill}, "
-            f"{cfg.match_subsample}, {cfg.gn_damping})")
 
 
 # --------------------------- static layout helpers ---------------------------

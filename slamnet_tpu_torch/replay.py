@@ -115,6 +115,15 @@ runs ``models.coreslam_sharded`` as ``coreslam_replay`` runs the dense one.
 SHARDED_N scans of ``make_log(0)`` on the 2x4 and 4x2 meshes of 8 virtual
 CPU devices, ``SHARDED_CORESLAM_JAX_REF_ATE_M`` its production CoreSLAM on
 the 2x4 mesh (``scripts/torch_port_ref_ate.py --sharded``).
+
+``dryrun_multichip``'s section 3, distributed graph-SLAM: ``make_sharded_
+graph_log`` (6 still scans, then the turning rectangle), ``sharded_graph_
+config`` (the onehot_bf16 pyramid, a onehot_bf16 + dense-fill frontend,
+the section's pose graph and 8 separator slots), ``sharded_graph_replay``
+(``models.graph_slam_sharded`` over the log, the first scans forced),
+``sharded_graph_metrics`` and ``sharded_graph_gate`` against
+``SHARDED_GRAPH_JAX_REF_*`` (JAX's ``graph_slam_sharded`` on the 2x4 mesh,
+``scripts/torch_port_ref_ate.py --sharded-graph``).
 """
 from __future__ import annotations
 
@@ -132,11 +141,11 @@ from .core.config import (CoreSlamConfig, HectorConfig, ParticleConfig,
 from .core.scan import Scan
 from .graph.frontend import ScanMatchConfig
 from .io.datasets import LidarLog, drifting_odometry, log_points, read_carmen
-from .models import (coreslam, coreslam_sharded, fleet, graph_slam, hector,
-                     hector_sharded, particle)
+from .models import (coreslam, coreslam_sharded, fleet, graph_slam,
+                     graph_slam_sharded, hector, hector_sharded, particle)
 from .sim import default_field, office_field, revolution_angles, scan_revolution
 from .sim.trajectory import (loop_trajectory, office_tour_trajectory,
-                             rect_revisit_trajectory)
+                             rect_drive_trajectory, rect_revisit_trajectory)
 
 N_SCANS = 512
 BOOTSTRAP = 10
@@ -1250,22 +1259,24 @@ def dataset_gate(name: str, got: dict, hector_poses: np.ndarray | None = None,
 
 # The multi-device flows: every rank of a mesh calls them (the bench's loop
 # log, JAX's dryrun_multichip meshes: tile x search over 8 devices).
-SHARDED_N = 128                 # 10 forced + 118 matched scans
+SHARDED_N = 64                  # 10 forced + 54 matched scans
 SHARDED_MESHES = {"2x4": {"tile": 2, "search": 4},
                   "4x2": {"tile": 4, "search": 2}}
 SHARDED_CORESLAM_N = 24
-# JAX package hector_sharded (fixed: gather + line updates) on the first 128
-# scans of make_log(seed=0), 10 forced + 118 matched, on 8 virtual CPU
+# JAX package hector_sharded (fixed: gather + line updates) on the first 64
+# scans of make_log(seed=0), 10 forced + 54 matched, on 8 virtual CPU
 # devices, JAX 0.9.0: `python scripts/torch_port_ref_ate.py --sharded`
-# printed "hector_2x4": {"ate_m": 0.0034172534942626953, "max_err_m":
-# 0.008902426809072495, "map_updates": 15}, "hector_4x2": {"ate_m":
-# 0.003417252330109477, "max_err_m": 0.008902426809072495, "map_updates":
-# 15} and, for coreslam_sharded production on 2x4 over the first 24 scans
+# printed "hector_2x4": {"ate_m": 0.004128592554479837, "max_err_m":
+# 0.008902426809072495, "map_updates": 12}, "hector_4x2": {"ate_m":
+# 0.004128592554479837, "max_err_m": 0.008902426809072495, "map_updates":
+# 12} and, for coreslam_sharded production on 2x4 over the first 24 scans
 # from PRNGKey(1), "coreslam_production_2x4": {"ate_m": 0.04702622815966606,
-# "max_err_m": 0.07058906555175781}.
-SHARDED_JAX_REF_ATE_M = {"2x4": 0.0034172534942626953,
-                         "4x2": 0.003417252330109477}
-SHARDED_JAX_REF_MAP_UPDATES = {"2x4": 15, "4x2": 15}
+# "max_err_m": 0.07058906555175781}.  (At a depth of 128 scans:
+# 0.0034172534942626953 m on 2x4, 0.003417252330109477 on 4x2, 15 map
+# updates.)
+SHARDED_JAX_REF_ATE_M = {"2x4": 0.004128592554479837,
+                         "4x2": 0.004128592554479837}
+SHARDED_JAX_REF_MAP_UPDATES = {"2x4": 12, "4x2": 12}
 SHARDED_CORESLAM_JAX_REF_ATE_M = 0.04702622815966606
 
 
@@ -1328,3 +1339,154 @@ def sharded_coreslam_replay(mesh, dlog: DeviceLog, cfg: CoreSlamConfig,
         sums.append(info.best_sum)
     return state, CoreSlamOut(torch.stack(poses), torch.stack(searched),
                               torch.stack(sums))
+
+
+# dryrun_multichip's section 3 (__graft_entry__.py:152-199): distributed
+# graph-SLAM on the 2x4 mesh.
+SHARDED_GRAPH_SEED = 3
+SHARDED_GRAPH_STILL = 6          # still scans at the start pose
+SHARDED_GRAPH_FORCED = 5         # scans mapped unmatched
+SHARDED_GRAPH_MESH = "2x4"
+SHARDED_GRAPH_SEP_CAPACITY = 8
+# JAX package graph_slam_sharded on make_sharded_graph_log(3) (6 still + 65
+# drive scans, the first 5 forced) on the 2x4 mesh of 8 virtual CPU
+# devices, JAX 0.9.0: `python scripts/torch_port_ref_ate.py --sharded-graph`
+# printed "sharded_graph_onehot_bf16": {"keyframes": 22, "loop_closures": 8,
+# "final_err_m": 0.0028054032009094954, "ate_m": 0.01934298314154148,
+# "max_err_m": 0.10565228760242462, "max_overflow": 0} and `... --mode
+# gather` (the default frontend) "sharded_graph_gather": {"keyframes": 22,
+# "loop_closures": 8, "final_err_m": 0.0028054032009094954, "ate_m":
+# 0.019257059320807457, "max_err_m": 0.1056840792298317, "max_overflow": 0}.
+SHARDED_GRAPH_JAX_REF_KEYFRAMES = {"onehot_bf16": 22, "gather": 22}
+SHARDED_GRAPH_JAX_REF_CLOSURES = {"onehot_bf16": 8, "gather": 8}
+SHARDED_GRAPH_JAX_REF_FINAL_ERR_M = {"onehot_bf16": 0.0028054032009094954,
+                                     "gather": 0.0028054032009094954}
+SHARDED_GRAPH_JAX_REF_ATE_M = {"onehot_bf16": 0.01934298314154148,
+                               "gather": 0.019257059320807457}
+SHARDED_GRAPH_JAX_REF_MAX_M = {"onehot_bf16": 0.10565228760242462,
+                               "gather": 0.1056840792298317}
+SHARDED_GRAPH_JAX_REF_MAX_OVERFLOW = {"onehot_bf16": 0, "gather": 0}
+
+
+def make_sharded_graph_log(seed: int = SHARDED_GRAPH_SEED) -> ScanLog:
+    """Section 3's log: SHARDED_GRAPH_STILL still scans at (20, 20, 0), then
+    one lap of ``rect_drive_trajectory()`` (straight legs at 0.3 m a scan,
+    90-degree turns in place at 10 degrees a scan), 71 scans of NUM_BEAMS
+    beams simulated on the CPU from ``seed``."""
+    sim = SimConfig()
+    still = np.tile(np.asarray(sim.start_pose, np.float32),
+                    (SHARDED_GRAPH_STILL, 1))
+    traj = np.concatenate([still, rect_drive_trajectory()])
+    angles = revolution_angles(NUM_BEAMS)
+    fld = default_field(sim.field_scale, sim.field_offset, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    radii, valid = scan_revolution(fld, torch.from_numpy(traj),
+                                   torch.from_numpy(angles),
+                                   sim.max_scan_dist, sim.measure_error, gen)
+    return ScanLog(traj, angles, radii.numpy(), valid.numpy(),
+                   SHARDED_GRAPH_FORCED)
+
+
+def sharded_graph_config(frontend_mode: str = "onehot_bf16"
+                         ) -> Tuple[HectorConfig, PoseGraphConfig,
+                                    ScanMatchConfig, int]:
+    """Section 3's configuration: the 3-level 400-px 7/4/4 pyramid in
+    ``onehot_bf16``; the frontend in ``frontend_mode`` with the dense fill
+    (``"gather"``: the default frontend, K3 + K4); 16 keyframe slots a
+    search shard of SHARDED_GRAPH_MESH; 8 separator slots.  Returns (hcfg,
+    gcfg, mcfg, sep_capacity)."""
+    n_search = SHARDED_MESHES[SHARDED_GRAPH_MESH]["search"]
+    hcfg = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
+                        matcher_mode="onehot_bf16")
+    gcfg = PoseGraphConfig(max_keyframes=16 * n_search, max_edges=64,
+                           keyframe_dist=0.5, keyframe_angle=0.6,
+                           loop_closure_radius=1.5)
+    mcfg = (ScanMatchConfig() if frontend_mode == "gather"
+            else ScanMatchConfig(matcher_mode=frontend_mode, dense_fill=True))
+    return hcfg, gcfg, mcfg, SHARDED_GRAPH_SEP_CAPACITY
+
+
+class ShardedGraphOut(NamedTuple):
+    poses: torch.Tensor            # f32[T, 3] live match pose after each scan
+    keyframe_added: torch.Tensor   # bool[T]
+    loop_closed: torch.Tensor      # bool[T]
+    sep_overflow: torch.Tensor     # i32[T]
+    flags: np.ndarray              # bool[T, 3]: due, has_cand, looped
+
+
+def sharded_graph_replay(mesh, dlog: DeviceLog, hcfg: HectorConfig,
+                         gcfg: PoseGraphConfig, mcfg: ScanMatchConfig,
+                         sep_capacity: int = SHARDED_GRAPH_SEP_CAPACITY,
+                         state: Optional[
+                             graph_slam_sharded.ShardedGraphSlamState] = None,
+                         start: int = 0, step=None
+                         ) -> Tuple[graph_slam_sharded.ShardedGraphSlamState,
+                                    ShardedGraphOut]:
+    """``graph_slam_sharded`` over scans ``start``.. of ``dlog`` on ``mesh``
+    (every rank calls it with the whole log), from ``state`` (default a
+    fresh one at the first true pose), scans below SHARDED_GRAPH_FORCED
+    mapped at the live pose unmatched (``__graft_entry__.py:190-192``).  ``step`` is a
+    ``graph_slam_sharded.Step`` to run (default a new one).  The outputs
+    stay on the device but the flags, which the step reads."""
+    if state is None:
+        state = graph_slam_sharded.init(mesh, hcfg, gcfg, dlog.traj[0],
+                                        dlog.points.shape[1])
+    if step is None:
+        step = graph_slam_sharded.make_step(mesh, hcfg, gcfg,
+                                            dlog.points.shape[1], mcfg,
+                                            sep_capacity=sep_capacity)
+    first = len(step.flags)
+    poses, kf, loop, over = [], [], [], []
+    for t in range(start, dlog.points.shape[0]):
+        state, info = step(state, dlog.points[t], dlog.valid[t],
+                           t < SHARDED_GRAPH_FORCED)
+        poses.append(state.match_pose)
+        kf.append(info.keyframe_added)
+        loop.append(info.loop_closed)
+        over.append(info.sep_overflow)
+    return state, ShardedGraphOut(
+        torch.stack(poses), torch.stack(kf), torch.stack(loop),
+        torch.stack(over), np.asarray(step.flags[first:], bool))
+
+
+def sharded_graph_metrics(state: graph_slam_sharded.ShardedGraphSlamState,
+                          out: ShardedGraphOut, truth: np.ndarray) -> dict:
+    """Section 3's numbers: RMS and max error of the poses after the forced
+    scans, the final pose's error (JAX's own check), keyframes, accepted
+    closures, the largest separator overflow."""
+    poses = out.poses.cpu().numpy()
+    f = SHARDED_GRAPH_FORCED
+    ate, mx = ate_of(poses[f:], np.asarray(truth)[f:])
+    return {"ate_m": ate, "max_err_m": mx,
+            "final_err_m": float(np.linalg.norm(poses[-1, :2]
+                                                - np.asarray(truth)[-1, :2])),
+            "keyframes": int(state.graph.num_nodes),
+            "loop_closures": int(state.loop_count),
+            "max_overflow": int(out.sep_overflow.max())}
+
+
+def sharded_graph_reference(frontend_mode: str = "onehot_bf16") -> dict:
+    """``SHARDED_GRAPH_JAX_REF_*`` of a frontend as
+    ``sharded_graph_metrics``' dict."""
+    return {"ate_m": SHARDED_GRAPH_JAX_REF_ATE_M[frontend_mode],
+            "max_err_m": SHARDED_GRAPH_JAX_REF_MAX_M[frontend_mode],
+            "final_err_m": SHARDED_GRAPH_JAX_REF_FINAL_ERR_M[frontend_mode],
+            "keyframes": SHARDED_GRAPH_JAX_REF_KEYFRAMES[frontend_mode],
+            "loop_closures": SHARDED_GRAPH_JAX_REF_CLOSURES[frontend_mode],
+            "max_overflow":
+                SHARDED_GRAPH_JAX_REF_MAX_OVERFLOW[frontend_mode]}
+
+
+def sharded_graph_gate(got: dict, ref: dict) -> list:
+    """The graph gate (``graph_gate``: the same keyframes, at most 2
+    closures fewer, ATE within 15%, max error within 0.01 m) and JAX's own
+    checks of section 3 (no separator overflow, at least one closure, the
+    final error under 0.5 m).  Returns the failed conditions."""
+    fails = graph_gate(got, ref)
+    if got["max_overflow"] != 0:
+        fails.append(f"separator overflow {got['max_overflow']}")
+    if got["loop_closures"] < 1:
+        fails.append("no loop closure")
+    if not got["final_err_m"] < 0.5:
+        fails.append(f"final error {got['final_err_m']} >= 0.5")
+    return fails

@@ -173,9 +173,11 @@ def _hector_replay(m, cfg, d, boot, num_beams):
             torch.stack(iters))
 
 
-def hector(data: str, out: str, cfg: dict, boot: int,
-           exit_tol: float) -> dict:
-    """The cases of ``tests/test_torch_hector_sharded.py`` on both meshes."""
+def hector(data: str, out: str, cfg: dict, boot: int, exit_tol: float,
+           serving: dict, serving_cleared: dict) -> dict:
+    """The cases of ``tests/test_torch_hector_sharded.py`` on both meshes
+    (``serving``: a config's fields over ``cfg``, replayed on the 2x2 mesh
+    as it is and with ``serving_cleared`` over it)."""
     import dataclasses
 
     from slamnet_tpu_torch import convert
@@ -228,6 +230,17 @@ def hector(data: str, out: str, cfg: dict, boot: int,
                 [float(info.map_updated), float(info.residual),
                  float(info.gn_iterations), float(info.solve_failures)])
         res[f"{name}_collectives"] = np.asarray(m.counts["collectives"])
+        # serving_hector_config()'s knobs, which the sharded step ignores as
+        # JAX's does: the replay with them, and with the three cleared
+        if name == "2x2":
+            for case, c in (("serving", base.overlay(serving)),
+                            ("serving_cleared", base.overlay(
+                                {**serving, **serving_cleared}))):
+                st, poses, upd, _, iters = _hector_replay(m, c, d, boot, nb)
+                res[f"{name}_{case}_poses"] = poses.numpy()
+                res[f"{name}_{case}_updates"] = upd.numpy()
+                res[f"{name}_{case}_iters"] = iters.numpy()
+                res[f"{name}_{case}_maps"] = hs.unshard_maps(m, st, c).numpy()
         last = m
     _save(last, out, res)
     return {"ok": True}
@@ -505,4 +518,157 @@ def deadlock() -> dict:
         torch.distributed.all_reduce(torch.ones(1))
     else:
         time.sleep(3600)
+    return {"ok": True}
+
+
+# ------------------------------------------------------------ Schur GN
+
+def schur(data: str, out: str, cases: list) -> dict:
+    """The cases of ``tests/test_torch_schur.py``: ``graph.schur`` over a
+    'node' axis of all the world's ranks.  Each case (name, graph prefix in
+    ``data``, sep_capacity, huber_delta, steps) writes the poses after each
+    step, the overflow of each, and the collectives a step."""
+    from slamnet_tpu_torch.graph import posegraph, schur as sch
+    torch.set_num_threads(1)
+    d = np.load(data)
+    m = make_mesh({"node": torch.distributed.get_world_size()}, "cpu")
+    res = {}
+    for name, prefix, cap, huber, steps in cases:
+        g = posegraph.PoseGraph(**{k: _t(d[f"{prefix}_{k}"])
+                                   for k in posegraph.PoseGraph._fields})
+        c0 = m.counts["collectives"]
+        for i in range(steps):
+            g, of = sch.schur_gn_step(m, g, sep_capacity=cap,
+                                      huber_delta=huber)
+            res[f"{name}_step{i + 1}"] = g.poses.numpy()
+            res[f"{name}_overflow{i + 1}"] = of.numpy()
+        res[f"{name}_collectives"] = np.asarray(
+            (m.counts["collectives"] - c0) / steps)
+    g = posegraph.PoseGraph(**{k: _t(d[f"{cases[0][1]}_{k}"])
+                               for k in posegraph.PoseGraph._fields})
+    og, worst = sch.schur_optimize(m, g, 3, sep_capacity=cases[0][2])
+    res["optimize"], res["optimize_overflow"] = og.poses.numpy(), \
+        worst.numpy()
+    # every rank's poses are the same bits
+    mine = torch.from_numpy(res[f"{cases[0][0]}_step1"]).reshape(-1)
+    every = m.all_gather(mine, "node")
+    res["ranks_equal"] = np.asarray(bool((every == every[0]).all()))
+    _save(m, out, res)
+    return {"ok": True}
+
+
+# ------------------------------------------------------ sharded graph-SLAM
+
+GRAPH_MESHES = (("2x4", {"tile": 2, "search": 4}),
+                ("4x2", {"tile": 4, "search": 2}))
+
+
+def graph_slam_sharded(data: str, out: str, hcfg: dict, gcfg: dict,
+                       forced: int, cut: int, ckpt_dir: str) -> dict:
+    """The cases of ``tests/test_torch_graph_slam_sharded.py``: the replay
+    on 2x4 with a checkpoint at scan ``cut``, every rank's flags, the
+    rebuild on 4x2 (from the replay's state and from JAX's), the JAX state
+    carried in and stepped once, the checkpoint restored on 4x2."""
+    from slamnet_tpu_torch import convert
+    from slamnet_tpu_torch.core.config import PoseGraphConfig
+    from slamnet_tpu_torch.io import checkpoint
+    from slamnet_tpu_torch.models import graph_slam
+    from slamnet_tpu_torch.models import graph_slam_sharded as gss
+    from slamnet_tpu_torch.models import hector_sharded as hs
+    torch.set_num_threads(1)
+    d = np.load(data)
+    hc = HectorConfig().overlay(_tuples(hcfg))
+    gc = PoseGraphConfig().overlay(_tuples(gcfg))
+    meshes = dict((n, make_mesh(a, "cpu")) for n, a in GRAPH_MESHES)
+    world = make_mesh({"all": torch.distributed.get_world_size()}, "cpu")
+    m24, m42 = meshes["2x4"], meshes["4x2"]
+    traj, pts, valid = _t(d["traj"]), _t(d["pts"]), _t(d["valid"])
+    nb = pts.shape[1]
+    res = {}
+
+    def gathered(m, st):
+        return gss.to_dense(m, st, hc)
+
+    # ---- the replay on 2x4, a checkpoint at `cut` ------------------------
+    st = gss.init(m24, hc, gc, traj[0], nb)
+    step = gss.make_step(m24, hc, gc, nb)
+    poses, kf, loop, over = [], [], [], []
+    c0 = dict(m24.counts)
+    for t in range(traj.shape[0]):
+        if t == cut:
+            checkpoint.save_sharded(f"{ckpt_dir}/graph", st, hc, m24,
+                                    {"scan": cut})
+            res["cut_nodes"] = np.asarray(st.nodes)
+            cut_dense = gathered(m24, st)
+            res["cut_kf_points"] = cut_dense.kf_points.numpy()
+            res["cut_poses"] = cut_dense.graph.poses.numpy()
+            res["cut_maps"] = cut_dense.hector.maps.numpy()
+        st, info = step(st, pts[t], valid[t], t < forced)
+        poses.append(st.match_pose)
+        kf.append(info.keyframe_added)
+        loop.append(info.loop_closed)
+        over.append(info.sep_overflow)
+    res["poses"] = torch.stack(poses).numpy()
+    res["kf"], res["loop"] = torch.stack(kf).numpy(), torch.stack(loop).numpy()
+    res["overflow"] = torch.stack(over).numpy()
+    res["syncs_searches"] = np.asarray([step.syncs, step.searches])
+    res["replay_collectives"] = np.asarray(m24.counts["collectives"]
+                                           - c0["collectives"])
+    flags = torch.tensor(step.flags, dtype=torch.uint8).reshape(-1)
+    res["flags_all"] = world.all_gather(flags, "all").numpy()
+    dense = gathered(m24, st)
+    res["nodes"] = np.asarray(st.nodes)
+    res["kf_points"] = dense.kf_points.numpy()
+    res["kf_valid"] = dense.kf_valid.numpy()
+    for k in convert.GRAPH_FIELDS:
+        res[f"graph_{k}"] = getattr(dense.graph, k).numpy()
+    res["loop_count"] = dense.loop_count.numpy()
+    res["maps"] = dense.hector.maps.numpy()
+    # ---- the rebuild on 4x2, from this replay and from JAX's state --------
+    for name, state in (
+            ("own", dense),
+            ("jax", convert.graph_state_from_numpy(
+                {"hector": {"maps": d["jax_maps"],
+                            "match_pose": d["jax_match_pose"],
+                            "last_update_pose": d["jax_match_pose"]},
+                 "graph": {k: d[f"jax_graph_{k}"]
+                           for k in convert.GRAPH_FIELDS},
+                 "kf_points": d["jax_kf_points"],
+                 "kf_valid": d["jax_kf_valid"],
+                 "last_kf_pose": d["jax_match_pose"],
+                 "loop_count": d["jax_loop_count"]}, "cpu"))):
+        loc = graph_slam.rebuild_maps_sharded(m42, gss.shard_dense(
+            m42, state, hc), hc)
+        res[f"rebuild_{name}"] = hs.unshard_tiles_host(
+            m42.all_gather(loc, "tile"), hc).numpy()
+        res[f"rebuild_{name}_tiles"] = m42.all_gather(loc, "tile").numpy()
+    # ---- JAX's sharded state carried in, one step -------------------------
+    arrays = {k: d[f"conv_{k}"] for k in ("local_maps", "match_pose",
+                                          "last_update_pose", "kf_points",
+                                          "kf_valid", "last_kf_pose",
+                                          "loop_count")}
+    arrays["graph"] = {k: d[f"conv_graph_{k}"] for k in convert.GRAPH_FIELDS}
+    cst = convert.sharded_graph_state_from_numpy(arrays, m24)
+    back = convert.sharded_graph_state_to_numpy(cst, m24)
+    res["conv_back_ok"] = np.asarray(all(
+        np.array_equal(back[k], arrays[k]) for k in arrays if k != "graph")
+        and all(np.array_equal(back["graph"][k], arrays["graph"][k])
+                for k in convert.GRAPH_FIELDS))
+    q = int(d["conv_scan"])
+    cst2, cinfo = gss.make_step(m24, hc, gc, nb)(cst, pts[q], valid[q],
+                                                 q < forced)
+    res["conv_pose"] = cst2.match_pose.numpy()
+    res["conv_nodes"] = np.asarray([cst.nodes, cst2.nodes,
+                                    int(cst2.graph.num_nodes)])
+    res["conv_graph_poses"] = cst2.graph.poses.numpy()
+    # ---- the checkpoint restored on 4x2 ----------------------------------
+    like = graph_slam.init(hc, gc, (0.0, 0.0, 0.0), nb, "cpu")
+    rst = checkpoint.restore_sharded(f"{ckpt_dir}/graph", m42, hc, like)
+    rd = gathered(m42, rst)
+    res["restored_kf_points"] = rd.kf_points.numpy()
+    res["restored_poses"] = rd.graph.poses.numpy()
+    res["restored_maps"] = rd.hector.maps.numpy()
+    res["restored_nodes"] = np.asarray(rst.nodes)
+    res["restored_shard"] = np.asarray(list(rst.kf_points.shape))
+    _save(world, out, res)
     return {"ok": True}

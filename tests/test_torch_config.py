@@ -68,7 +68,9 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.parallel.search, "
             "slamnet_tpu_torch.models.hector_sharded, "
             "slamnet_tpu_torch.models.coreslam_sharded, "
-            "slamnet_tpu_torch.graph.distributed; "
+            "slamnet_tpu_torch.graph.distributed, "
+            "slamnet_tpu_torch.graph.schur, "
+            "slamnet_tpu_torch.models.graph_slam_sharded; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -47,6 +47,13 @@ MESHES = {"2x2": {"tile": 2, "search": 2}, "4x2": {"tile": 4, "search": 2}}
 LAUNCH_TIMEOUT_S = 300
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 ZERO3 = np.zeros(3, np.float32)
+# serving_hector_config()'s matcher and knobs at this pyramid, and the three
+# knobs the sharded step does not read, cleared
+SERVING = dict(matcher_mode="onehot_bf16", match_subsample=4, gn_damping=0.1,
+               dense_free_fill=True, xy_step_clamp_px=10.0,
+               max_match_jump=1.0)
+SERVING_CLEARED = dict(match_subsample=1, gn_damping=0.0,
+                       dense_free_fill=False)
 
 
 def _log():
@@ -124,7 +131,8 @@ def run(tmp_path_factory):
     np.savez(tmp / "in.npz", **data)
     launch.launch("_torch_sharded_ranks:hector", 8,
                   {"data": str(tmp / "in.npz"), "out": str(tmp / "out.npz"),
-                   "cfg": SMALL, "boot": BOOT, "exit_tol": EXIT_TOL},
+                   "cfg": SMALL, "boot": BOOT, "exit_tol": EXIT_TOL,
+                   "serving": SERVING, "serving_cleared": SERVING_CLEARED},
                   backend="gloo", timeout_s=LAUNCH_TIMEOUT_S,
                   pythonpath=[TESTS_DIR])
     port = dict(np.load(tmp / "out.npz"))
@@ -138,6 +146,9 @@ def run(tmp_path_factory):
                  if mode == "exit"
                  else dataclasses.replace(JCFG, matcher_mode=mode))
             jax_out[(name, mode)] = _jax_replay(mesh, c, traj, pts, valid)
+        if name == "2x2":
+            jax_out[(name, "serving")] = _jax_replay(
+                mesh, dataclasses.replace(JCFG, **SERVING), traj, pts, valid)
         for case in ("warm", "frac"):
             c = JCFG if case == "warm" else dataclasses.replace(
                 JCFG, min_match_in_map_frac=float(data["frac_guard"]))
@@ -315,3 +326,25 @@ def test_collectives_a_scan(run):
     per_scan = sum(CFG.estimate_iterations) + 2
     want = 4 * (N_SCANS * per_scan + 2) + 2 * per_scan + 3
     assert int(run["port"]["2x2_collectives"]) == want
+
+
+def test_serving_knobs_are_ignored_as_in_jax(run):
+    # serving_hector_config()'s knobs (onehot_bf16, match_subsample 4,
+    # gn_damping 0.1, dense_free_fill, xy clamp 10 px, jump 1 m): JAX's
+    # sharded step reads none of match_subsample, gn_damping and
+    # dense_free_fill, and neither does the port's: the replay equals the
+    # one with the three cleared bit for bit, and tracks JAX's sharded
+    # replay under the same config within the file's tolerances
+    p = run["port"]
+    for key in ("poses", "updates", "iters", "maps"):
+        np.testing.assert_array_equal(p[f"2x2_serving_{key}"],
+                                      p[f"2x2_serving_cleared_{key}"],
+                                      err_msg=key)
+    jposes, jupd, _, jmaps, jiters = run["jax"][("2x2", "serving")]
+    np.testing.assert_array_equal(p["2x2_serving_updates"], jupd)
+    np.testing.assert_array_equal(p["2x2_serving_iters"], jiters)
+    np.testing.assert_allclose(p["2x2_serving_poses"], jposes, rtol=0,
+                               atol=5e-3)
+    assert np.abs(p["2x2_serving_maps"] - jmaps).max() < 1e-2
+    # the config is accepted where it used to be refused
+    hector_sharded._check_cfg(CFG.overlay(SERVING))

@@ -202,13 +202,31 @@ def test_jax_reads_a_sharded_hector_checkpoint(run):
     assert np.abs(np.asarray(dense.maps)).max() > 0
 
 
-def test_graph_kind_is_left_to_the_next_slice():
+def test_graph_kind_is_left_to_the_next_slice(monkeypatch):
+    # the next slice came: the graph kind is densified by
+    # graph_slam_sharded.to_dense (tests/test_torch_graph_slam_sharded.py
+    # saves and restores one), and a state of no sharded kind is refused
+    from slamnet_tpu_torch.models import graph_slam_sharded
+
     class ShardedGraphSlamState(NamedTuple):
         hector: int
 
-    with pytest.raises(NotImplementedError, match="7b"):
+    class Other(NamedTuple):
+        hector: int
+
+    seen = []
+
+    def to_dense(mesh, state, cfg, tile_axis, search_axis):
+        seen.append((state, tile_axis, search_axis))
+        raise RuntimeError("densified")
+
+    monkeypatch.setattr(graph_slam_sharded, "to_dense", to_dense)
+    with pytest.raises(RuntimeError, match="densified"):
         checkpoint.save_sharded("unused", ShardedGraphSlamState(0), None,
                                 None)
+    assert seen == [(ShardedGraphSlamState(0), "tile", "search")]
+    with pytest.raises(TypeError, match="not a sharded state"):
+        checkpoint.save_sharded("unused", Other(0), None, None)
 
 
 def test_bringup_from_the_environment(tmp_path):
