@@ -283,7 +283,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
 Then 8 one-scan device traces (metrics.device_trace over one fixed
 hector.update each, late in this long process) must each hold a K3 and a
 K4 kernel.
-Phases 17-34 print their seconds.
+ 35. entry points — in-process, each printing to a buffer:
+                ``python -m slamnet_tpu_torch.bench --sections hector,fleet
+                --repeats 1`` (exit 0, one JSON line with bench.py's keys,
+                correct, nothing skipped; launches a step K3 + K4 in fixed,
+                K1 + K2 in onehot_bf16_dense and pallas_dense, the batched
+                K3 + K4 in sub1, K5 + the batched K2 in sub4_onehot_dense,
+                one each, nothing else); the example replay_demo
+                --pipeline all --scans 60 (every pipeline OK, only K3 and
+                K4 launched); replay_dataset on sim_loop.clf (one K3 and
+                one K4 a scan, the written Hector track within 1e-3 m of
+                JAX's, the PNGs).
+Phases 17-35 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -301,6 +312,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -1418,6 +1430,137 @@ def graph_smoke(torch, dev) -> dict:
         f"{r['seconds_34a']:.1f}, in the ranks {r['seconds_34']:.1f}), all "
         f"{time.perf_counter() - t0:.1f}")
     return {"results": r, "seconds": time.perf_counter() - t0}
+
+
+# ---- phase 35: the entry points -------------------------------------------
+BENCH_SECTIONS = ("hector", "fleet")
+# the bench's keys for those sections, letter for letter (bench.py:261-273,
+# :543-553), and each mode's kernels, one launch a step each on the card
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
+              "fixed_iter_scans_per_sec", "ate_m", "max_err_m", "map_updates",
+              "gn_residual_mean", "solve_failures", "hector_modes", "n_scans",
+              "fleet_batch", "fleet_mode", "fleet_instance_scans_per_sec",
+              "fleet_vs_single_instance", "fleet_ate_m", "fleet_ate_median_m",
+              "fleet_max_err_m", "fleet_ate_bound_m", "fleet_modes",
+              "device", "sections", "correct")
+BENCH_KERNELS = {"hector_modes": {"fixed": ("K3", "K4"),
+                                  "onehot_bf16_dense": ("K1", "K2"),
+                                  "pallas_dense": ("K1", "K2")},
+                 "fleet_modes": {"sub1": ("K3_batch", "K4_batch"),
+                                 "sub4_onehot_dense": ("K5", "K2_batch")}}
+DEMO_SCANS = 60
+
+
+def entry_point_smoke(torch, dev) -> dict:
+    """Phase 35: the port's bench (its hector and fleet sections, one timed
+    replay a mode) and the examples replay_demo (every pipeline) and
+    replay_dataset (sim_loop.clf), in-process through their ``main``, each
+    printing to a buffer."""
+    import contextlib
+    import io
+    import numpy as np
+    from slamnet_tpu_torch import bench, replay
+    from slamnet_tpu_torch.examples import replay_dataset, replay_demo
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    device = ["--device", "cuda" if on_card else "cpu"]
+
+    def call(main, argv):
+        buf = io.StringIO()
+        zero_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = main([*device, *argv])
+        if on_card:
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        return rc, buf.getvalue(), counts
+
+    rc, out, _ = call(bench.main, ["--sections", ",".join(BENCH_SECTIONS),
+                                   "--repeats", "1"])
+    lines = out.splitlines()
+    check(rc == 0 and len(lines) == 1, f"the bench exited {rc} with "
+          f"{len(lines)} lines: {out[-3000:]}")
+    line = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    check(not missing, f"the bench's line lacks {missing}")
+    check(line["correct"] and all(line["sections"][s]["correct"]
+                                  for s in BENCH_SECTIONS)
+          and "skipped" not in line and "errors" not in line,
+          f"the bench: {line['sections']}, skipped {line.get('skipped')}, "
+          f"errors {line.get('errors')}")
+    for table, modes in BENCH_KERNELS.items():
+        for mode, kernels in modes.items():
+            got = line[table][mode]["launches_per_step"]
+            want = dict.fromkeys(kernels, 1.0) if on_card else {}
+            check(got == want, f"the bench's {mode}: launches a step {got}, "
+                  f"want {want}")
+    bench_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    rc, demo_out, demo_counts = call(replay_demo.main, [
+        "--pipeline", "all", "--scans", str(DEMO_SCANS)])
+    oks = re.findall(r"^(\w+): ATE=([0-9.]+) m .*\[OK\]$", demo_out, re.M)
+    check(rc == 0 and [n for n, _ in oks] == ["coreslam", "particle", "graph",
+                                               "hector"],
+          f"replay_demo exited {rc}: {demo_out[-2000:]}")
+    if on_card:          # Hector and graph-SLAM at HectorConfig(): K3 + K4
+        check(set(demo_counts) == {"match_f32", "line"}
+              and min(demo_counts.values()) >= 2 * (DEMO_SCANS - 10),
+              f"replay_demo's launches {demo_counts}")
+    demo_s = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        rc, ds_out, ds_counts = call(replay_dataset.main,
+                                     ["--out-dir", out_dir])
+        with open(os.path.join(out_dir, "track.jsonl")) as f:
+            track = np.asarray([json.loads(ln)["hector"] for ln in f])
+        pngs = []
+        for name in ("hole_map.png", "occupancy.png"):
+            with open(os.path.join(out_dir, name), "rb") as f:
+                pngs.append(f.read(8) == b"\x89PNG\r\n\x1a\n")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    n = track.shape[0]
+    check(rc == 0 and n == 120 and all(pngs),
+          f"replay_dataset exited {rc}, {n} track lines, PNGs {pngs}: "
+          f"{ds_out[-2000:]}")
+    if on_card:
+        check(ds_counts == {"match_f32": n, "line": n},
+              f"replay_dataset's launches {ds_counts}, want one K3 and one "
+              "K4 a scan")
+    # the track is written to 4 decimals
+    dev_jax = float(np.abs(track[:, :2] - replay.dataset_reference_track(
+        "sim_loop")[:, :2]).max())
+    check(dev_jax <= 1e-3 + 5e-5, f"replay_dataset's Hector track {dev_jax} "
+          "m from JAX's")
+    ds_s = time.perf_counter() - t2
+
+    h, fl = line["hector_modes"], line["fleet_modes"]
+    say(f"[entry] python -m slamnet_tpu_torch.bench --sections "
+        f"{','.join(BENCH_SECTIONS)} --repeats 1 in-process: exit 0, one "
+        f"line, correct; headline {line['hector_mode']} "
+        f"{line['value']:.1f} scans/s (x{line['vs_baseline']:.1f} the "
+        f"baseline), fixed {line['fixed_iter_scans_per_sec']:.1f}; fleet "
+        f"{line['fleet_mode']} {line['fleet_instance_scans_per_sec']:.1f} "
+        "instance-scans/s; launches a step "
+        + "; ".join(f"{m} {r['launches_per_step']}"
+                    for m, r in {**h, **fl}.items())
+        + f"; {bench_s:.1f} s")
+    say(f"[entry] replay_demo --pipeline all --scans {DEMO_SCANS}: "
+        + ", ".join(f"{p} ATE {a} m" for p, a in oks)
+        + f", all OK, launches {demo_counts}; {demo_s:.1f} s")
+    say(f"[entry] replay_dataset on sim_loop.clf: {n} scans, launches "
+        f"{ds_counts}, Hector track within {dev_jax:.3g} m of JAX's (4 "
+        f"decimals), track JSONL and PNGs written; {ds_s:.1f} s")
+    secs = time.perf_counter() - t0
+    say(f"[seconds] phase 35: {secs:.1f}")
+    return {"bench": {k: line[k] for k in BENCH_KEYS},
+            "demo_ates_m": dict(oks), "demo_launches": demo_counts,
+            "dataset_launches": ds_counts, "dataset_max_dev_from_jax_m":
+            dev_jax, "seconds": secs}
 
 
 def main() -> int:
@@ -4165,6 +4308,9 @@ def main() -> int:
         f"{ONE_SCAN_TRACES} times with metrics.device_trace: K3 kernels "
         f"{one_k3}, K4 {one_k4}; {time.perf_counter() - t35:.1f} s")
 
+    # ---- 35. the entry points: the bench and two examples ------------------
+    entry_points = entry_point_smoke(torch, dev)
+
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"slamnet_tpu_torch/csrc/{source}",
@@ -4347,6 +4493,7 @@ def main() -> int:
         "sharded": sharded["results"],
         "graph_sharded": graph_sh["results"],
         "one_scan_trace": {"k3_events": one_k3, "k4_events": one_k4},
+        "entry_points": entry_points,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -12,7 +12,7 @@ replay (512 scans after a 10-scan fixed-mode bootstrap; ``--mode``
 ``--fleet`` a batch-scan of the 64-robot fleet (64 batch-scans after a
 10-batch-scan bootstrap; ``--mode`` ``sub4_pallas_dense``, the default,
 or any other of ``replay.FLEET_MODES``: ``sub1``, ``sub4``,
-``sub4_onehot``, ``sub4_onehot_cap8``, ``sub4_onehot_cap32``,
+``sub4_onehot``, ``sub4_onehot_dense``, ``sub4_onehot_cap8``, ``sub4_onehot_cap32``,
 ``sub1_exit``, ``sub4_onehot_exit``), or with ``--graph`` a scan of the graph-SLAM replay (the 512
 scans of the turning revisit, the first 12 forced; ``--mode`` ``gather``,
 the default, or ``pallas_full``), with ``--office`` a scan of the office

@@ -147,14 +147,10 @@ from slamnet_tpu_torch.replay import (GRAPH_SEED, ate_of,  # noqa: E402
 FLEET_FIELDS = ("num_levels", "estimate_iterations", "xy_step_clamp_px",
                 "max_match_jump", "match_subsample", "dense_free_fill",
                 "matcher_mode", "fleet_update_capacity", "early_exit_tol")
-# the fleet modes: bench.py's names (sub4_onehot_dense is the port's
-# sub4_pallas_dense, K5's selection) -> replay.FLEET_MODES
-FLEET_PORT_MODES = {"sub4_onehot_dense": "sub4_pallas_dense", "sub1": "sub1",
-                    "sub4": "sub4", "sub4_onehot": "sub4_onehot",
-                    "sub4_onehot_cap8": "sub4_onehot_cap8",
-                    "sub4_onehot_cap32": "sub4_onehot_cap32",
-                    "sub1_exit": "sub1_exit",
-                    "sub4_onehot_exit": "sub4_onehot_exit"}
+# the fleet modes, bench.py's names as replay.FLEET_MODES has them
+# (sub4_pallas_dense is sub4_onehot_dense's twin under the name "pallas")
+FLEET_BENCH_MODES = tuple(m for m in port.FLEET_MODES
+                          if m != "sub4_pallas_dense")
 
 
 def run_mode(cfg, boot_cfg, log):
@@ -580,7 +576,7 @@ def main():
                          "XLA fuses nothing")
     ap.add_argument("--nudge", type=int, default=0,
                     help="CoreSLAM: move the start's x by this many f32 ulps")
-    ap.add_argument("--mode", choices=(*FLEET_PORT_MODES, "gather",
+    ap.add_argument("--mode", choices=(*FLEET_BENCH_MODES, "gather",
                                        "onehot_bf16",
                                        "onehot_full", "parity", "production",
                                        *port.PARTICLE_MODES),
@@ -722,9 +718,7 @@ def main():
            "device": str(jax.devices()[0])}
     if args.fleet:
         flog = make_fleet_log(log)
-        port_cfg = port.FLEET_MODES[FLEET_PORT_MODES[args.mode]]()
-        if args.mode == "sub4_onehot_dense":
-            port_cfg = port_cfg.overlay({"matcher_mode": "onehot_bf16"})
+        port_cfg = port.FLEET_MODES[args.mode]()
         if args.matcher:
             port_cfg = port_cfg.overlay({"matcher_mode": args.matcher})
         cfg = HectorConfig(**{f: getattr(port_cfg, f) for f in FLEET_FIELDS})

@@ -174,7 +174,8 @@ FLEET_T = 64
 # `python scripts/torch_port_ref_ate.py --fleet` printed
 # "fleet_sub4_onehot_dense": {"ate_m": 0.006292261648923159, "max_err_m":
 # 0.03412262722849846, "ate_median_m": 0.005386218428611755, "map_updates":
-# 183, "solve_failures": 0}.
+# 183, "solve_failures": 0}; `... --fleet --mode sub4_onehot_dense` (the
+# port's row of that name) printed the same numbers and "gn_iterations": 960.
 FLEET_JAX_REF_ATE_M = 0.006292261648923159
 FLEET_JAX_REF_MAX_M = 0.03412262722849846
 FLEET_JAX_REF_MEDIAN_M = 0.005386218428611755
@@ -296,6 +297,13 @@ def sub4_onehot_cap_config(capacity: int, **overrides) -> HectorConfig:
     updates a batch-scan (the rest defer, ``fleet.py:219-228``)."""
     return sub4_onehot_config(fleet_update_capacity=capacity).overlay(
         overrides)
+
+
+def sub4_onehot_dense_config(**overrides) -> HectorConfig:
+    """bench.py's fleet headline ``sub4_onehot_dense`` (``bench.py:500-502``):
+    ``sub4_onehot`` with the dense fill, K5 (K1's table) and the batched
+    K2."""
+    return sub4_onehot_config(dense_free_fill=True).overlay(overrides)
 
 
 def sub4_pallas_dense_config(**overrides) -> HectorConfig:
@@ -449,24 +457,28 @@ def fleet_ate_of(poses: np.ndarray, truth: np.ndarray
 
 # bench.py's fleet modes (bench.py:496-523) as the port runs them, and the
 # batch-wide exit's rows sub1_exit and sub4_onehot_exit; sub4_pallas_dense
-# stands for the bench's sub4_onehot_dense (the same bf16 selection through
-# K5)
+# is the bench's sub4_onehot_dense under the name "pallas" (the same bf16
+# selection through K5, and the same kernels)
 FLEET_MODES = {"sub1": sub1_config, "sub4": sub4_config,
                "sub4_onehot": sub4_onehot_config,
                "sub4_onehot_cap8": functools.partial(sub4_onehot_cap_config, 8),
                "sub4_onehot_cap32": functools.partial(sub4_onehot_cap_config,
                                                       32),
                "sub4_pallas_dense": sub4_pallas_dense_config,
+               "sub4_onehot_dense": sub4_onehot_dense_config,
                "sub1_exit": sub1_exit_config,
                "sub4_onehot_exit": sub4_onehot_exit_config}
 
 
 # each fleet row's JAX reference: (RMS, max, median instance ATE, GN
-# iterations or None); sub4_onehot_exit's ATEs are sub4_onehot's
+# iterations or None); sub4_onehot_exit's ATEs are sub4_onehot's, and
+# sub4_pallas_dense's are JAX's sub4_onehot_dense (FLEET_JAX_REF_*)
 FLEET_ROW_JAX_REFS = {
     "sub1": (FLEET_SUB1_JAX_REF_ATE_M, FLEET_SUB1_JAX_REF_MAX_M,
              FLEET_SUB1_JAX_REF_MEDIAN_M, None),
     "sub4_pallas_dense": (FLEET_JAX_REF_ATE_M, FLEET_JAX_REF_MAX_M,
+                          FLEET_JAX_REF_MEDIAN_M, None),
+    "sub4_onehot_dense": (FLEET_JAX_REF_ATE_M, FLEET_JAX_REF_MAX_M,
                           FLEET_JAX_REF_MEDIAN_M, None),
     "sub4": (FLEET_SUB4_JAX_REF_ATE_M, FLEET_SUB4_JAX_REF_MAX_M,
              FLEET_SUB4_JAX_REF_MEDIAN_M, None),
@@ -1102,12 +1114,13 @@ def sim_loop_truth(n: int) -> np.ndarray:
 
 def load_carmen(path, device: torch.device | str = "cuda",
                 max_scans: int | None = None,
-                truth: np.ndarray | None = None) -> CarmenData:
+                truth: np.ndarray | None = None,
+                map_size_m: float = DATASET_MAP_SIZE_M) -> CarmenData:
     """Read a CARMEN log with the native parser and recentre it as
     ``examples/replay_dataset.py:82-110`` does: the first odometry pose
-    moves to the map's centre, and the truth (the log's ``# TRUTH`` lines,
-    else ``truth``) moves with it.  The odometry steps are computed on the
-    host in f32 as the example computes them (heading by
+    moves to the centre of a ``map_size_m`` map, and the truth (the log's
+    ``# TRUTH`` lines, else ``truth``) moves with it.  The odometry steps
+    are computed on the host in f32 as the example computes them (heading by
     ``math.remainder``)."""
     from . import hostio
 
@@ -1115,7 +1128,7 @@ def load_carmen(path, device: torch.device | str = "cuda",
     if log is None:                  # no FLASER line: ROBOTLASER1's reader
         log = read_carmen(str(path), max_scans=max_scans)
     t_n = log.ranges.shape[0]
-    offset = log.odometry[0, :2] - DATASET_MAP_SIZE_M / 2.0
+    offset = log.odometry[0, :2] - map_size_m / 2.0
     odo = log.odometry.copy()
     odo[:, :2] -= offset[None, :]
     tr = log.truth if log.truth is not None else truth
@@ -1135,18 +1148,20 @@ def load_carmen(path, device: torch.device | str = "cuda",
         torch.as_tensor(deltas, device=device))
 
 
-def dataset_config(robust: bool = False
+def dataset_config(robust: bool = False,
+                   map_size_m: float = DATASET_MAP_SIZE_M
                    ) -> Tuple[HectorConfig, CoreSlamConfig]:
     """``examples/replay_dataset.py:88-101``'s configurations: Hector at 3
-    levels, 7/4/4, 40 m over 400 px (gather + line updates), with
-    ``robust`` the xy clamp 10 px, max jump 1 m and damping 0.1; CoreSLAM
-    correlative with the dense hole and obstacle fills."""
+    levels, 7/4/4, ``map_size_m`` (40 m) over 400 px (gather + line
+    updates), with ``robust`` the xy clamp 10 px, max jump 1 m and damping
+    0.1; CoreSLAM correlative with the dense hole and obstacle fills over
+    ``map_size_m``."""
     hcfg = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
-                        map_resolution=DATASET_MAP_SIZE_M / 400.0)
+                        map_resolution=map_size_m / 400.0)
     if robust:
         hcfg = hcfg.overlay({"xy_step_clamp_px": 10.0, "max_match_jump": 1.0,
                              "gn_damping": 0.1})
-    return hcfg, CoreSlamConfig(physical_map_size=DATASET_MAP_SIZE_M,
+    return hcfg, CoreSlamConfig(physical_map_size=map_size_m,
                                 search_mode="correlative",
                                 dense_hole_fill=True, dense_obstacle_fill=True)
 

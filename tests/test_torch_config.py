@@ -70,7 +70,12 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.models.coreslam_sharded, "
             "slamnet_tpu_torch.graph.distributed, "
             "slamnet_tpu_torch.graph.schur, "
-            "slamnet_tpu_torch.models.graph_slam_sharded; "
+            "slamnet_tpu_torch.models.graph_slam_sharded, "
+            "slamnet_tpu_torch.bench, slamnet_tpu_torch.examples, "
+            "slamnet_tpu_torch.examples.replay_demo, "
+            "slamnet_tpu_torch.examples.replay_dataset, "
+            "slamnet_tpu_torch.examples.record_and_replay, "
+            "slamnet_tpu_torch.examples.interactive_sim; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slamnet_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
