@@ -294,7 +294,14 @@ K4 kernel.
                 K4 launched); replay_dataset on sim_loop.clf (one K3 and
                 one K4 a scan, the written Hector track within 1e-3 m of
                 JAX's, the PNGs).
-Phases 17-35 print their seconds.
+ 36. NCCL     — a one-rank NCCL world on the card
+                (parallel.launch(..., backend="nccl", world_size 1)): every
+                collective of a {"tile": 1, "search": 1} mesh and of an
+                {"edge": 1} mesh equals its definition, the barrier, and
+                10 forced + 8 matched scans of the sharded Hector at 1x1,
+                bit for bit the same scans on a one-rank gloo world on the
+                card; no host copy under NCCL.
+Phases 17-36 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -597,32 +604,6 @@ def zero_launch_counts() -> None:
     match.match_batch.exit_launches = 0
 
 
-def circle_graph(torch, dev, n: int = 24, max_nodes: int = 32,
-                 max_edges: int = 64):
-    """tests/test_posegraph.py's circle: noisy odometry edges (numpy seed 0)
-    and two exact closures, nodes at the drifted odometry poses."""
-    import numpy as np
-    from slamnet_tpu_torch.core.geometry import pose_between, pose_compose
-    from slamnet_tpu_torch.graph import posegraph
-    rng = np.random.default_rng(0)
-    ths = np.linspace(0, 2 * math.pi, n, endpoint=False)
-    truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
-                                   ths + math.pi / 2], -1), dtype=torch.float32)
-    g = posegraph.init(max_nodes, max_edges, dev)
-    est = truth[0]
-    g, _ = posegraph.add_node(g, est.to(dev))
-    for t in range(1, n):
-        noisy = pose_between(truth[t - 1], truth[t]) + torch.tensor(
-            rng.normal(0, 0.03, 3), dtype=torch.float32)
-        est = pose_compose(est, noisy)
-        g, _ = posegraph.add_node(g, est.to(dev))
-        g = posegraph.add_edge(g, t - 1, t, noisy.to(dev), (10.0, 10.0, 40.0))
-    for i, j in ((0, n // 2), (n - 1, 0)):
-        g = posegraph.add_edge(g, i, j, pose_between(truth[i], truth[j]).to(dev),
-                               (100.0, 100.0, 400.0))
-    return g, n
-
-
 def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
     """Phases 28-33 on one rank of the 8-rank gloo world ``sharded_smoke``
     launches (every rank on the card, cuda:0 on a one-card machine, unless
@@ -635,6 +616,7 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
     from slamnet_tpu_torch.io import checkpoint
     from slamnet_tpu_torch.models import coreslam_sharded, fleet, hector
     from slamnet_tpu_torch.models import hector_sharded as hs
+    from slamnet_tpu_torch.replay import circle_graph
     from slamnet_tpu_torch.parallel import make_mesh, shard_range
 
     R = dict(np.load(f"{ref}/ref.npz"))
@@ -871,7 +853,7 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
 
     # ---- 32. the edge-sharded pose graph -----------------------------------
     t32 = time.perf_counter()
-    g, nodes = circle_graph(torch, dev)
+    g, nodes = circle_graph(dev), 24
     dense_g = posegraph.optimize(g, 3, num_nodes=nodes)
     sync()
     tt = time.perf_counter()
@@ -1141,7 +1123,8 @@ def cluster_graph(torch, dev):
     import numpy as np
     from slamnet_tpu_torch.core.geometry import pose_between
     from slamnet_tpu_torch.graph import posegraph
-    g, n = circle_graph(torch, dev, 64, 64, 256)
+    from slamnet_tpu_torch.replay import circle_graph
+    g, n = circle_graph(dev, 64, 64, 256), 64
     ths = np.linspace(0, 2 * math.pi, n, endpoint=False)
     truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
                                    ths + math.pi / 2], -1), dtype=torch.float32)
@@ -1173,6 +1156,7 @@ def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
     from slamnet_tpu_torch.models import graph_slam
     from slamnet_tpu_torch.models import graph_slam_sharded as gss
     from slamnet_tpu_torch.models import hector_sharded as hs
+    from slamnet_tpu_torch.replay import circle_graph
     from slamnet_tpu_torch.parallel import make_mesh
 
     R = dict(np.load(f"{ref}/ref.npz"))
@@ -1195,7 +1179,7 @@ def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
 
     # ---- 34a. the node-sharded Schur GN step against the dense one -------
     t34 = time.perf_counter()
-    g, _ = circle_graph(torch, dev, SCHUR_NODES, SCHUR_NODES, 256)
+    g = circle_graph(dev, SCHUR_NODES, SCHUR_NODES, 256)
     c0 = node.counts["collectives"]
     g1, of1 = schur.schur_gn_step(node, g, sep_capacity=SCHUR_CAP)
     g2, of2 = schur.schur_gn_step(node, g1, sep_capacity=SCHUR_CAP)
@@ -1365,12 +1349,13 @@ def graph_smoke(torch, dev) -> dict:
     import numpy as np
     from slamnet_tpu_torch import replay
     from slamnet_tpu_torch.graph import posegraph
+    from slamnet_tpu_torch.replay import circle_graph
     from slamnet_tpu_torch.parallel import launch
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
     try:
-        g, _ = circle_graph(torch, dev, SCHUR_NODES, SCHUR_NODES, 256)
+        g = circle_graph(dev, SCHUR_NODES, SCHUR_NODES, 256)
         g1 = posegraph.gn_step(g, num_nodes=SCHUR_NODES)
         g2 = posegraph.gn_step(g1, num_nodes=SCHUR_NODES)
         np.savez(f"{tmp}/ref.npz", schur_dense1=g1.poses.cpu().numpy(),
@@ -1430,6 +1415,104 @@ def graph_smoke(torch, dev) -> dict:
         f"{r['seconds_34a']:.1f}, in the ranks {r['seconds_34']:.1f}), all "
         f"{time.perf_counter() - t0:.1f}")
     return {"results": r, "seconds": time.perf_counter() - t0}
+
+
+# ---- phase 36: NCCL on the one card ---------------------------------------
+NCCL_SCANS = 8            # matched scans after the bootstrap
+NCCL_TIMEOUT_S = 120
+
+
+def nccl_phase(work: str, device: str | None = None) -> dict:
+    """Phase 36 on the one rank of a world ``nccl_smoke`` launches (NCCL or
+    gloo, on the card unless ``device`` names another: a rehearsal of the
+    gloo run on the CPU): every collective of a 1x1 mesh and of a one-rank
+    edge mesh against its definition, the barrier, then the sharded
+    Hector's bootstrap and NCCL_SCANS matched scans at 1x1, whose poses and
+    maps go to ``work/<backend>.npz``.  Any failed check raises."""
+    import numpy as np
+    import torch
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.models import hector_sharded as hs
+    from slamnet_tpu_torch.parallel import make_mesh
+
+    m = make_mesh({"tile": 1, "search": 1}, device)
+    edge = make_mesh({"edge": 1}, device)
+    dev = m.device
+    check(device is not None or dev == torch.device("cuda", 0)
+          == torch.device("cuda", torch.cuda.current_device()),
+          f"the rank runs on {dev}")
+    x = torch.arange(4, dtype=torch.float32, device=dev) * 10 + 1
+    zero = torch.zeros(4, device=dev)
+    for name, mm, axes in (("1x1", m, ("tile", "search",
+                                       ("tile", "search"))),
+                           ("edge", edge, ("edge",))):
+        for a in axes:
+            for op, fn in (("psum", mm.psum), ("pmax", mm.pmax),
+                           ("pmin", mm.pmin)):
+                check(torch.equal(fn(x, a), x), f"{name} {op} {a}")
+            if isinstance(a, str):
+                check(torch.equal(mm.all_gather(x, a), x[None])
+                      and torch.equal(mm.all_gather(x, a, tiled=True), x),
+                      f"{name} all_gather {a}")
+                check(torch.equal(mm.ppermute(x, a, []), zero),
+                      f"{name} ppermute {a}")
+        mm.barrier()
+    coll = m.counts["collectives"] + edge.counts["collectives"]
+    cfg = replay.fixed_config()
+    log = replay.make_log(0)
+    dlog = replay.head(replay.to_device(log, dev),
+                       log.bootstrap + NCCL_SCANS)
+    st, out = replay.sharded_replay(m, dlog, cfg)
+    maps = hs.unshard_maps(m, st, cfg)
+    np.savez(f"{work}/{m.backend}.npz", poses=out.poses.cpu().numpy(),
+             maps=maps.cpu().numpy())
+    return {"backend": m.backend, "device": str(dev),
+            "collectives_checked": coll,
+            "counts": {"1x1": dict(m.counts), "edge": dict(edge.counts)}}
+
+
+def nccl_smoke(torch) -> dict:
+    """Phase 36: ``nccl_phase`` on a one-rank NCCL world on the card, then
+    on a one-rank gloo world; their tracks and maps bit for bit."""
+    import numpy as np
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        runs, secs = {}, {}
+        for backend in ("nccl", "gloo"):
+            t1 = time.perf_counter()
+            runs[backend] = launch.launch(
+                "chip_smoke:nccl_phase", 1, {"work": tmp}, backend=backend,
+                timeout_s=NCCL_TIMEOUT_S)[0]
+            secs[backend] = time.perf_counter() - t1
+        got = {b: dict(np.load(f"{tmp}/{b}.npz")) for b in runs}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nc = runs["nccl"]
+    check(nc["backend"] == "nccl" and nc["device"] == "cuda:0",
+          f"phase 36 ran on {nc['backend']} / {nc['device']}")
+    copies = {k: c["host_copies"] for k, c in nc["counts"].items()}
+    check(not any(copies.values()), f"host copies under NCCL: {copies}")
+    same = all(np.array_equal(got["nccl"][k], got["gloo"][k])
+               for k in ("poses", "maps"))
+    check(same, "the sharded Hector at 1x1 on NCCL differs from gloo's")
+    n = got["nccl"]["poses"].shape[0]
+    boot = replay.make_log(0).bootstrap
+    say(f"[nccl] a one-rank NCCL world on {nc['device']}: "
+        f"{nc['collectives_checked']} collectives of the 1x1 and edge meshes "
+        f"= their definitions, the barrier; the sharded Hector at 1x1 over "
+        f"{boot} forced + {n - boot} matched scans = the one-rank gloo "
+        f"run's poses and maps bit for bit; host copies {copies} (gloo "
+        f"{sum(c['host_copies'] for c in runs['gloo']['counts'].values())});"
+        f" {secs['nccl']:.1f} s NCCL, {secs['gloo']:.1f} s gloo")
+    total = time.perf_counter() - t0
+    say(f"[seconds] phase 36: {total:.1f}")
+    return {"collectives_checked": nc["collectives_checked"],
+            "nccl_counts": nc["counts"], "scans": int(n),
+            "bit_for_bit_gloo": same, "seconds": total}
 
 
 # ---- phase 35: the entry points -------------------------------------------
@@ -4310,6 +4393,8 @@ def main() -> int:
 
     # ---- 35. the entry points: the bench and two examples ------------------
     entry_points = entry_point_smoke(torch, dev)
+    # ---- 36. NCCL on the one card ------------------------------------------
+    nccl_one = nccl_smoke(torch)
 
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
@@ -4494,6 +4579,7 @@ def main() -> int:
         "graph_sharded": graph_sh["results"],
         "one_scan_trace": {"k3_events": one_k3, "k4_events": one_k4},
         "entry_points": entry_points,
+        "nccl_one_rank": nccl_one,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

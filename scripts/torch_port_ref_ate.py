@@ -85,22 +85,26 @@ simulator's constructor (0.1 m, 400 px, 4 levels, 7/4/4/4 iterations) over
 the ATE over the tracked scans (``replay.COMPAT_JAX_REF_*``).
 
 ``--sharded`` runs ``dryrun_multichip``'s meshes (``__graft_entry__.py:
-74-200``) on 8 virtual CPU devices: ``models/hector_sharded`` (the fixed
-config: gather + line updates) over the first ``replay.SHARDED_N`` scans of
-``make_log(0)`` on the 2x4 and 4x2 (tile x search) meshes, the first 10
-forced with the match pose set to the truth, the rest matched; its ATE over
-the matched scans and its map updates (``replay.SHARDED_JAX_REF_*``); and
+74-200``) on N virtual CPU devices (``--devices N``, default 8; the meshes
+of ``replay.multichip_meshes(N)``: 2x4 and 4x2 at 8, 2x2 and 4x1 at 4):
+``models/hector_sharded`` (the fixed config: gather + line updates) over
+the first ``replay.SHARDED_N`` scans of ``make_log(0)`` (``--scans K``: the
+first K) on each (tile x search) mesh, the first 10 forced with the match
+pose set to the truth, the rest matched; its ATE over the matched scans and
+its map updates (``replay.SHARDED_JAX_REF_*``); and
 ``models/coreslam_sharded`` in the production mode over the first
-``replay.SHARDED_CORESLAM_N`` scans on the 2x4 mesh from ``PRNGKey(1)``
+``replay.SHARDED_CORESLAM_N`` scans on the first mesh from ``PRNGKey(1)``
 (``replay.SHARDED_CORESLAM_JAX_REF_ATE_M``).
 
 ``--sharded-graph`` runs ``dryrun_multichip``'s section 3
-(``__graft_entry__.py:152-199``) on the 2x4 mesh of 8 virtual CPU devices
-over the port's ``make_sharded_graph_log()``: ``models/graph_slam_sharded``
-with the ``onehot_bf16`` pyramid and a ``onehot_bf16`` + dense-fill
-frontend (``--mode gather``: the default frontend), 8 separator slots, the
-first 5 scans forced; its keyframes, closures, final error, ATE and largest
-overflow (``replay.SHARDED_GRAPH_JAX_REF_*``).
+(``__graft_entry__.py:152-199``) on the first mesh of N virtual CPU devices
+(2x4 at the default 8) over the port's ``make_sharded_graph_log()``
+(``--scans K``: its first K scans): ``models/graph_slam_sharded`` with the
+``onehot_bf16`` pyramid and a ``onehot_bf16`` + dense-fill frontend
+(``--mode gather``: the default frontend), 16 keyframe slots a search
+shard, 8 separator slots, the first 5 scans forced; its keyframes,
+closures, final error, ATE and largest overflow
+(``replay.SHARDED_GRAPH_JAX_REF_*``).
 
 Runs on the CPU (a few minutes); prints one JSON object.
 
@@ -110,6 +114,7 @@ Runs on the CPU (a few minutes); prints one JSON object.
         [--particle [--mode exact|sub4|grid|grid_small|grid_dense]
          [--seed 1]] [--dataset sim_loop|adversarial [--out FILE]]
         [--compat] [--sharded] [--sharded-graph [--mode gather]]
+        [--devices N] [--scans K] [--poses]
 """
 import argparse
 import dataclasses
@@ -120,9 +125,11 @@ import sys
 import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-if {"--sharded", "--sharded-graph"} & set(sys.argv):   # 8 devices
+if {"--sharded", "--sharded-graph"} & set(sys.argv):   # N devices
+    _n = (sys.argv[sys.argv.index("--devices") + 1]
+          if "--devices" in sys.argv else "8")
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
-                               " --xla_force_host_platform_device_count=8")
+                               f" --xla_force_host_platform_device_count={_n}")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
@@ -478,16 +485,17 @@ def run_compat(log):
                        "estimate_iterations": proc.cfg.estimate_iterations}}
 
 
-def run_sharded(log):
+def run_sharded(log, n_devices=8, n=port.SHARDED_N, with_poses=False):
     from slamnet_tpu.models import coreslam_sharded, hector_sharded
     from slamnet_tpu.parallel import make_mesh
-    n, b = port.SHARDED_N, log.bootstrap
+    meshes = port.multichip_meshes(n_devices)
+    b = log.bootstrap
     angles = np.asarray(log.angles)
     pts = np.stack([log.radii * np.cos(angles), log.radii * np.sin(angles)],
                    -1).astype(np.float32)
     cfg = _jax_cfg(HectorConfig, port.fixed_config())
     out = {}
-    for name, axes in port.SHARDED_MESHES.items():
+    for name, axes in meshes.items():
         mesh = make_mesh(axes)
         st = hector_sharded.init(mesh, cfg, log.traj[0])
         step = hector_sharded.make_step(mesh, cfg, pts.shape[1])
@@ -501,25 +509,31 @@ def run_sharded(log):
         ate, mx = ate_of(np.asarray(poses[b:]), log.traj[b:n])
         out[f"hector_{name}"] = {"ate_m": ate, "max_err_m": mx,
                                  "map_updates": upd}
+        if with_poses:
+            out[f"hector_{name}"]["poses"] = np.asarray(poses[b:]).tolist()
     ccfg = _jax_cfg(CoreSlamConfig, port.coreslam_production_config())
-    mesh = make_mesh(port.SHARDED_MESHES["2x4"])
+    first = next(iter(meshes))
+    mesh = make_mesh(meshes[first])
+    assert ccfg.corr_num_theta % meshes[first]["search"] == 0
     st = coreslam_sharded.init(mesh, ccfg, log.traj[0],
                                key=jax.random.PRNGKey(1))
     step = coreslam_sharded.make_step(mesh, ccfg)
     poses = []
-    for t in range(port.SHARDED_CORESLAM_N):
+    nc = min(n, port.SHARDED_CORESLAM_N)
+    for t in range(nc):
         st, _ = step(st, pts[t], log.valid[t], st.pose)
         poses.append(np.asarray(st.pose))
-    ate, mx = ate_of(np.asarray(poses), log.traj[:port.SHARDED_CORESLAM_N])
-    out["coreslam_production_2x4"] = {"ate_m": ate, "max_err_m": mx}
+    ate, mx = ate_of(np.asarray(poses), log.traj[:nc])
+    out[f"coreslam_production_{first}"] = {"ate_m": ate, "max_err_m": mx}
     return out
 
 
-def run_sharded_graph(log, frontend_mode):
+def run_sharded_graph(log, frontend_mode, n_devices=8, with_poses=False):
     from slamnet_tpu.models import graph_slam_sharded
     from slamnet_tpu.parallel import make_mesh
-    axes = port.SHARDED_MESHES[port.SHARDED_GRAPH_MESH]
-    hcfg, gcfg, mcfg, cap = port.sharded_graph_config(frontend_mode)
+    axes = next(iter(port.multichip_meshes(n_devices).values()))
+    hcfg, gcfg, mcfg, cap = port.sharded_graph_config(frontend_mode,
+                                                      axes["search"])
     hcfg, gcfg = _jax_cfg(HectorConfig, hcfg), _jax_cfg(PoseGraphConfig, gcfg)
     mcfg = frontend.ScanMatchConfig(**mcfg._asdict())
     angles = np.asarray(log.angles)
@@ -539,7 +553,8 @@ def run_sharded_graph(log, frontend_mode):
         loops.append(bool(info.loop_closed))
     poses = np.asarray(poses)
     ate, mx = ate_of(poses[log.bootstrap:], log.traj[log.bootstrap:])
-    return {"keyframes": int(st.graph.num_nodes),
+    extra = {"poses": poses.tolist()} if with_poses else {}
+    return {**extra, "keyframes": int(st.graph.num_nodes),
             "loop_closures": int(st.loop_count),
             "final_err_m": float(np.linalg.norm(poses[-1, :2]
                                                 - log.traj[-1, :2])),
@@ -591,27 +606,42 @@ def main():
     ap.add_argument("--compat", action="store_true",
                     help="compat.HectorSLAMProcessor over the loop log")
     ap.add_argument("--sharded", action="store_true",
-                    help="hector_sharded and coreslam_sharded on 8 virtual "
+                    help="hector_sharded and coreslam_sharded on N virtual "
                          "CPU devices")
     ap.add_argument("--sharded-graph", action="store_true",
                     help="graph_slam_sharded (dryrun_multichip's section 3) "
-                         "on the 2x4 mesh of 8 virtual CPU devices")
+                         "on the first mesh of N virtual CPU devices")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="--sharded / --sharded-graph: N virtual CPU devices "
+                         "(even; dryrun_multichip(N)'s meshes)")
+    ap.add_argument("--scans", type=int, default=None,
+                    help="--sharded / --sharded-graph: the log's first K "
+                         "scans only")
+    ap.add_argument("--poses", action="store_true",
+                    help="--sharded / --sharded-graph: print the track too")
     args = ap.parse_args()
     if args.sharded_graph:
         mode = args.mode or "onehot_bf16"
         t0 = time.time()
-        res = run_sharded_graph(port.make_sharded_graph_log(), mode)
+        glog = port.make_sharded_graph_log()
+        if args.scans:
+            glog = glog._replace(traj=glog.traj[:args.scans],
+                                 radii=glog.radii[:args.scans],
+                                 valid=glog.valid[:args.scans])
+        res = run_sharded_graph(glog, mode, args.devices, args.poses)
         res["seconds"] = round(time.time() - t0, 1)
         print(json.dumps({f"sharded_graph_{mode}": res,
                           "seed": port.SHARDED_GRAPH_SEED,
+                          "scans": int(glog.traj.shape[0]),
                           "jax": jax.__version__,
                           "devices": len(jax.devices())}))
         return
     if args.sharded:
         t0 = time.time()
-        res = run_sharded(make_log(0))
+        n = args.scans or port.SHARDED_N
+        res = run_sharded(make_log(0), args.devices, n, args.poses)
         res["seconds"] = round(time.time() - t0, 1)
-        print(json.dumps({"sharded": res, "seed": 0, "n": port.SHARDED_N,
+        print(json.dumps({"sharded": res, "seed": 0, "n": n,
                           "jax": jax.__version__,
                           "devices": len(jax.devices())}))
         return

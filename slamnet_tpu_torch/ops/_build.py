@@ -9,6 +9,11 @@ at the repository root.  The sources have a plain C interface
 (``extern "C"`` launchers that take the CUDA stream and return
 ``cudaGetLastError()``), so nothing includes PyTorch's headers and the build
 takes seconds.  A rebuilt source gets a new hash and a new directory.
+
+Every launch goes through ``launch``, which makes the tensors' card the
+current device for the call: a ``<<<..., stream>>>`` launch goes to the
+calling thread's current device, whatever card the stream and the pointers
+belong to.
 """
 from __future__ import annotations
 
@@ -53,14 +58,16 @@ def _nvcc() -> str:
     return found
 
 
-def _check_device() -> None:
+@functools.cache
+def check_device(index: int) -> None:
+    """Raise unless card ``index`` exists and is a Hopper (sm_90a) card."""
     if not torch.cuda.is_available():
         raise RuntimeError("slamnet_tpu_torch kernels need a CUDA device")
-    major, minor = torch.cuda.get_device_capability()
+    major, minor = torch.cuda.get_device_capability(index)
     if major != 9:
         raise RuntimeError(
-            "slamnet_tpu_torch kernels are built for sm_90a (Hopper); this "
-            f"device is compute capability {major}.{minor}")
+            "slamnet_tpu_torch kernels are built for sm_90a (Hopper); device "
+            f"cuda:{index} is compute capability {major}.{minor}")
 
 
 def sources() -> list[Path]:
@@ -75,7 +82,9 @@ def build() -> tuple[Path, str]:
     """Compile the kernels unless this exact build exists; returns the
     library path and nvcc's output (``-Xptxas=-v`` register/shared-memory
     report; empty when the library was already built)."""
-    _check_device()
+    if not torch.cuda.is_available():
+        raise RuntimeError("slamnet_tpu_torch kernels need a CUDA device")
+    check_device(torch.cuda.current_device())
     nvcc = _nvcc()
     srcs = sources()
     h = hashlib.sha256()
@@ -128,6 +137,24 @@ def library() -> tuple[ctypes.CDLL, float, str]:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the integer ctypes passes."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(what: str, fn, device: torch.device, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` for tensors on ``device``
+    (PyTorch's current stream there) and raise on its error code.
+
+    The launcher's ``<<<..., stream>>>`` goes to the thread's current
+    device, so ``device`` is made current for the call alone: otherwise a
+    kernel for ``cuda:1`` would run on the current card with card 1's
+    pointers (the default stream's handle is 0) or be refused (a
+    non-default stream of another card).  PyTorch's device guard does it,
+    rather than a ``cudaSetDevice`` in each C launcher, so the caller's
+    current device comes back after the call and PyTorch's own record of it
+    stays true."""
+    check_device(device.index)
+    with torch.cuda.device(device):
+        code = fn(*args, stream_handle(device))
+    raise_on_error(code, what)
 
 
 def check_tensors(kernel: str, device: torch.device, specs) -> None:

@@ -117,13 +117,11 @@ def _resident() -> int:
 def _launch(what: str, maps, points, valid, poses, scan_poses, fire,
             cfg: HectorConfig, batch: int) -> None:
     dev = maps.device
-    code = _launcher()(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
-                       poses.data_ptr(), scan_poses.data_ptr(),
-                       fire.data_ptr(),
-                       _params(cfg, points.shape[-2], batch,
-                               sm_count(dev.index), _resident()),
-                       _build.stream_handle(dev))
-    _build.raise_on_error(code, what)
+    _build.launch(what, _launcher(), dev, maps.data_ptr(), points.data_ptr(),
+                  valid.data_ptr(), poses.data_ptr(), scan_poses.data_ptr(),
+                  fire.data_ptr(),
+                  _params(cfg, points.shape[-2], batch, sm_count(dev.index),
+                          _resident()))
 
 
 def update_maps_line(maps: torch.Tensor, points: torch.Tensor,

@@ -179,12 +179,10 @@ def _exit_launcher():
 def _launch(what: str, maps, points, valid, hints, cfg: HectorConfig,
             batch: int, g_pack: int, full_scan: bool = False) -> torch.Tensor:
     out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
-    code = _launcher()(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
-                       hints.data_ptr(), out.data_ptr(),
-                       _params(cfg, points.shape[-2], batch, g_pack,
-                               full_scan),
-                       _build.stream_handle(maps.device))
-    _build.raise_on_error(code, what)
+    _build.launch(what, _launcher(), maps.device, maps.data_ptr(),
+                  points.data_ptr(), valid.data_ptr(), hints.data_ptr(),
+                  out.data_ptr(),
+                  _params(cfg, points.shape[-2], batch, g_pack, full_scan))
     return out
 
 
@@ -196,10 +194,9 @@ def _launch_exit(what: str, maps, points, valid, hints, cfg: HectorConfig,
     p = _params(cfg, points.shape[-2], batch, 1, False)
     out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
     work = torch.empty(work_floats(p), dtype=torch.float32, device=maps.device)
-    code = fn(maps.data_ptr(), points.data_ptr(), valid.data_ptr(),
-              hints.data_ptr(), out.data_ptr(), work.data_ptr(), p,
-              _build.stream_handle(maps.device))
-    _build.raise_on_error(code, what)
+    _build.launch(what, fn, maps.device, maps.data_ptr(), points.data_ptr(),
+                  valid.data_ptr(), hints.data_ptr(), out.data_ptr(),
+                  work.data_ptr(), p)
     return out
 
 

@@ -12,7 +12,10 @@ Rendezvous: ``"file"`` (default) gives ``init_process_group`` a ``file://``
 store in a temporary directory; ``"env"`` sets torchrun's variables
 (``MASTER_ADDR=127.0.0.1``, a free ``MASTER_PORT``, ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) and leaves the
-bring-up to the target (``mesh.initialize_multihost``).
+bring-up to the target (``mesh.initialize_multihost``).  Every rank runs on
+this host: rank r gets ``LOCAL_RANK = r`` and so takes ``cuda:r``
+(``mesh.rank_device``; ranks beyond the cards share them round-robin, which
+only gloo allows), and ``LOCAL_WORLD_SIZE`` is the world size.
 
 The wait has its own limit (``timeout_s``): when it expires, or when any
 rank exits with an error, every rank is killed and ``RankError`` is raised

@@ -34,9 +34,17 @@ for the CPU and for ranks that share a card.  On gloo, a tensor on a card
 is copied to the host before the collective and back after it, in one place
 (``_host`` / ``_back``), and ``counts["host_copies"]`` counts each copy;
 ``counts["collectives"]`` counts the collectives and ``seconds`` sums the
-host's wall time inside them (copies and waiting for the other ranks
-included).  Nothing falls back to the
-CPU and no failed collective is caught.
+host's wall time inside them.  On gloo that time holds the copies and the
+wait for the other ranks.  On NCCL a collective only enqueues its kernel
+on the card's stream and returns, so ``seconds`` is enqueue time there: it
+is not the collectives' cost, which only a device trace of the NCCL
+kernels shows (``multichip``).  Nothing falls back to the CPU and no failed
+collective is caught.
+
+Each rank computes on ``cuda:LOCAL_RANK`` (``rank_device``), made the
+current device before its world comes up (``bind_device``; NCCL's
+point-to-point calls can hang without it), and an NCCL world is created
+with that card as its ``device_id``.
 
 ``initialize_multihost`` brings a world up from torchrun's environment
 (``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE``);
@@ -93,22 +101,40 @@ def check_backend(backend: str, local_world: int) -> None:
                 "device); use backend='gloo' for ranks that share a card")
 
 
+def bind_device(backend: str) -> torch.device | None:
+    """Make this rank's card (``rank_device()``) the current device and
+    return it; under gloo on a host without a card (CPU ranks) bind nothing
+    and return None.  Under NCCL a rank that finds no card raises."""
+    if backend == "nccl" or torch.cuda.is_available():
+        dev = rank_device()
+        torch.cuda.set_device(dev)
+        return dev
+    return None
+
+
 def init_world(backend: str, init_method: str, rank: int, world_size: int,
                timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
-    """``dist.init_process_group`` with the backend checked and every
-    collective bounded by ``timeout_s`` (a rank stuck in one raises)."""
+    """``dist.init_process_group`` with the backend checked, the rank bound
+    to its card first (NCCL's world is created on it, ``device_id``) and
+    every collective bounded by ``timeout_s`` (a rank stuck in one raises).
+    ``LOCAL_WORLD_SIZE`` (default the world size: one host) is the number
+    of ranks that share this host's cards."""
     check_backend(backend, int(os.environ.get("LOCAL_WORLD_SIZE",
                                               world_size)))
+    dev = bind_device(backend)
+    extra = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend=backend, init_method=init_method,
                             rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            **extra)
 
 
 def initialize_multihost(backend: str, timeout_s: float = DEFAULT_TIMEOUT_S
                          ) -> None:
     """Multi-process bring-up from torchrun's environment: ``MASTER_ADDR``,
     ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` (``LOCAL_RANK`` /
-    ``LOCAL_WORLD_SIZE`` for the card a rank takes).  The counterpart of
+    ``LOCAL_WORLD_SIZE`` for the card a rank takes, which is made current
+    before the world comes up).  The counterpart of
     ``jax.distributed.initialize``; afterwards ``make_mesh`` lays axes over
     the world.  ``backend`` is required: ``"nccl"`` (a card a rank) or
     ``"gloo"``."""
@@ -162,6 +188,13 @@ class Mesh:
                 g = dist.new_group(line) if line != all_ranks else self._all[0]
                 if self.rank in line:
                     self._lines[axis] = (g, line)
+        if self.backend == "nccl" and self.member:
+            # every group's communicator comes up here, all its ranks at
+            # once, so no ppermute in which a rank sends and receives
+            # nothing is a group's first call (batch_isend_irecv's rule)
+            one = torch.zeros(1, device=self.device)
+            for g, _ in (self._all, *(self._lines[a] for a in self.names)):
+                dist.all_reduce(one, group=g)
 
     # ------------------------------------------------------------ layout
     def _coords(self, rank: int) -> dict:

@@ -1,7 +1,10 @@
 """One rank of a ``parallel.launch``: bring up the world, run the target.
 
 Run as ``python -m slamnet_tpu_torch.parallel.rank SPEC`` (``launch`` does;
-``RANK`` is in the environment).  With the ``"file"`` rendezvous it calls
+``RANK`` and ``LOCAL_RANK`` are in the environment).  It first makes the
+rank's card current (``mesh.bind_device``: ``cuda:LOCAL_RANK``), before the
+target is imported and before the world comes up.  With the ``"file"``
+rendezvous it calls
 ``mesh.init_world`` on the spec's ``file://`` store; with ``"env"`` the
 target brings the world up itself (``mesh.initialize_multihost``).  The
 target's JSON-able result is written to ``result_{rank}.json`` in the
@@ -23,6 +26,7 @@ from . import mesh
 def main(spec_path: str) -> int:
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
+    mesh.bind_device(spec["backend"])
     if spec["rendezvous"] == "file":
         mesh.init_world(spec["backend"], spec["init_method"], rank,
                         spec["world_size"], spec["timeout_s"])

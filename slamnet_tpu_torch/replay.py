@@ -111,10 +111,12 @@ starts the ranks): ``sharded_replay`` runs ``models.hector_sharded`` over
 the first SHARDED_N scans of a log, the bootstrap forced at the true poses,
 then every scan matched from the previous pose; ``sharded_coreslam_replay``
 runs ``models.coreslam_sharded`` as ``coreslam_replay`` runs the dense one.
-``SHARDED_JAX_REF_*`` are JAX's ``hector_sharded`` over the first
-SHARDED_N scans of ``make_log(0)`` on the 2x4 and 4x2 meshes of 8 virtual
-CPU devices, ``SHARDED_CORESLAM_JAX_REF_ATE_M`` its production CoreSLAM on
-the 2x4 mesh (``scripts/torch_port_ref_ate.py --sharded``).
+``multichip_meshes(n)`` names ``dryrun_multichip(n)``'s meshes (2x4 and
+4x2 at 8 devices, 2x2 and 4x1 at 4).  ``SHARDED_JAX_REF_*`` are JAX's
+``hector_sharded`` over the first SHARDED_N scans of ``make_log(0)`` on
+each of those meshes (8 and 4 virtual CPU devices),
+``SHARDED_CORESLAM_JAX_REF_ATE(S)_M`` its production CoreSLAM on the first
+mesh (``scripts/torch_port_ref_ate.py --sharded [--devices 4]``).
 
 ``dryrun_multichip``'s section 3, distributed graph-SLAM: ``make_sharded_
 graph_log`` (6 still scans, then the turning rectangle), ``sharded_graph_
@@ -122,8 +124,9 @@ config`` (the onehot_bf16 pyramid, a onehot_bf16 + dense-fill frontend,
 the section's pose graph and 8 separator slots), ``sharded_graph_replay``
 (``models.graph_slam_sharded`` over the log, the first scans forced),
 ``sharded_graph_metrics`` and ``sharded_graph_gate`` against
-``SHARDED_GRAPH_JAX_REF_*`` (JAX's ``graph_slam_sharded`` on the 2x4 mesh,
-``scripts/torch_port_ref_ate.py --sharded-graph``).
+``SHARDED_GRAPH_JAX_REF_*`` (JAX's ``graph_slam_sharded`` on the 2x4 mesh
+and on the 2x2 mesh of 4 devices, the same numbers;
+``scripts/torch_port_ref_ate.py --sharded-graph [--devices 4]``).
 """
 from __future__ import annotations
 
@@ -138,7 +141,9 @@ import torch
 
 from .core.config import (CoreSlamConfig, HectorConfig, ParticleConfig,
                           PoseGraphConfig, SimConfig)
+from .core.geometry import pose_between, pose_compose
 from .core.scan import Scan
+from .graph import posegraph
 from .graph.frontend import ScanMatchConfig
 from .io.datasets import LidarLog, drifting_odometry, log_points, read_carmen
 from .models import (coreslam, coreslam_sharded, fleet, graph_slam,
@@ -1277,6 +1282,21 @@ def dataset_gate(name: str, got: dict, hector_poses: np.ndarray | None = None,
 SHARDED_N = 64                  # 10 forced + 54 matched scans
 SHARDED_MESHES = {"2x4": {"tile": 2, "search": 4},
                   "4x2": {"tile": 4, "search": 2}}
+
+
+def multichip_meshes(n_devices: int) -> dict:
+    """``dryrun_multichip(n)``'s meshes by name (``__graft_entry__.py:
+    87-116``): ``{"tile": 2, "search": n/2}``, and ``{"tile": 4, "search":
+    n/4}`` when 4 divides n.  n must be even and at least 2."""
+    if n_devices < 2 or n_devices % 2:
+        raise ValueError(f"dryrun_multichip needs an even device count >= 2, "
+                         f"got {n_devices}")
+    out = {f"2x{n_devices // 2}": {"tile": 2, "search": n_devices // 2}}
+    if n_devices % 4 == 0:
+        out[f"4x{n_devices // 4}"] = {"tile": 4, "search": n_devices // 4}
+    return out
+
+
 SHARDED_CORESLAM_N = 24
 # JAX package hector_sharded (fixed: gather + line updates) on the first 64
 # scans of make_log(seed=0), 10 forced + 54 matched, on 8 virtual CPU
@@ -1288,11 +1308,27 @@ SHARDED_CORESLAM_N = 24
 # from PRNGKey(1), "coreslam_production_2x4": {"ate_m": 0.04702622815966606,
 # "max_err_m": 0.07058906555175781}.  (At a depth of 128 scans:
 # 0.0034172534942626953 m on 2x4, 0.003417252330109477 on 4x2, 15 map
-# updates.)
+# updates.)  On 4 virtual CPU devices (dryrun_multichip(4)'s meshes),
+# `python scripts/torch_port_ref_ate.py --sharded --devices 4` printed
+# "hector_2x2": {"ate_m": 0.004128592554479837, "max_err_m":
+# 0.008902426809072495, "map_updates": 12}, "hector_4x1": {"ate_m":
+# 0.004128592554479837, "max_err_m": 0.008902426809072495, "map_updates":
+# 12}, "coreslam_production_2x2": {"ate_m": 0.04702622815966606,
+# "max_err_m": 0.07058906555175781}: the 8-device numbers to the last bit;
+# so did `... --sharded --devices 2` ("hector_2x1", "coreslam_production_
+# 2x1").
 SHARDED_JAX_REF_ATE_M = {"2x4": 0.004128592554479837,
-                         "4x2": 0.004128592554479837}
-SHARDED_JAX_REF_MAP_UPDATES = {"2x4": 12, "4x2": 12}
+                         "4x2": 0.004128592554479837,
+                         "2x2": 0.004128592554479837,
+                         "4x1": 0.004128592554479837,
+                         "2x1": 0.004128592554479837}
+SHARDED_JAX_REF_MAP_UPDATES = {"2x4": 12, "4x2": 12, "2x2": 12, "4x1": 12,
+                               "2x1": 12}
 SHARDED_CORESLAM_JAX_REF_ATE_M = 0.04702622815966606
+# the production CoreSLAM's ATE by the mesh it ran on
+SHARDED_CORESLAM_JAX_REF_ATES_M = {"2x4": 0.04702622815966606,
+                                   "2x2": 0.04702622815966606,
+                                   "2x1": 0.04702622815966606}
 
 
 def head(dlog: DeviceLog, n: int) -> DeviceLog:
@@ -1372,6 +1408,26 @@ SHARDED_GRAPH_SEP_CAPACITY = 8
 # gather` (the default frontend) "sharded_graph_gather": {"keyframes": 22,
 # "loop_closures": 8, "final_err_m": 0.0028054032009094954, "ate_m":
 # 0.019257059320807457, "max_err_m": 0.1056840792298317, "max_overflow": 0}.
+# On the 2x2 mesh of 4 virtual CPU devices (32 keyframe slots), `...
+# --sharded-graph --devices 4 [--mode gather]` printed the same numbers to
+# the last bit (onehot_bf16: 22 keyframes, 8 closures, final error
+# 0.0028054032009094954, ATE 0.01934298314154148, max 0.10565228760242462,
+# overflow 0; gather: 22, 8, 0.0028054032009094954, 0.019257059320807457,
+# 0.1056840792298317, 0), keyframes at the same scans (7, 9, 11, ..., 69)
+# and closures at 29, 33, 36, 38, 40, 65, 67 and 69.
+SHARDED_GRAPH_JAX_REF_MESHES = ("2x4", "2x2")
+# On the 2x1 mesh of 2 devices (16 keyframe slots for the 22 keyframes of
+# a larger mesh) every slot fills: `... --sharded-graph --devices 2 [--mode
+# gather]` printed 16 keyframes, 5 closures, final error 2.090765953063965
+# / 2.090764284133911 m (dryrun_multichip(2) fails its own < 0.5 m check
+# there), ATE 0.505652904510498 / 0.5056396722793579, max = the final
+# error, no overflow.
+SHARDED_GRAPH_JAX_REF_2X1 = {
+    mode: {"ate_m": ate, "max_err_m": fin, "final_err_m": fin,
+           "keyframes": 16, "loop_closures": 5, "max_overflow": 0}
+    for mode, ate, fin in (
+        ("onehot_bf16", 0.505652904510498, 2.090765953063965),
+        ("gather", 0.5056396722793579, 2.090764284133911))}
 SHARDED_GRAPH_JAX_REF_KEYFRAMES = {"onehot_bf16": 22, "gather": 22}
 SHARDED_GRAPH_JAX_REF_CLOSURES = {"onehot_bf16": 8, "gather": 8}
 SHARDED_GRAPH_JAX_REF_FINAL_ERR_M = {"onehot_bf16": 0.0028054032009094954,
@@ -1381,6 +1437,29 @@ SHARDED_GRAPH_JAX_REF_ATE_M = {"onehot_bf16": 0.01934298314154148,
 SHARDED_GRAPH_JAX_REF_MAX_M = {"onehot_bf16": 0.10565228760242462,
                                "gather": 0.1056840792298317}
 SHARDED_GRAPH_JAX_REF_MAX_OVERFLOW = {"onehot_bf16": 0, "gather": 0}
+
+
+def circle_graph(dev, n: int = 24, max_nodes: int = 32, max_edges: int = 64):
+    """tests/test_posegraph.py's circle: noisy odometry edges (numpy seed 0)
+    and two exact closures, nodes at the drifted odometry poses."""
+    rng = np.random.default_rng(0)
+    ths = np.linspace(0, 2 * math.pi, n, endpoint=False)
+    truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
+                                   ths + math.pi / 2], -1), dtype=torch.float32)
+    g = posegraph.init(max_nodes, max_edges, dev)
+    est = truth[0]
+    g, _ = posegraph.add_node(g, est.to(dev))
+    for t in range(1, n):
+        noisy = pose_between(truth[t - 1], truth[t]) + torch.tensor(
+            rng.normal(0, 0.03, 3), dtype=torch.float32)
+        est = pose_compose(est, noisy)
+        g, _ = posegraph.add_node(g, est.to(dev))
+        g = posegraph.add_edge(g, t - 1, t, noisy.to(dev), (10.0, 10.0, 40.0))
+    for i, j in ((0, n // 2), (n - 1, 0)):
+        g = posegraph.add_edge(g, i, j,
+                               pose_between(truth[i], truth[j]).to(dev),
+                               (100.0, 100.0, 400.0))
+    return g
 
 
 def make_sharded_graph_log(seed: int = SHARDED_GRAPH_SEED) -> ScanLog:
@@ -1402,15 +1481,18 @@ def make_sharded_graph_log(seed: int = SHARDED_GRAPH_SEED) -> ScanLog:
                    SHARDED_GRAPH_FORCED)
 
 
-def sharded_graph_config(frontend_mode: str = "onehot_bf16"
+def sharded_graph_config(frontend_mode: str = "onehot_bf16",
+                         n_search: Optional[int] = None
                          ) -> Tuple[HectorConfig, PoseGraphConfig,
                                     ScanMatchConfig, int]:
     """Section 3's configuration: the 3-level 400-px 7/4/4 pyramid in
     ``onehot_bf16``; the frontend in ``frontend_mode`` with the dense fill
     (``"gather"``: the default frontend, K3 + K4); 16 keyframe slots a
-    search shard of SHARDED_GRAPH_MESH; 8 separator slots.  Returns (hcfg,
-    gcfg, mcfg, sep_capacity)."""
-    n_search = SHARDED_MESHES[SHARDED_GRAPH_MESH]["search"]
+    search shard of the mesh in use (``n_search``, default
+    SHARDED_GRAPH_MESH's; ``__graft_entry__.py:163``); 8 separator slots.
+    Returns (hcfg, gcfg, mcfg, sep_capacity)."""
+    if n_search is None:
+        n_search = SHARDED_MESHES[SHARDED_GRAPH_MESH]["search"]
     hcfg = HectorConfig(num_levels=3, estimate_iterations=(7, 4, 4),
                         matcher_mode="onehot_bf16")
     gcfg = PoseGraphConfig(max_keyframes=16 * n_search, max_edges=64,
@@ -1480,9 +1562,15 @@ def sharded_graph_metrics(state: graph_slam_sharded.ShardedGraphSlamState,
             "max_overflow": int(out.sep_overflow.max())}
 
 
-def sharded_graph_reference(frontend_mode: str = "onehot_bf16") -> dict:
+def sharded_graph_reference(frontend_mode: str = "onehot_bf16",
+                            mesh: str = SHARDED_GRAPH_MESH) -> dict:
     """``SHARDED_GRAPH_JAX_REF_*`` of a frontend as
-    ``sharded_graph_metrics``' dict."""
+    ``sharded_graph_metrics``' dict, for a mesh JAX was run on
+    (``SHARDED_GRAPH_JAX_REF_MESHES`` and 2x1; KeyError for another)."""
+    if mesh == "2x1":
+        return dict(SHARDED_GRAPH_JAX_REF_2X1[frontend_mode])
+    if mesh not in SHARDED_GRAPH_JAX_REF_MESHES:
+        raise KeyError(f"no JAX reference of section 3 on the {mesh} mesh")
     return {"ate_m": SHARDED_GRAPH_JAX_REF_ATE_M[frontend_mode],
             "max_err_m": SHARDED_GRAPH_JAX_REF_MAX_M[frontend_mode],
             "final_err_m": SHARDED_GRAPH_JAX_REF_FINAL_ERR_M[frontend_mode],

@@ -71,7 +71,8 @@ def test_import_never_pulls_in_jax():
             "slamnet_tpu_torch.graph.distributed, "
             "slamnet_tpu_torch.graph.schur, "
             "slamnet_tpu_torch.models.graph_slam_sharded, "
-            "slamnet_tpu_torch.bench, slamnet_tpu_torch.examples, "
+            "slamnet_tpu_torch.bench, slamnet_tpu_torch.multichip, "
+            "slamnet_tpu_torch.examples, "
             "slamnet_tpu_torch.examples.replay_demo, "
             "slamnet_tpu_torch.examples.replay_dataset, "
             "slamnet_tpu_torch.examples.record_and_replay, "

@@ -202,10 +202,11 @@ def test_jax_reads_a_sharded_hector_checkpoint(run):
     assert np.abs(np.asarray(dense.maps)).max() > 0
 
 
-def test_graph_kind_is_left_to_the_next_slice(monkeypatch):
-    # the next slice came: the graph kind is densified by
-    # graph_slam_sharded.to_dense (tests/test_torch_graph_slam_sharded.py
-    # saves and restores one), and a state of no sharded kind is refused
+def test_save_sharded_densifies_the_graph_kind_and_refuses_others(
+        monkeypatch):
+    # the graph kind is densified by graph_slam_sharded.to_dense
+    # (tests/test_torch_graph_slam_sharded.py saves and restores one), and a
+    # state of no sharded kind is refused
     from slamnet_tpu_torch.models import graph_slam_sharded
 
     class ShardedGraphSlamState(NamedTuple):
