@@ -698,7 +698,7 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
         st, _ = replay.sharded_replay(m, replay.head(dlog, boot), cfg)
         check(torch.equal(hs.unshard_maps(m, st, cfg), boot_maps),
               f"{name}: the forced updates' maps differ from hector.update's")
-        c0, s0 = dict(m.counts), m.seconds
+        c0 = dict(m.counts)
         sync()
         tt = time.perf_counter()
         if name == "2x4":       # phase 33's checkpoint at SHARDED_CUT
@@ -706,12 +706,11 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
                                            cfg, state=st, start=boot)
             sync()
             t_cut = time.perf_counter()
-            c_cut, s_cut = dict(m.counts), m.seconds
+            c_cut = dict(m.counts)
             checkpoint.save_sharded(f"{work}/hector", st, cfg, m,
                                     {"scan": SHARDED_CUT})
             save_s = time.perf_counter() - t_cut
             saved = {k: m.counts[k] - c_cut[k] for k in c_cut}
-            save_coll_s = m.seconds - s_cut
             st, o2 = replay.sharded_replay(m, dlog, cfg, state=st,
                                            start=SHARDED_CUT)
             poses = torch.cat([o1.poses, o2.poses])
@@ -721,7 +720,6 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
             st, o = replay.sharded_replay(m, dlog, cfg, state=st, start=boot)
             poses, upd, iters = o.poses, o.map_updated, o.gn_iterations
             save_s, saved = 0.0, {"collectives": 0, "host_copies": 0}
-            save_coll_s = 0.0
         sync()
         wall = time.perf_counter() - tt - save_s
         scans = n - boot
@@ -729,7 +727,6 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
                      - saved["collectives"]) / scans
         copies_scan = (m.counts["host_copies"] - c0["host_copies"]
                        - saved["host_copies"]) / scans
-        coll_ms = (m.seconds - s0 - save_coll_s) / scans * 1e3
         maps = hs.unshard_maps(m, st, cfg)
         final[name] = (maps, poses)
         perr = float((poses - ref_poses).abs().max())
@@ -753,7 +750,6 @@ def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
                      "dense_map_updates": nref, "scans_per_s": scans / wall,
                      "collectives_per_scan": coll_scan,
                      "host_copies_per_scan": copies_scan,
-                     "collective_ms_per_scan": coll_ms,
                      "checkpoint_s": save_s,
                      "jax_ref_ate_m": ref_ate,
                      "rank_scans_per_s": every_rank(scans / wall)}
@@ -988,9 +984,7 @@ def sharded_smoke(torch, dev) -> dict:
             f"{o['scans_per_s']:.1f} scans/s (rank 0; ranks "
             f"{min(o['rank_scans_per_s']):.1f}-{max(o['rank_scans_per_s']):.1f})"
             f", {o['collectives_per_scan']:.0f} collectives and "
-            f"{o['host_copies_per_scan']:.0f} host copies a scan, "
-            f"{o['collective_ms_per_scan']:.1f} ms of a scan's "
-            f"{1e3 / o['scans_per_s']:.1f} inside them (rank 0)")
+            f"{o['host_copies_per_scan']:.0f} host copies a scan")
     say(f"[hector sharded] 2x4 onehot_bf16: forced maps bit for bit, "
         f"{SHARDED_SHORT} matched scans within {hec['onehot_bf16']['pose_err_m']:.3g}"
         f" m of gather's; the exit at {EXIT_TOL_FIRES} px: within "
@@ -1228,9 +1222,9 @@ def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
         hcfg, gcfg, mcfg, cap = replay.sharded_graph_config(mode)
         step = gss.make_step(m24, hcfg, gcfg, nb, mcfg, sep_capacity=cap)
         zero_launch_counts()
-        c0, s0 = dict(m24.counts), m24.seconds
+        c0 = dict(m24.counts)
         saved = {"collectives": 0, "host_copies": 0}
-        save_s = save_coll_s = 0.0
+        save_s = 0.0
         sync()
         tt = time.perf_counter()
         if mode == "onehot_bf16":     # 34e's checkpoint at GRAPH_CUT
@@ -1238,13 +1232,11 @@ def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
                 m24, replay.head(dlog, GRAPH_CUT), hcfg, gcfg, mcfg, cap,
                 step=step)
             sync()
-            t_cut, c_cut, s_cut = time.perf_counter(), dict(m24.counts), \
-                m24.seconds
+            t_cut, c_cut = time.perf_counter(), dict(m24.counts)
             checkpoint.save_sharded(f"{work}/graph", st, hcfg, m24,
                                     {"scan": GRAPH_CUT})
             save_s = time.perf_counter() - t_cut
             saved = {k: m24.counts[k] - c_cut[k] for k in c_cut}
-            save_coll_s = m24.seconds - s_cut
             st, o2 = replay.sharded_graph_replay(
                 m24, dlog, hcfg, gcfg, mcfg, cap, state=st, start=GRAPH_CUT,
                 step=step)
@@ -1284,8 +1276,6 @@ def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
                       "collectives_per_scan": coll / n,
                       "collectives_per_keyframe_event": per_event,
                       "host_copies_per_scan": copies / n,
-                      "collective_ms_per_scan":
-                          (m24.seconds - s0 - save_coll_s) / n * 1e3,
                       "launches": {k: v for k, v in counts.items() if v},
                       "rank_launches": every_rank(counts[kernels[0]]),
                       "rank_launches_update": every_rank(counts[kernels[1]]),
@@ -1401,9 +1391,8 @@ def graph_smoke(torch, dev) -> dict:
             f"{max(o['rank_scans_per_s']):.2f}), "
             f"{o['collectives_per_scan']:.2f} collectives and "
             f"{o['host_copies_per_scan']:.2f} host copies a scan "
-            f"({o['collectives_per_keyframe_event']:.0f} a keyframe event), "
-            f"{o['collective_ms_per_scan']:.1f} ms a scan inside them; host "
-            f"reads {o['host_reads']}; {o['seconds']:.1f} s")
+            f"({o['collectives_per_keyframe_event']:.0f} a keyframe event); "
+            f"host reads {o['host_reads']}; {o['seconds']:.1f} s")
     rb, ck = r["rebuild"], r["checkpoint"]
     say(f"[graph sharded] rebuild_maps_sharded on 4x2 from the 2x4 state "
         f"(to_dense / shard_dense), {rb['nodes']} nodes: = rebuild_maps on "

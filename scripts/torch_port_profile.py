@@ -31,16 +31,14 @@ scan of ``models/hector_sharded`` (the fixed config at full width over the
 loop log, 10 forced and 10 warm-up scans first, then ``SHARDED_STEPS``
 timed and traced) on gloo ranks sharing the card: ``--mode 2x4``, the
 default, or ``4x2`` (8 ranks), or ``1x1`` (one rank, no other process on
-the card).  Rank 0 is traced; beside its kernels the JSON gives its host
-time inside collectives a scan (``Mesh.seconds``: the gloo ops, their host
-copies and the wait for the other ranks, from the untraced run) and its
+the card).  Rank 0 is traced; beside its kernels the JSON gives its
 collectives and host copies a scan.  With ``--sharded-graph`` the whole of
 ``dryrun_multichip``'s section 3 (``replay.sharded_graph_replay``: 71 scans
 of ``models/graph_slam_sharded`` on the 2x4 mesh, the onehot_bf16 pyramid)
 is run once, then timed and traced on rank 0: ``--mode onehot_bf16``, the
 default (the frontend's K1 + K2), or ``gather`` (K3 + K4); beside rank 0's
 kernels a scan and busy time, the JSON gives the collectives a scan and a
-keyframe event and the host time inside them.
+keyframe event.
 
     python3 scripts/torch_port_profile.py [--fleet | --graph | --office |
         --coreslam | --particle | --dataset | --sharded | --sharded-graph]
@@ -166,12 +164,11 @@ def sharded_rank(mesh_name: str) -> dict:
         replay.sharded_replay(m, dlog, cfg, state=st, start=start)
         torch.cuda.synchronize(m.device)
 
-    c0, s0 = dict(m.counts), m.seconds
+    c0 = dict(m.counts)
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     per = {k: (m.counts[k] - c0[k]) / SHARDED_STEPS for k in c0}
-    in_coll = (m.seconds - s0) / SHARDED_STEPS
     if m.rank != 0:
         run()                                   # the traced run's partners
         return {}
@@ -190,7 +187,6 @@ def sharded_rank(mesh_name: str) -> dict:
             "rank0_kernels_per_step": len(kernels) / SHARDED_STEPS,
             "rank0_device_busy_us_per_step": busy / SHARDED_STEPS,
             "rank0_busy_share_of_traced_wall": busy / (traced * 1e6),
-            "rank0_collective_host_us_per_step": in_coll * 1e6,
             "collectives_per_step": per["collectives"],
             "host_copies_per_step": per["host_copies"]}
 
@@ -214,14 +210,13 @@ def sharded_graph_rank(frontend_mode: str) -> dict:
         torch.cuda.synchronize(m.device)
 
     run()
-    c0, s0, flags0 = dict(m.counts), m.seconds, len(step.flags)
+    c0, flags0 = dict(m.counts), len(step.flags)
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     per = {k: (m.counts[k] - c0[k]) / n for k in c0}
     events = sum(f[0] for f in step.flags[flags0:])
     hector_coll = sum(hcfg.estimate_iterations) + 2
-    in_coll = (m.seconds - s0) / n
     if m.rank != 0:
         run()                                   # the traced run's partners
         return {}
@@ -244,7 +239,6 @@ def sharded_graph_rank(frontend_mode: str) -> dict:
             "rank0_kernels_per_step": len(kernels) / n,
             "rank0_device_busy_us_per_step": busy / n,
             "rank0_busy_share_of_traced_wall": busy / (traced * 1e6),
-            "rank0_collective_host_us_per_step": in_coll * 1e6,
             "collectives_per_step": per["collectives"],
             "collectives_per_keyframe_event":
                 (per["collectives"] - hector_coll) * n / max(events, 1),

@@ -14,8 +14,21 @@ rebuilt as host-side components (SURVEY.md §5.1/§5.3/§5.5):
   (Simulation/BufferedLogger.cs; MainWindow.xaml.cs:199-202)
 - ``device_trace``      — ``torch.profiler`` over the host and the card,
   written as a Chrome trace (JAX's is ``jax.profiler.trace``)
+- ``span``              — one named range of host time, recorded only while
+  a profiler session runs
 
-All but ``device_trace`` are plain Python, copied as they are.
+The program's spans, each a ``cpu_op`` on the profiler's host timeline:
+``slamnet.hector.update`` (one ``hector.update`` call, one scan of one
+robot) and inside it, in order, ``slamnet.hector.match`` (the K1/K3 match
+and its stats), ``slamnet.hector.guards`` (the in-map and jump guards, the
+force select and the motion gate) and ``slamnet.hector.map_update`` (K2/K4
+and the last-update pose).  They are recorded with
+``torch._C._profiler._RecordFunctionFast``, not ``record_function``: a
+``record_function`` range is a user annotation, which the profiler mirrors
+onto the card's timeline as a ``gpu_user_annotation`` event that a reader
+of the device trace would count as a device operation.
+
+All but ``device_trace`` and ``span`` are plain Python, copied as they are.
 """
 from __future__ import annotations
 
@@ -25,13 +38,49 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# a cpu_op range that is no user annotation; None in a torch without it,
+# and then every span stays off
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast",
+                              None)
+
+
+class _NoSpan:
+    """The span while no profiler records: enters and exits, nothing else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """Context manager: the host time of a phase as a ``cpu_op`` range named
+    ``slamnet.<name>`` while a ``torch.profiler`` session records (the
+    benchmark's traced stretch, ``device_trace``).  Otherwise it costs one
+    read of the profiler's flag and returns the shared ``NO_SPAN``: no
+    allocation, no dispatcher call, no clock read.  A span holds no tensor
+    and reads nothing from the card.  Names must not contain the kernel
+    names the trace's readers select by (``match_kernel``, ``nccl``, ...)."""
+    if not _autograd_profiler._is_profiler_enabled or \
+            _RecordFunctionFast is None:
+        return NO_SPAN
+    return _RecordFunctionFast("slamnet." + name)
+
 
 def _cuda_probe_session() -> bool:
     """A throwaway profiler session over 100 tiny kernels, launched 10 ms
     into it; True when the session recorded any of them (see
     ``device_trace``: the session after a teardown records none, and a
     long-running CUPTI drops only a window's first few)."""
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -65,6 +114,11 @@ class device_trace:
     session, so that a later profiler in the process does not start on
     the torn-down CUPTI.
 
+    The trace holds the program's spans (``span``) on the host's rows:
+    each ``slamnet.hector.update`` with its ``slamnet.hector.match``,
+    ``slamnet.hector.guards`` and ``slamnet.hector.map_update``, beside
+    the kernels each phase launched.
+
     Usage: ``with device_trace('/tmp/trace') as t: run_replay()``.
     """
 
@@ -75,7 +129,6 @@ class device_trace:
         self._teardown = None
 
     def __enter__(self):
-        import torch
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -92,7 +145,6 @@ class device_trace:
         return self
 
     def __exit__(self, *exc):
-        import torch
         cuda = torch.cuda.is_available()
         if cuda:
             torch.cuda.synchronize()

@@ -42,6 +42,7 @@ from torch import nn
 from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, rad_diff
 from ..core.scan import Scan
+from ..io import metrics
 from ..ops import fill, line, match as match_op
 
 # float.MinValue (-3.4028235e38, the f32 lowest): the first squared distance
@@ -192,46 +193,58 @@ def update(state: HectorState, scan: Scan, pose_hint_world: torch.Tensor,
     """HectorSLAMProcessor.Update (HectorSLAMProcessor.cs:86-126): match,
     then update the maps only if the pose moved beyond the distance/angle
     thresholds or mapping is forced (``map_without_matching``, a Python bool
-    or a 0-dim bool tensor).  ``state.maps`` is updated in place."""
-    dev = state.maps.device
-    hint = torch.as_tensor(pose_hint_world, dtype=torch.float32, device=dev)
-    if isinstance(map_without_matching, torch.Tensor):
-        force = map_without_matching.to(device=dev, dtype=torch.bool)
-    else:   # a fill on the device: no host-to-device copy, no wait
-        force = torch.full((), bool(map_without_matching), dtype=torch.bool,
-                           device=dev)
+    or a 0-dim bool tensor).  ``state.maps`` is updated in place.  Under a
+    profiler the call is the span ``slamnet.hector.update`` holding its
+    phases ``.match``, ``.guards`` and ``.map_update`` (``io/metrics``)."""
+    with metrics.span("hector.update"):
+        dev = state.maps.device
+        hint = torch.as_tensor(pose_hint_world, dtype=torch.float32,
+                               device=dev)
+        if isinstance(map_without_matching, torch.Tensor):
+            force = map_without_matching.to(device=dev, dtype=torch.bool)
+        else:   # a fill on the device: no host-to-device copy, no wait
+            force = torch.full((), bool(map_without_matching),
+                               dtype=torch.bool, device=dev)
 
-    matched, mstats = match_with_stats(state.maps, scan, hint, cfg, plain)
-    if cfg.min_match_in_map_frac > 0.0:
-        # a match resting on too few in-map beams is a one-sided degenerate
-        # solve: keep the odometry hint
-        matched = torch.where(mstats.in_map_frac >= cfg.min_match_in_map_frac,
-                              matched, hint)
-    if cfg.max_match_jump > 0.0:
-        # a physically impossible per-scan jump is a degenerate-view solve
-        jump2 = ((matched[:2] - hint[:2]) ** 2).sum()
-        matched = torch.where(jump2 <= cfg.max_match_jump ** 2, matched, hint)
-    match_pose = torch.where(force, hint, matched)
+        with metrics.span("hector.match"):
+            matched, mstats = match_with_stats(state.maps, scan, hint, cfg,
+                                               plain)
+        with metrics.span("hector.guards"):
+            if cfg.min_match_in_map_frac > 0.0:
+                # a match resting on too few in-map beams is a one-sided
+                # degenerate solve: keep the odometry hint
+                matched = torch.where(
+                    mstats.in_map_frac >= cfg.min_match_in_map_frac,
+                    matched, hint)
+            if cfg.max_match_jump > 0.0:
+                # a physically impossible per-scan jump is a degenerate-view
+                # solve
+                jump2 = ((matched[:2] - hint[:2]) ** 2).sum()
+                matched = torch.where(jump2 <= cfg.max_match_jump ** 2,
+                                      matched, hint)
+            match_pose = torch.where(force, hint, matched)
 
-    last = state.last_update_pose
-    dist2 = ((match_pose[:2] - last[:2]) ** 2).sum()
-    if cfg.angle_gate_compat:
-        # reference quirk: DegDiff (degrees formula) on radian values, SIGNED
-        # compare (HectorSLAMProcessor.cs:108)
-        ang_gate = deg_diff(match_pose[2], last[2]) \
-            > cfg.min_angle_diff_for_map_update
-    else:
-        ang_gate = rad_diff(match_pose[2], last[2]).abs() \
-            > cfg.min_angle_diff_for_map_update
-    do_update = (dist2 > cfg.min_distance_diff_for_map_update ** 2) \
-        | ang_gate | force
+            last = state.last_update_pose
+            dist2 = ((match_pose[:2] - last[:2]) ** 2).sum()
+            if cfg.angle_gate_compat:
+                # reference quirk: DegDiff (degrees formula) on radian
+                # values, SIGNED compare (HectorSLAMProcessor.cs:108)
+                ang_gate = deg_diff(match_pose[2], last[2]) \
+                    > cfg.min_angle_diff_for_map_update
+            else:
+                ang_gate = rad_diff(match_pose[2], last[2]).abs() \
+                    > cfg.min_angle_diff_for_map_update
+            do_update = (dist2 > cfg.min_distance_diff_for_map_update ** 2) \
+                | ang_gate | force
 
-    maps = update_maps(state, scan, match_pose, do_update, cfg, plain)
-    new_last = torch.where(do_update, match_pose, last)
-    return (HectorState(maps, match_pose, new_last),
-            HectorInfo(map_updated=do_update, residual=mstats.residual,
-                       gn_iterations=mstats.iterations,
-                       solve_failures=mstats.solve_failures))
+        with metrics.span("hector.map_update"):
+            maps = update_maps(state, scan, match_pose, do_update, cfg,
+                               plain)
+            new_last = torch.where(do_update, match_pose, last)
+        return (HectorState(maps, match_pose, new_last),
+                HectorInfo(map_updated=do_update, residual=mstats.residual,
+                           gn_iterations=mstats.iterations,
+                           solve_failures=mstats.solve_failures))
 
 
 class HectorSLAM(nn.Module):

@@ -33,13 +33,9 @@ more ranks than cards (NCCL refuses two ranks on one device); ``"gloo"`` is
 for the CPU and for ranks that share a card.  On gloo, a tensor on a card
 is copied to the host before the collective and back after it, in one place
 (``_host`` / ``_back``), and ``counts["host_copies"]`` counts each copy;
-``counts["collectives"]`` counts the collectives and ``seconds`` sums the
-host's wall time inside them.  On gloo that time holds the copies and the
-wait for the other ranks.  On NCCL a collective only enqueues its kernel
-on the card's stream and returns, so ``seconds`` is enqueue time there: it
-is not the collectives' cost, which only a device trace of the NCCL
-kernels shows (``multichip``).  Nothing falls back to the CPU and no failed
-collective is caught.
+``counts["collectives"]`` counts the collectives.  Their cost on the card
+is the NCCL kernels' time in a device trace (``multichip``).  Nothing falls
+back to the CPU and no failed collective is caught.
 
 Each rank computes on ``cuda:LOCAL_RANK`` (``rank_device``), made the
 current device before its world comes up (``bind_device``; NCCL's
@@ -56,7 +52,6 @@ from __future__ import annotations
 import datetime
 import math
 import os
-import time
 from typing import Iterable, Mapping, Sequence, Tuple
 
 import torch
@@ -174,7 +169,6 @@ class Mesh:
                              f"{self.device}")
         self.coords = self._coords(self.rank) if self.member else None
         self.counts = {"collectives": 0, "host_copies": 0}
-        self.seconds = 0.0
         # every rank creates every group, in this order
         all_ranks = list(range(self.size))
         if self.size == world:
@@ -259,17 +253,15 @@ class Mesh:
         return buf
 
     # ------------------------------------------------------ collectives
-    def _done(self, t0: float) -> None:
+    def _done(self) -> None:
         self.counts["collectives"] += 1
-        self.seconds += time.perf_counter() - t0
 
     def _reduce(self, x: torch.Tensor, axes, op) -> torch.Tensor:
-        t0 = time.perf_counter()
         group, _ = self._group(axes)
         buf = self._host(x.contiguous())
         dist.all_reduce(buf, op=op, group=group)
         out = self._back(buf, x)
-        self._done(t0)
+        self._done()
         return out
 
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
@@ -285,20 +277,18 @@ class Mesh:
                    tiled: bool = False) -> torch.Tensor:
         """Every rank's ``x`` along ``axis``, in axis order: stacked on a new
         leading dim, or (``tiled``) concatenated along dim 0."""
-        t0 = time.perf_counter()
         group, line = self._group(axis)
         buf = self._host(x.contiguous())
         parts = [torch.empty_like(buf) for _ in line]
         dist.all_gather(parts, buf, group=group)
         out = self._back(torch.cat(parts) if tiled else torch.stack(parts), x)
-        self._done(t0)
+        self._done()
         return out
 
     def ppermute(self, x: torch.Tensor, axis: str,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """Send ``x`` from axis index ``src`` to ``dst`` for each pair of
         ``perm``; returns what this rank received, zeros if nothing."""
-        t0 = time.perf_counter()
         group, line = self._group(axis)
         me = self.coords[axis]
         buf = self._host(x.contiguous())
@@ -313,17 +303,16 @@ class Mesh:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         out = self._back(recv, x)
-        self._done(t0)
+        self._done()
         return out
 
     def barrier(self) -> None:
-        t0 = time.perf_counter()
         group, _ = self._group(self.names)
         if self.backend == "nccl":
             dist.barrier(group=group, device_ids=[self.device.index])
         else:
             dist.barrier(group=group)
-        self._done(t0)
+        self._done()
 
 
 def _product(sizes: Sequence[int]) -> Iterable[tuple]:
