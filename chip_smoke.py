@@ -301,7 +301,15 @@ K4 kernel.
                 10 forced + 8 matched scans of the sharded Hector at 1x1,
                 bit for bit the same scans on a one-rank gloo world on the
                 card; no host copy under NCCL.
-Phases 17-36 print their seconds.
+ 37. graph    — hector.update's CUDA graph: the pallas_dense and fixed
+                replays of 512 scans through hector.update = the same
+                through hector._update_eager bit for bit (poses, every
+                HectorInfo field, the maps), one capture and 510 replays,
+                the eager run's launch counts; stretches of 20 replayed
+                steps under metrics.device_trace hold 20 match_kernel and
+                20 fill_kernel records, for a graph captured before the
+                stretch and for one captured inside it.
+Phases 17-37 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -1634,6 +1642,134 @@ def entry_point_smoke(torch, dev) -> dict:
             "dataset_launches": ds_counts, "dataset_max_dev_from_jax_m":
             dev_jax, "seconds": secs}
 
+
+# ---- phase 37: hector.update's CUDA graph -----------------------------------
+GRAPH_TRACE_STEPS = 20    # steps of each traced stretch of phase 37
+
+
+def graph_step_smoke(torch, dev) -> dict:
+    """Phase 37: ``hector.update`` replays its step as a CUDA graph.  The
+    512-scan replays in ``pallas_dense`` and ``fixed`` through ``update``
+    equal the same replays through ``hector._update_eager`` bit for bit
+    (every pose, HectorInfo field and the maps), with one capture a map,
+    the steps less 2 replays and the eager run's launch counts; and
+    profiled stretches of replayed steps (``metrics.device_trace``) record
+    one ``match_kernel`` and one ``fill_kernel`` a step, both for a graph
+    captured before the stretch and for one captured inside it."""
+    from torch.autograd import DeviceType
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.core.scan import Scan
+    from slamnet_tpu_torch.io import metrics as io_metrics
+    from slamnet_tpu_torch.models import hector
+
+    t0 = time.perf_counter()
+    log = replay.make_log(seed=0)
+    dlog = replay.to_device(log, dev)
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    b = log.bootstrap
+    n = dlog.points.shape[0] - b
+
+    def clone(st):
+        return hector.HectorState(*(t.clone() for t in st))
+
+    def run(step, st, cfg, t0, t1):
+        poses, infos = [], []
+        for t in range(t0, t1):
+            st, info = step(st, Scan(dlog.points[t], dlog.valid[t], zero),
+                            st.match_pose, cfg)
+            poses.append(st.match_pose)
+            infos.append(info)
+        return st, poses, infos
+
+    def same(a, b):
+        ok = torch.equal(a[0].maps, b[0].maps) and torch.equal(
+            a[0].last_update_pose, b[0].last_update_pose)
+        ok = ok and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        return ok and all(u.dtype == v.dtype and torch.equal(u, v)
+                          for x, y in zip(a[2], b[2]) for u, v in zip(x, y))
+
+    out = {}
+    for name, cfg in (("pallas_dense", replay.pallas_dense_config()),
+                      ("fixed", replay.fixed_config())):
+        st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog, b,
+                               cfg)
+        zero_launch_counts()
+        eager = run(hector._update_eager, clone(st0), cfg, b, b + n)
+        torch.cuda.synchronize()
+        want = launch_counts()
+        zero_launch_counts()
+        g0 = (hector.update.graph_captures, hector.update.graph_replays)
+        graph = run(hector.update, clone(st0), cfg, b, b + n)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        g1 = (hector.update.graph_captures - g0[0],
+              hector.update.graph_replays - g0[1])
+        check(same(graph, eager), f"{name}: the {n}-scan replay through "
+              "hector.update differs from the eager step's")
+        check(g1 == (1, n - 2), f"{name}: {g1[0]} captures and {g1[1]} "
+              f"replays over {n} scans of one map, want 1 and {n - 2}")
+        check(got == want, f"{name}: launch counts {got}, eager {want}")
+        secs = {}
+        for label, step in (("eager", hector._update_eager),
+                            ("graph", hector.update)):
+            st = clone(st0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(step, st, cfg, b, b + n)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t
+        out[name] = {"captures_replays": g1,
+                     "launches": {k: v for k, v in got.items() if v},
+                     "scans_per_s": {k: n / v for k, v in secs.items()}}
+        say(f"[graph] {name}: {n} scans through hector.update = the eager "
+            f"step bit for bit; {g1[0]} capture, {g1[1]} replays; launches "
+            f"{out[name]['launches']} as eager; "
+            f"{n / secs['graph']:.1f} scans/s replayed vs "
+            f"{n / secs['eager']:.1f} eager")
+
+    cfg = replay.pallas_dense_config()
+    st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog, b, cfg)
+    k = GRAPH_TRACE_STEPS
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+
+    def traced(st, t0, label):
+        with io_metrics.device_trace(trace_dir) as tr:
+            res = run(hector.update, st, cfg, t0, t0 + k)
+        names = [e.name for e in tr.prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        spans = [e.name for e in tr.prof.events()
+                 if e.name.startswith("slamnet.hector.")]
+        got = {"match_kernel": sum("match_kernel" in x for x in names),
+               "fill_kernel": sum("fill_kernel" in x for x in names),
+               "replay_spans": spans.count("slamnet.hector.graph_replay")}
+        check(got["match_kernel"] == k and got["fill_kernel"] == k,
+              f"{label}: {got} over {k} steps, want one match_kernel and "
+              "one fill_kernel a step")
+        out[label] = got
+        return res
+
+    try:
+        before, twin = clone(st0), clone(st0)
+        before = run(hector.update, before, cfg, b, b + k)[0]
+        twin = run(hector._update_eager, twin, cfg, b, b + k)[0]
+        a = traced(before, b + k, "captured_before")
+        e = run(hector._update_eager, twin, cfg, b + k, b + 2 * k)
+        check(same(a, e), "replays of a graph captured before the profiler "
+              "differ from the eager step's")
+        inside, twin2 = clone(st0), clone(st0)
+        c = traced(inside, b, "captured_inside")
+        e2 = run(hector._update_eager, twin2, cfg, b, b + k)
+        check(same(c, e2), "steps captured inside a profiled stretch differ "
+              "from the eager step's")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    say(f"[graph] profiled stretches of {k} steps: a graph captured before "
+        f"{out['captured_before']}, one captured inside "
+        f"{out['captured_inside']}; {secs:.1f} s")
+    say(f"[seconds] phase 37: {secs:.1f}")
+    out["seconds"] = secs
+    return out
 
 def main() -> int:
     import torch
@@ -4384,6 +4520,8 @@ def main() -> int:
     entry_points = entry_point_smoke(torch, dev)
     # ---- 36. NCCL on the one card ------------------------------------------
     nccl_one = nccl_smoke(torch)
+    # ---- 37. hector.update's CUDA graph -------------------------------------
+    graph_step = graph_step_smoke(torch, dev)
 
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
@@ -4569,6 +4707,7 @@ def main() -> int:
         "one_scan_trace": {"k3_events": one_k3, "k4_events": one_k4},
         "entry_points": entry_points,
         "nccl_one_rank": nccl_one,
+        "graph_step": graph_step,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -19,10 +19,15 @@ rebuilt as host-side components (SURVEY.md §5.1/§5.3/§5.5):
 
 The program's spans, each a ``cpu_op`` on the profiler's host timeline:
 ``slamnet.hector.update`` (one ``hector.update`` call, one scan of one
-robot) and inside it, in order, ``slamnet.hector.match`` (the K1/K3 match
-and its stats), ``slamnet.hector.guards`` (the in-map and jump guards, the
-force select and the motion gate) and ``slamnet.hector.map_update`` (K2/K4
-and the last-update pose).  They are recorded with
+robot) and inside it, where the step runs eagerly, in order,
+``slamnet.hector.match`` (the K1/K3 match and its stats),
+``slamnet.hector.guards`` (the in-map and jump guards, the force select and
+the motion gate) and ``slamnet.hector.map_update`` (K2/K4 and the
+last-update pose); where the step is replayed as a CUDA graph
+(``models/hector.StepGraphs``), one ``slamnet.hector.graph_replay`` (the
+input copies, the graph's launch and the copy of its results) and no
+phase.  The step that captures a graph holds the phases twice: its eager
+run's, then the capture's.  They are recorded with
 ``torch._C._profiler._RecordFunctionFast``, not ``record_function``: a
 ``record_function`` range is a user annotation, which the profiler mirrors
 onto the card's timeline as a ``gpu_user_annotation`` event that a reader
@@ -116,8 +121,10 @@ class device_trace:
 
     The trace holds the program's spans (``span``) on the host's rows:
     each ``slamnet.hector.update`` with its ``slamnet.hector.match``,
-    ``slamnet.hector.guards`` and ``slamnet.hector.map_update``, beside
-    the kernels each phase launched.
+    ``slamnet.hector.guards`` and ``slamnet.hector.map_update``, or its
+    ``slamnet.hector.graph_replay``, beside the kernels each launched.  The
+    kernels of a replayed graph are recorded one by one, whether the graph
+    was captured before the session or inside it (an H100, CUDA 12.8).
 
     Usage: ``with device_trace('/tmp/trace') as t: run_replay()``.
     """

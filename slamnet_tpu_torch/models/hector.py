@@ -26,14 +26,24 @@ Other modes and a non-zero ``offset`` raise NotImplementedError.
 The entry points (``init``, ``HectorSLAM``) put the state on the card
 unless the caller names another device.
 
-One scan costs one match launch, a few small PyTorch operators for the
-guards and the motion gate, and one map-update call that reads the gate as
-a device flag.  Nothing in ``update`` waits for the device or branches on a
+One scan's step is one match launch, a few small PyTorch operators for
+the guards and the motion gate, and one map-update call that reads the gate
+as a device flag.  Nothing in it waits for the device or branches on a
 device value.  ``update`` changes ``state.maps`` IN PLACE and returns a
 state that shares it (JAX returns a new array).
+
+On the card ``update`` replays that step as one CUDA graph (``StepGraphs``)
+once it has seen the same map, config, beam count and kind of force on two
+calls in a row: the second call runs the step and captures it, and from the
+third on a scan costs a few input copies, one graph launch and one copy of
+the packed results, instead of ~28 launches from Python.  The graph runs
+the same kernels on the same inputs in the same order, so its answers are
+the step's bit for bit.  CPU tensors, ``plain=True`` and a caller that is
+itself capturing a graph run the step as it is.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
 import torch
@@ -193,59 +203,263 @@ def update(state: HectorState, scan: Scan, pose_hint_world: torch.Tensor,
     """HectorSLAMProcessor.Update (HectorSLAMProcessor.cs:86-126): match,
     then update the maps only if the pose moved beyond the distance/angle
     thresholds or mapping is forced (``map_without_matching``, a Python bool
-    or a 0-dim bool tensor).  ``state.maps`` is updated in place.  Under a
-    profiler the call is the span ``slamnet.hector.update`` holding its
-    phases ``.match``, ``.guards`` and ``.map_update`` (``io/metrics``)."""
+    or a 0-dim bool tensor).  ``state.maps`` is updated in place; the poses
+    and the info returned are new tensors, shared with no later call.
+
+    On the card the step runs through ``STEP_GRAPHS`` (the module's note):
+    eager on a first sight, captured on a second, replayed after.  Under a
+    profiler the call is the span ``slamnet.hector.update``, holding its
+    phases ``.match``, ``.guards`` and ``.map_update`` where the step runs
+    eager and one ``.graph_replay`` where it is replayed (``io/metrics``).
+    ``update.graph_captures`` and ``update.graph_replays`` count the steps
+    captured and replayed."""
     with metrics.span("hector.update"):
+        if not graphable(state.maps, plain):
+            return _update_eager(state, scan, pose_hint_world, cfg,
+                                 map_without_matching, plain)
+        return STEP_GRAPHS.step(state, scan, pose_hint_world, cfg,
+                                map_without_matching)
+
+
+update.graph_captures = 0
+update.graph_replays = 0
+
+
+def graphable(maps: torch.Tensor, plain: bool) -> bool:
+    """Whether a step on ``maps`` may run as a CUDA graph: the maps are on
+    a CUDA card, the caller asked for the kernels (not ``plain``), and the
+    current stream is not capturing already (a caller's own graph takes the
+    step's launches as they are)."""
+    return (not plain and maps.is_cuda
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _update_eager(state: HectorState, scan: Scan,
+                  pose_hint_world: torch.Tensor, cfg: HectorConfig,
+                  map_without_matching: bool | torch.Tensor = False,
+                  plain: bool = False) -> Tuple[HectorState, HectorInfo]:
+    """``update``'s step, each operator launched from Python."""
+    dev = state.maps.device
+    hint = torch.as_tensor(pose_hint_world, dtype=torch.float32, device=dev)
+    if isinstance(map_without_matching, torch.Tensor):
+        force = map_without_matching.to(device=dev, dtype=torch.bool)
+    else:   # a fill on the device: no host-to-device copy, no wait
+        force = torch.full((), bool(map_without_matching),
+                           dtype=torch.bool, device=dev)
+
+    with metrics.span("hector.match"):
+        matched, mstats = match_with_stats(state.maps, scan, hint, cfg,
+                                           plain)
+    with metrics.span("hector.guards"):
+        if cfg.min_match_in_map_frac > 0.0:
+            # a match resting on too few in-map beams is a one-sided
+            # degenerate solve: keep the odometry hint
+            matched = torch.where(
+                mstats.in_map_frac >= cfg.min_match_in_map_frac,
+                matched, hint)
+        if cfg.max_match_jump > 0.0:
+            # a physically impossible per-scan jump is a degenerate-view
+            # solve
+            jump2 = ((matched[:2] - hint[:2]) ** 2).sum()
+            matched = torch.where(jump2 <= cfg.max_match_jump ** 2,
+                                  matched, hint)
+        match_pose = torch.where(force, hint, matched)
+
+        last = state.last_update_pose
+        dist2 = ((match_pose[:2] - last[:2]) ** 2).sum()
+        if cfg.angle_gate_compat:
+            # reference quirk: DegDiff (degrees formula) on radian
+            # values, SIGNED compare (HectorSLAMProcessor.cs:108)
+            ang_gate = deg_diff(match_pose[2], last[2]) \
+                > cfg.min_angle_diff_for_map_update
+        else:
+            ang_gate = rad_diff(match_pose[2], last[2]).abs() \
+                > cfg.min_angle_diff_for_map_update
+        do_update = (dist2 > cfg.min_distance_diff_for_map_update ** 2) \
+            | ang_gate | force
+
+    with metrics.span("hector.map_update"):
+        maps = update_maps(state, scan, match_pose, do_update, cfg, plain)
+        new_last = torch.where(do_update, match_pose, last)
+    return (HectorState(maps, match_pose, new_last),
+            HectorInfo(map_updated=do_update, residual=mstats.residual,
+                       gn_iterations=mstats.iterations,
+                       solve_failures=mstats.solve_failures))
+
+
+GRAPHS_PER_DEVICE = 4     # captured steps a card keeps, least recent out
+# the kernel wrappers' launch counters a single robot's step adds to
+LAUNCH_COUNTERS = ((match_op.match, "launches"),
+                   (match_op.match, "launches_f32"),
+                   (fill.update_maps, "launches"),
+                   (line.update_maps_line, "launches"))
+# a replayed step's results in one byte buffer: f32 match pose [0:12], f32
+# last-update pose [12:24], f32 residual [24:28], i32 GN iterations [28:32],
+# i32 solve failures [32:36], bool map_updated [36]
+PACKED_BYTES = 37
+
+
+def _unpack(packed: torch.Tensor) -> tuple:
+    """(match pose, last-update pose, residual, GN iterations, solve
+    failures, map_updated): typed views of a packed result buffer."""
+    f = packed[:36].view(torch.float32)
+    return (f[0:3], f[3:6], f[6], f[7].view(torch.int32),
+            f[8].view(torch.int32), packed[36].view(torch.bool))
+
+
+class CapturedStep(NamedTuple):
+    graph: object             # .replay() runs the step, .reset() frees it
+    inputs: tuple             # the static inputs the graph reads
+    packed: torch.Tensor      # u8[PACKED_BYTES], the results it writes
+    launches: tuple           # its launches a counter of LAUNCH_COUNTERS
+
+
+def _inputs(scan: Scan, hint: torch.Tensor, last: torch.Tensor,
+            force) -> tuple:
+    """A step's inputs in a captured step's order: points, valid, hint,
+    last-update pose, the cloud's pose and a tensor force flag."""
+    t = (scan.points, scan.valid, hint, last, scan.pose)
+    return t + (force,) if isinstance(force, torch.Tensor) else t
+
+
+class StepGraphs:
+    """``update``'s steps on the card as CUDA graphs, a bounded cache a
+    device.
+
+    A step's key is its map's address and device, the config, the scan's
+    shape, the shapes and dtypes of the maps and the scan (what the eager
+    step's checks read) and the force's kind (the Python bool's value, or
+    "tensor").  A key met for the first time runs the step eagerly; met
+    again on the very next call, the step runs eagerly once more and is
+    then captured (``record``: its launches recorded, nothing run); from
+    then on the step is replayed: the call's inputs are copied into the
+    graph's static buffers, the graph is launched, and its packed results
+    are cloned, so no result of one call is a tensor of a later one.  The
+    maps are written in place at the key's address: a map freed and another
+    allocated there with the same key is the same tensor to the kernels.
+    A caller that hands in a new map every scan never pays for a capture.
+
+    Each device keeps ``GRAPHS_PER_DEVICE`` graphs, the least recently used
+    evicted first (and ``reset``).  A capture adds nothing to the launch
+    counters (``LAUNCH_COUNTERS``), as nothing ran; a replay adds what its
+    graph holds.  ``record(body, device)`` captures ``body`` and returns an
+    object with ``replay()`` and ``reset()``; tests hand in a stand-in."""
+
+    def __init__(self, record=None):
+        self.record = record if record is not None else self._record_cuda
+        self.graphs: dict = {}    # device -> OrderedDict(key -> step)
+        self.last_key = None
+        self._pools: dict = {}    # device -> the memory pool its graphs share
+        self._streams: dict = {}  # device -> the side stream it captures on
+
+    @staticmethod
+    def key(maps: torch.Tensor, scan: Scan, cfg: HectorConfig,
+            force) -> tuple:
+        kind = "tensor" if isinstance(force, torch.Tensor) else bool(force)
+        return (maps.data_ptr(), maps.device, cfg, scan.points.shape,
+                maps.shape, maps.dtype, scan.points.dtype, scan.valid.shape,
+                scan.valid.dtype, kind)
+
+    def step(self, state: HectorState, scan: Scan, pose_hint_world,
+             cfg: HectorConfig, force) -> Tuple[HectorState, HectorInfo]:
+        key = self.key(state.maps, scan, cfg, force)
+        seen, self.last_key = key == self.last_key, key
+        cache = self.graphs.get(key[1])
+        if cache is None:
+            cache = self.graphs[key[1]] = OrderedDict()
+        g = cache.get(key)
+        if g is not None:
+            cache.move_to_end(key)
+            with metrics.span("hector.graph_replay"):
+                hint = torch.as_tensor(pose_hint_world, dtype=torch.float32,
+                                       device=key[1])
+                out = self._replay(g, _inputs(scan, hint,
+                                              state.last_update_pose, force))
+            update.graph_replays += 1
+            pose, last, resid, iters, fails, fired = out
+            return (HectorState(state.maps, pose, last),
+                    HectorInfo(map_updated=fired, residual=resid,
+                               gn_iterations=iters, solve_failures=fails))
+        out = _update_eager(state, scan, pose_hint_world, cfg, force)
+        if seen:
+            cache[key] = self._capture(state, scan, cfg, force)
+            update.graph_captures += 1
+            if len(cache) > GRAPHS_PER_DEVICE:
+                cache.popitem(last=False)[1].graph.reset()
+        return out
+
+    def _capture(self, state: HectorState, scan: Scan, cfg: HectorConfig,
+                 force) -> CapturedStep:
+        """The step on static copies of its inputs, recorded into a graph
+        that writes its results into one packed buffer."""
         dev = state.maps.device
-        hint = torch.as_tensor(pose_hint_world, dtype=torch.float32,
-                               device=dev)
-        if isinstance(map_without_matching, torch.Tensor):
-            force = map_without_matching.to(device=dev, dtype=torch.bool)
-        else:   # a fill on the device: no host-to-device copy, no wait
-            force = torch.full((), bool(map_without_matching),
-                               dtype=torch.bool, device=dev)
 
-        with metrics.span("hector.match"):
-            matched, mstats = match_with_stats(state.maps, scan, hint, cfg,
-                                               plain)
-        with metrics.span("hector.guards"):
-            if cfg.min_match_in_map_frac > 0.0:
-                # a match resting on too few in-map beams is a one-sided
-                # degenerate solve: keep the odometry hint
-                matched = torch.where(
-                    mstats.in_map_frac >= cfg.min_match_in_map_frac,
-                    matched, hint)
-            if cfg.max_match_jump > 0.0:
-                # a physically impossible per-scan jump is a degenerate-view
-                # solve
-                jump2 = ((matched[:2] - hint[:2]) ** 2).sum()
-                matched = torch.where(jump2 <= cfg.max_match_jump ** 2,
-                                      matched, hint)
-            match_pose = torch.where(force, hint, matched)
+        def fresh(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=dev)
 
-            last = state.last_update_pose
-            dist2 = ((match_pose[:2] - last[:2]) ** 2).sum()
-            if cfg.angle_gate_compat:
-                # reference quirk: DegDiff (degrees formula) on radian
-                # values, SIGNED compare (HectorSLAMProcessor.cs:108)
-                ang_gate = deg_diff(match_pose[2], last[2]) \
-                    > cfg.min_angle_diff_for_map_update
-            else:
-                ang_gate = rad_diff(match_pose[2], last[2]).abs() \
-                    > cfg.min_angle_diff_for_map_update
-            do_update = (dist2 > cfg.min_distance_diff_for_map_update ** 2) \
-                | ang_gate | force
+        points, valid, last, scan_pose = map(fresh, (
+            scan.points, scan.valid, state.last_update_pose, scan.pose))
+        hint = torch.empty(3, dtype=torch.float32, device=dev)
+        flag = torch.empty((), dtype=torch.bool, device=dev) \
+            if isinstance(force, torch.Tensor) else force
+        static = _inputs(Scan(points, valid, scan_pose), hint, last, flag)
+        packed = torch.zeros(PACKED_BYTES, dtype=torch.uint8, device=dev)
 
-        with metrics.span("hector.map_update"):
-            maps = update_maps(state, scan, match_pose, do_update, cfg,
-                               plain)
-            new_last = torch.where(do_update, match_pose, last)
-        return (HectorState(maps, match_pose, new_last),
-                HectorInfo(map_updated=do_update, residual=mstats.residual,
-                           gn_iterations=mstats.iterations,
-                           solve_failures=mstats.solve_failures))
+        def body():
+            st, info = _update_eager(
+                HectorState(state.maps, hint, last),
+                Scan(points, valid, scan_pose), hint, cfg, flag)
+            # one kernel packs the results (a copy a result would be a
+            # graph node each)
+            torch.cat([t.reshape(-1).view(torch.uint8) for t in (
+                st.match_pose, st.last_update_pose, info.residual,
+                info.gn_iterations, info.solve_failures, info.map_updated)],
+                out=packed)
 
+        before = [getattr(f, a) for f, a in LAUNCH_COUNTERS]
+        try:
+            graph = self.record(body, dev)
+        finally:
+            launched = []
+            for (f, a), n in zip(LAUNCH_COUNTERS, before):
+                launched.append(getattr(f, a) - n)
+                setattr(f, a, n)
+        return CapturedStep(graph, static, packed, tuple(launched))
+
+    @staticmethod
+    def _replay(g: CapturedStep, inputs: tuple) -> tuple:
+        for dst, src in zip(g.inputs, inputs):
+            dst.copy_(src)
+        g.graph.replay()
+        for (f, a), n in zip(LAUNCH_COUNTERS, g.launches):
+            if n:
+                setattr(f, a, getattr(f, a) + n)
+        return _unpack(g.packed.clone())
+
+    def _record_cuda(self, body, device: torch.device):
+        """``body``'s launches captured into a CUDA graph on a side stream
+        of ``device`` that waits for the current one; every graph of a
+        device shares one memory pool (their replays never overlap).  Not
+        ``torch.cuda.graph``: its entry collects garbage and empties the
+        allocator's cache, milliseconds on every capture."""
+        if device not in self._pools:
+            self._pools[device] = torch.cuda.graph_pool_handle()
+            self._streams[device] = torch.cuda.Stream(device)
+        side = self._streams[device]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pools[device],
+                                    capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    graph.capture_end()
+        return graph
+
+
+STEP_GRAPHS = StepGraphs()
 
 class HectorSLAM(nn.Module):
     """Stateful wrapper: the state lives in buffers, so ``.to(device)`` moves

@@ -164,3 +164,41 @@ def test_readers_return_none_without_a_span(metric):
     summary = _summary(prof)
     assert summary["host_ops"]
     assert H.reader(metric)({"summary": summary}) is None
+
+
+def _stretch(replayed) -> dict:
+    """A summary, as the harness makes it, of one update span a flag of
+    ``replayed``, holding a ``graph_replay`` span where the flag is set and
+    the eager step's phases where it is not."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for flag in replayed:
+            with metrics.span("hector.update"):
+                for phase in (("graph_replay",) if flag else
+                              ("match", "guards", "map_update")):
+                    with metrics.span(f"hector.{phase}"):
+                        torch.zeros(2).add_(1.0)
+    return _summary(prof)
+
+
+@pytest.mark.parametrize("metric", ["graph_replay_pct",
+                                    "graph_replay_pct.live"])
+@pytest.mark.parametrize("replayed,share", [
+    ((False, False, True, True, True, True, True, True), 75.0),
+    ((True, True), 100.0), ((False, False, False), 0.0)])
+def test_graph_replay_pct_is_the_share_of_steps_replayed(metric, replayed,
+                                                          share):
+    summary = _stretch(replayed)
+    names = [n for n, _, _ in summary["host_ops"]]
+    assert names.count("slamnet.hector.update") == len(replayed)
+    assert H.reader(metric)({"summary": summary}) == pytest.approx(share)
+
+
+@pytest.mark.parametrize("metric", ["graph_replay_pct",
+                                    "graph_replay_pct.live"])
+def test_graph_replay_pct_is_none_without_an_update_span(metric):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with metrics.span("hector.graph_replay"):
+            torch.zeros(2).add_(1.0)
+    summary = _summary(prof)
+    assert summary["host_ops"]
+    assert H.reader(metric)({"summary": summary}) is None
