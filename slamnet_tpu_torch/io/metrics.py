@@ -27,7 +27,11 @@ last-update pose); where the step is replayed as a CUDA graph
 (``models/hector.StepGraphs``), one ``slamnet.hector.graph_replay`` (the
 input copies, the graph's launch and the copy of its results) and no
 phase.  The step that captures a graph holds the phases twice: its eager
-run's, then the capture's.  They are recorded with
+run's, then the capture's.  ``slamnet.coreslam.update`` is one CoreSLAM
+scan (one ``coreslam.update`` or ``coreslam.update_cloud`` call), holding
+in order ``slamnet.coreslam.search`` (the Monte-Carlo or correlative
+search, on a searched scan only) and ``slamnet.coreslam.map_update`` (the
+hole and obstacle maps' update).  They are recorded with
 ``torch._C._profiler._RecordFunctionFast``, not ``record_function``: a
 ``record_function`` range is a user annotation, which the profiler mirrors
 onto the card's timeline as a ``gpu_user_annotation`` event that a reader
@@ -122,9 +126,11 @@ class device_trace:
     The trace holds the program's spans (``span``) on the host's rows:
     each ``slamnet.hector.update`` with its ``slamnet.hector.match``,
     ``slamnet.hector.guards`` and ``slamnet.hector.map_update``, or its
-    ``slamnet.hector.graph_replay``, beside the kernels each launched.  The
-    kernels of a replayed graph are recorded one by one, whether the graph
-    was captured before the session or inside it (an H100, CUDA 12.8).
+    ``slamnet.hector.graph_replay``, and each ``slamnet.coreslam.update``
+    with its ``.search`` and ``.map_update``, beside the kernels each
+    launched.  The kernels of a replayed graph are recorded one by one,
+    whether the graph was captured before the session or inside it (an
+    H100, CUDA 12.8).
 
     Usage: ``with device_trace('/tmp/trace') as t: run_replay()``.
     """

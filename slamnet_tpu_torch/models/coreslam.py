@@ -21,6 +21,12 @@ Two of JAX's constructs change form:
 ``searched`` and ``best_sum`` stay device tensors.  No hand kernel runs
 here: the JAX package computes CoreSLAM in XLA.  The entry point (``init``)
 puts the state on the card unless the caller names another device.
+
+Under a profiler a scan is the span ``slamnet.coreslam.update`` (the whole
+``update`` or ``update_cloud`` call), holding ``.search`` on a searched scan
+and then ``.map_update`` (``io/metrics``).  ``update_cloud.searches`` and
+``update_cloud.candidates`` count the searched scans and the candidate
+poses they scored, on the host.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 from ..core.config import CoreSlamConfig
 from ..core.geometry import normalize_angle
 from ..core.scan import Scan, SegmentScan, segments_to_cloud
+from ..io import metrics
 from ..ops import correlate, holemap, obstacle, score
 
 HOLE_INIT = (holemap.TS_OBSTACLE + holemap.TS_NO_OBSTACLE) // 2  # 32750 (:169)
@@ -85,8 +92,9 @@ def update(state: CoreSlamState, segments: SegmentScan,
            cfg: CoreSlamConfig) -> Tuple[CoreSlamState, CoreSlamInfo]:
     """One scan from segments: de-skew against the newest odometry pose,
     then ``update_cloud`` (CoreSLAMProcessor.Update, :717-752)."""
-    return update_cloud(state, segments_to_cloud(segments),
-                        segments.odometry_pose, cfg)
+    with metrics.span("coreslam.update"):
+        return _update_cloud(state, segments_to_cloud(segments),
+                             segments.odometry_pose, cfg)
 
 
 def search(state: CoreSlamState, cloud: Scan, search_pose: torch.Tensor,
@@ -134,6 +142,14 @@ def update_maps(state: CoreSlamState, cloud: Scan, pose: torch.Tensor,
     return hole, update_obstacle(state.obstacle_map, cloud, pose, cfg)
 
 
+def candidates_scored(cfg: CoreSlamConfig) -> int:
+    """The candidate poses one search scores: ``num_candidates`` draws, or
+    the correlative grid's headings x window x window."""
+    if cfg.search_mode == "correlative":
+        return cfg.corr_num_theta * cfg.corr_window * cfg.corr_window
+    return cfg.num_candidates
+
+
 def update_cloud(state: CoreSlamState, cloud: Scan, odometry_pose,
                  cfg: CoreSlamConfig) -> Tuple[CoreSlamState, CoreSlamInfo]:
     """One scan from a de-skewed cloud: the search prior is the last pose
@@ -141,16 +157,31 @@ def update_cloud(state: CoreSlamState, cloud: Scan, odometry_pose,
     ``position_search_beginning`` scans the odometry pose is adopted as it
     is (:739-743); the heading is normalised (:746); both maps update at the
     new pose."""
+    with metrics.span("coreslam.update"):
+        return _update_cloud(state, cloud, odometry_pose, cfg)
+
+
+update_cloud.searches = 0
+update_cloud.candidates = 0
+
+
+def _update_cloud(state: CoreSlamState, cloud: Scan, odometry_pose,
+                  cfg: CoreSlamConfig) -> Tuple[CoreSlamState, CoreSlamInfo]:
+    """``update_cloud`` without its span (``update`` holds its own)."""
     dev = state.pose.device
     odo = torch.as_tensor(odometry_pose, dtype=torch.float32, device=dev)
     warm = state.scans >= cfg.position_search_beginning
     if warm:
-        best, best_sum = search(state, cloud,
-                                state.pose + (odo - state.last_odometry), cfg)
+        with metrics.span("coreslam.search"):
+            best, best_sum = search(
+                state, cloud, state.pose + (odo - state.last_odometry), cfg)
+        update_cloud.searches += 1
+        update_cloud.candidates += candidates_scored(cfg)
     else:
         best, best_sum = odo, torch.zeros((), dtype=torch.int32, device=dev)
     new_pose = torch.stack([best[0], best[1], normalize_angle(best[2])])
-    hole, obst = update_maps(state, cloud, new_pose, cfg)
+    with metrics.span("coreslam.map_update"):
+        hole, obst = update_maps(state, cloud, new_pose, cfg)
     new_state = state._replace(
         hole_map=hole, obstacle_map=obst, pose=new_pose, last_odometry=odo,
         scan_count=state.scan_count if warm else state.scan_count + 1,
