@@ -233,54 +233,26 @@ Phases, one line each; any failure raises and the exit code is not 0:
                 step, CoreSLAM MC), no divergence, frames of levels 0-3 and
                 the hole map, serve() answering GET /state and POST /pose on
                 127.0.0.1, the session's scan rate.
- 28. mesh     — phases 28-33 run in ONE launch of 8 ranks
-                (slamnet_tpu_torch/parallel/launch.py) sharing the card over
-                gloo (NCCL refuses two ranks on one device); the 2x4 and 4x2
-                (tile x search) meshes over that world: psum / pmax / pmin
-                on each axis and both, all_gather and ppermute on each axis,
-                equal to their definitions on every rank; each one's us;
- 29. hector sharded — models/hector_sharded at full width (fixed config,
-                400x400x3, 400 beams) on both meshes, 10 forced + 54
-                matched scans of make_log(0) (cut from 118 for the
-                script's time limit): the forced maps = the dense
-                hector.update's bit for bit; the same map updates as the
-                dense fixed replay on the card, poses within 5e-3 m of it at
-                every scan, maps within 1e-2; ATE <= SHARDED_JAX_REF_ATE_M +
-                1e-4; scans/s, collectives and host copies a scan; a
-                bootstrap + 10 scans in onehot_bf16 and in the exit at 0.3 px;
- 30. coreslam sharded — models/coreslam_sharded on 2x4, production and
-                parity (4096 candidates), 24 scans each: track, sums, hole
-                and obstacle maps = the dense pipeline's bit for bit;
- 31. fleet mesh — models/fleet.make_fleet_step / make_fleet_replay, 64
-                robots over the 2x4 mesh's search axis (16 a rank),
-                sub4_pallas_dense and sub1, 10 + 64 batch-scans: every
-                rank's robots = the single-process fleet's bit for bit,
-                74 K5 + 74 K2 / 74 batched K3 + 74 batched K4 on every rank;
-                the four kernels at a rank's 16 robots against plain, timed;
- 32. posegraph — graph/distributed.sharded_optimize over 8 ranks within
-                rtol/atol 1e-4 of posegraph.optimize;
- 33. checkpoint — io/checkpoint.save_sharded at 2x4 after scan 40; the
-                resume at 2x4 = the uninterrupted replay bit for bit, at 4x2
-                within phase 29's tolerances.
- 34. graph sharded — ONE more launch of 8 gloo ranks sharing the card:
-                (a) graph/schur.schur_gn_step over a node axis of 8 on the
-                128-node circle graph within rtol/atol 2e-4 / 5e-4 of
-                posegraph.gn_step on the card after 1 / 2 steps, 3
-                collectives a step, the cluster graph's overflow at 2 slots
-                (check_separator_capacity: does not fit), its us; (b)
-                dryrun_multichip's section 3 (replay.sharded_graph_replay:
-                6 still + 65 drive scans, onehot_bf16 400x400x3, a
-                onehot_bf16 + dense-fill frontend, 8 separator slots) on 2x4
-                through replay.sharded_graph_gate, K1 = K2 = the loop
-                searches and K3 = K4 = 0 on every rank, every rank's due /
-                has_cand / looped equal at every scan, 1 + 3 x 3
-                collectives a keyframe event; (c) the same with the default
-                gather frontend: K3 = K4 = the searches, K1 = K2 = 0; (d)
-                graph_slam.rebuild_maps_sharded on 4x2 from (b)'s state
-                (to_dense / shard_dense) = rebuild_maps on the card bit for
-                bit; (e) a checkpoint at scan 36 of (b): the resume at 2x4 =
-                the uninterrupted replay bit for bit, restored at 4x2 its
-                to_dense = the saved state.
+ 28-34. multi-device — ``multichip.run(8, "gloo", "cuda")``, the lines
+                of ``multichip.report``: ONE launch of 8 ranks
+                (slamnet_tpu_torch/parallel/launch.py) sharing the card
+                over gloo (NCCL refuses two ranks on one device), every
+                section of dryrun_multichip(8) (slamnet_tpu_torch/
+                multichip.py's docstring): every collective of the 2x4 and
+                4x2 meshes against its definition; the sharded Hector on
+                both against the dense replay, its checkpoint resumed on
+                both, its onehot_bf16 and exit (0.3 px) runs on 2x4; the
+                sharded CoreSLAM, production and parity (K7's obstacle
+                launch a scan), = the dense pipeline bit for bit;
+                section 3 on 2x4 in both frontends through
+                replay.sharded_graph_gate, its rebuild on 4x2 = the serial
+                rebuild_maps bit for bit, its checkpoint resumed on 2x4 bit
+                for bit and restored on 4x2 = the saved state; the mesh
+                fleet = the single-process fleet bit for bit; the
+                edge-sharded GN and the Schur step against the dense ones,
+                the loop-closure cluster's overflow at 2 slots;
+                K1-K5 on the card against their plain versions; each
+                section's launches exactly its kernels.
 Then 8 one-scan device traces (metrics.device_trace over one fixed
 hector.update each, late in this long process) must each hold a K3 and a
 K4 kernel.
@@ -292,7 +264,8 @@ K4 kernel.
                 K3 + K4 in sub1, K5 + the batched K2 in sub4_onehot_dense,
                 one each, nothing else); the example replay_demo
                 --pipeline all --scans 60 (every pipeline OK, only K3 and
-                K4 launched); replay_dataset on sim_loop.clf (one K3 and
+                K4, and K7 for CoreSLAM's and the particle layer's line
+                updates, launched); replay_dataset on sim_loop.clf (one K3 and
                 one K4 a scan, the written Hector track within 1e-3 m of
                 JAX's, the PNGs).
  36. NCCL     — a one-rank NCCL world on the card
@@ -314,9 +287,9 @@ K4 kernel.
                 coreslam_sim256 job through the kernels (no host read) =
                 the same job through the plain versions bit for bit
                 (poses, best sums, hole and obstacle maps every scan), one
-                launch count of each wrapper a scan; edges, a robot outside
-                the maps, a scan with no valid beam, refused maps; the
-                kernels' times beside their bounds and the plain times.
+                launch of each of K7's three kernels a scan; edges, a robot
+                outside the maps, a scan with no valid beam, refused maps;
+                the kernels' times beside their bounds and the plain times.
 Phases 17-38 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
@@ -582,844 +555,8 @@ def graph_ms(torch, fn, reps: int) -> float:
     return _events_ms(torch, graph.replay, reps)
 
 
-# ---- phases 28-33: the multi-device layer, 8 gloo ranks sharing the card --
-SHARDED_RANKS = 8
-SHARDED_CUT = 40          # phase 33's checkpoint: after this many scans
-SHARDED_SHORT = 10        # matched scans of the onehot_bf16 and exit runs
-SHARDED_FLEET_B = 16      # robots a rank at S = 4 (phase 31)
-COLLECTIVE_REPS = 20
-SHARDED_TIMEOUT_S = 600
-SHARDED_POSE_TOL = 5e-3   # JAX's sharded-vs-dense tolerances
-SHARDED_MAP_TOL = 1e-2    # (tests/test_hector_sharded.py:215-219)
-GRAPH_TOL = 1e-4          # tests/test_posegraph.py:155's rtol and atol
-
-
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count in this process."""
-    from slamnet_tpu_torch.ops import fill, line, match
-    return {"match": match.match.launches,
-            "match_f32": match.match.launches_f32,
-            "match_batch": match.match_batch.launches,
-            "match_batch_f32": match.match_batch.launches_f32,
-            "match_batch_exit": match.match_batch.exit_launches,
-            "match_packed": match.match_packed.launches,
-            "fill": fill.update_maps.launches,
-            "fill_batch": fill.update_maps_batch.launches,
-            "line": line.update_maps_line.launches,
-            "line_batch": line.update_maps_line_batch.launches}
-
-
-def zero_launch_counts() -> None:
-    from slamnet_tpu_torch.ops import fill, line, match
-    for f in (match.match, match.match_batch, match.match_packed,
-              fill.update_maps, fill.update_maps_batch,
-              line.update_maps_line, line.update_maps_line_batch):
-        f.launches = 0
-    match.match.launches_f32 = 0
-    match.match_batch.launches_f32 = 0
-    match.match_batch.exit_launches = 0
-
-
-def sharded_phases(ref: str, work: str, device: str | None = None) -> dict:
-    """Phases 28-33 on one rank of the 8-rank gloo world ``sharded_smoke``
-    launches (every rank on the card, cuda:0 on a one-card machine, unless
-    ``device`` names another: a rehearsal on the CPU): any failed check
-    raises, which fails the launch.  Rank 0's result carries the numbers."""
-    import numpy as np
-    import torch
-    from slamnet_tpu_torch import replay
-    from slamnet_tpu_torch.graph import distributed, posegraph
-    from slamnet_tpu_torch.io import checkpoint
-    from slamnet_tpu_torch.models import coreslam_sharded, fleet, hector
-    from slamnet_tpu_torch.models import hector_sharded as hs
-    from slamnet_tpu_torch.replay import circle_graph
-    from slamnet_tpu_torch.parallel import make_mesh, shard_range
-
-    R = dict(np.load(f"{ref}/ref.npz"))
-    meshes = {n: make_mesh(a, device)
-              for n, a in replay.SHARDED_MESHES.items()}
-    m24 = meshes["2x4"]
-    world = make_mesh({"edge": SHARDED_RANKS}, device)
-    dev = m24.device
-    check(device is not None or dev.type == "cuda",
-          f"rank {m24.rank} on {dev}, not the card")
-    res = {"device": str(dev), "backend": m24.backend}
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def every_rank(x: float) -> list:
-        return world.all_gather(torch.tensor([float(x)], device=dev),
-                                "edge", tiled=True).tolist()
-
-    # ---- 28. every collective against its definition, and its time --------
-    t28 = time.perf_counter()
-    coll = {}
-    for name, m in meshes.items():
-        T, S = m.shape["tile"], m.shape["search"]
-        t, s = m.coords["tile"], m.coords["search"]
-        x = torch.arange(4, dtype=torch.float32, device=dev) * 10 + m.rank
-
-        def xs(ranks):
-            return torch.stack([torch.arange(4, dtype=torch.float32) * 10 + q
-                                for q in ranks])
-        lines = {"tile": [u * S + s for u in range(T)],
-                 "search": [t * S + v for v in range(S)],
-                 "both": list(range(m.size))}
-        ops = {}
-        for key, ranks in lines.items():
-            axes = ("tile", "search") if key == "both" else key
-            v = xs(ranks)
-            ops[f"psum {key}"] = (lambda a=axes: m.psum(x, a), v.sum(0))
-            ops[f"pmax {key}"] = (lambda a=axes: m.pmax(x, a), v.max(0).values)
-            ops[f"pmin {key}"] = (lambda a=axes: m.pmin(-x, a),
-                                  (-v).min(0).values)
-        for axis in ("tile", "search"):
-            ranks = lines[axis]
-            i, k = ranks.index(m.rank), len(ranks)
-            ops[f"all_gather {axis}"] = (
-                lambda a=axis: m.all_gather(x, a, tiled=True),
-                xs(ranks).reshape(-1))
-            ops[f"ppermute {axis}"] = (
-                lambda a=axis, k=k: m.ppermute(x, a, [(j, j - 1)
-                                                       for j in range(1, k)]),
-                xs([ranks[i + 1]])[0] if i + 1 < k else torch.zeros(4))
-        for op, (fn, want) in ops.items():
-            got = fn().cpu()
-            check(torch.equal(got, want), f"{name} {op} on rank {m.rank}: "
-                  f"{got.tolist()}, want {want.tolist()}")
-            sync()
-            tt = time.perf_counter()
-            for _ in range(COLLECTIVE_REPS):
-                fn()
-            sync()
-            coll[f"{name} {op}"] = (time.perf_counter() - tt) \
-                / COLLECTIVE_REPS * 1e6
-    res["collective_us"] = coll
-    res["seconds_28"] = time.perf_counter() - t28
-
-    # ---- 29. sharded Hector at full width on both meshes -------------------
-    t29 = time.perf_counter()
-    cfg = replay.fixed_config()
-    log = replay.make_log(0)
-    n, boot = replay.SHARDED_N, log.bootstrap
-    dlog = replay.head(replay.to_device(log, dev), n)
-    per_scan = sum(cfg.estimate_iterations) + 2
-    ref_poses = torch.from_numpy(R["h_poses"]).to(dev)
-    ref_maps = torch.from_numpy(R["h_maps"]).to(dev)
-    boot_maps = torch.from_numpy(R["h_boot_maps"]).to(dev)
-    hec, final = {}, {}
-    for name, m in meshes.items():
-        st, _ = replay.sharded_replay(m, replay.head(dlog, boot), cfg)
-        check(torch.equal(hs.unshard_maps(m, st, cfg), boot_maps),
-              f"{name}: the forced updates' maps differ from hector.update's")
-        c0 = dict(m.counts)
-        sync()
-        tt = time.perf_counter()
-        if name == "2x4":       # phase 33's checkpoint at SHARDED_CUT
-            st, o1 = replay.sharded_replay(m, replay.head(dlog, SHARDED_CUT),
-                                           cfg, state=st, start=boot)
-            sync()
-            t_cut = time.perf_counter()
-            c_cut = dict(m.counts)
-            checkpoint.save_sharded(f"{work}/hector", st, cfg, m,
-                                    {"scan": SHARDED_CUT})
-            save_s = time.perf_counter() - t_cut
-            saved = {k: m.counts[k] - c_cut[k] for k in c_cut}
-            st, o2 = replay.sharded_replay(m, dlog, cfg, state=st,
-                                           start=SHARDED_CUT)
-            poses = torch.cat([o1.poses, o2.poses])
-            upd = torch.cat([o1.map_updated, o2.map_updated])
-            iters = torch.cat([o1.gn_iterations, o2.gn_iterations])
-        else:
-            st, o = replay.sharded_replay(m, dlog, cfg, state=st, start=boot)
-            poses, upd, iters = o.poses, o.map_updated, o.gn_iterations
-            save_s, saved = 0.0, {"collectives": 0, "host_copies": 0}
-        sync()
-        wall = time.perf_counter() - tt - save_s
-        scans = n - boot
-        coll_scan = (m.counts["collectives"] - c0["collectives"]
-                     - saved["collectives"]) / scans
-        copies_scan = (m.counts["host_copies"] - c0["host_copies"]
-                       - saved["host_copies"]) / scans
-        maps = hs.unshard_maps(m, st, cfg)
-        final[name] = (maps, poses)
-        perr = float((poses - ref_poses).abs().max())
-        merr = float((maps - ref_maps).abs().max())
-        nupd, nref = int(upd.sum()), int(R["h_updates"])
-        ate, mx = replay.ate_of(poses.cpu().numpy(), log.traj[boot:n])
-        ref_ate = replay.SHARDED_JAX_REF_ATE_M[name]
-        check(perr <= SHARDED_POSE_TOL, f"{name}: poses {perr} m from the "
-              f"dense replay's (tol {SHARDED_POSE_TOL})")
-        check(merr <= SHARDED_MAP_TOL, f"{name}: maps {merr} from the dense "
-              f"replay's (tol {SHARDED_MAP_TOL})")
-        check(nupd == nref, f"{name}: {nupd} map updates, dense {nref}")
-        check(ate <= ref_ate + 1e-4, f"{name}: ATE {ate} above "
-              f"SHARDED_JAX_REF_ATE_M {ref_ate} + 1e-4")
-        check(coll_scan == per_scan, f"{name}: {coll_scan} collectives a "
-              f"scan, want {per_scan}")
-        check(int(iters.sum()) == scans * sum(cfg.estimate_iterations),
-              f"{name}: GN iterations {int(iters.sum())}")
-        hec[name] = {"ate_m": ate, "max_err_m": mx, "pose_err_m": perr,
-                     "map_err": merr, "map_updates": nupd,
-                     "dense_map_updates": nref, "scans_per_s": scans / wall,
-                     "collectives_per_scan": coll_scan,
-                     "host_copies_per_scan": copies_scan,
-                     "checkpoint_s": save_s,
-                     "jax_ref_ate_m": ref_ate,
-                     "rank_scans_per_s": every_rank(scans / wall)}
-    # one bootstrap in onehot_bf16, one in the exit at EXIT_TOL_FIRES px
-    short = replay.head(dlog, boot + SHARDED_SHORT)
-    g_poses = final["2x4"][1][:SHARDED_SHORT]
-    for mode, c, want, tol in (
-            ("onehot_bf16", cfg.overlay({"matcher_mode": "onehot_bf16"}),
-             g_poses, SHARDED_POSE_TOL),
-            ("exit", cfg.overlay({"early_exit_tol": EXIT_TOL_FIRES}),
-             torch.from_numpy(R["x_poses"]).to(dev), SHARDED_POSE_TOL)):
-        st, _ = replay.sharded_replay(m24, replay.head(dlog, boot), c)
-        check(torch.equal(hs.unshard_maps(m24, st, c), boot_maps),
-              f"{mode}: the forced updates' maps differ")
-        st, o = replay.sharded_replay(m24, short, c, state=st, start=boot)
-        err = float((o.poses - want).abs().max())
-        check(err <= tol, f"{mode}: poses {err} m off (tol {tol})")
-        its = int(o.gn_iterations.sum())
-        if mode == "exit":
-            check(its < SHARDED_SHORT * sum(cfg.estimate_iterations),
-                  f"the exit at {EXIT_TOL_FIRES} px never fired ({its})")
-        hec[mode] = {"pose_err_m": err, "gn_iterations": its}
-    hec["exit"]["dense_gn_iterations"] = int(R["x_iters"])
-    res["hector"] = hec
-    res["seconds_29"] = time.perf_counter() - t29
-
-    # ---- 30. sharded CoreSLAM = the dense pipeline, bit for bit ------------
-    t30 = time.perf_counter()
-    core = {}
-    for mode, c in (("production", replay.coreslam_production_config()),
-                    ("parity", replay.coreslam_parity_config())):
-        cl = replay.head(dlog, replay.SHARDED_CORESLAM_N)
-        sync()
-        tt = time.perf_counter()
-        st, o = replay.sharded_coreslam_replay(m24, cl, c, seed=1)
-        sync()
-        wall = time.perf_counter() - tt
-        dense = coreslam_sharded.to_dense(m24, st)
-        for key, got in (("poses", o.poses), ("sums", o.best_sum),
-                         ("hole", dense.hole_map),
-                         ("obst", dense.obstacle_map)):
-            check(torch.equal(got.cpu(), torch.from_numpy(
-                R[f"c_{mode}_{key}"])), f"CoreSLAM {mode}: the {key} differ "
-                "from the dense pipeline's")
-        core[mode] = {"ate_m": replay.ate_of(o.poses.cpu().numpy(),
-                                             log.traj[:cl.points.shape[0]])[0],
-                      "scans_per_s": cl.points.shape[0] / wall}
-    res["coreslam"] = core
-    res["seconds_30"] = time.perf_counter() - t30
-
-    # ---- 31. the fleet over the search axis: each rank's K5/K2, K3/K4 -----
-    t31 = time.perf_counter()
-    flog = replay.make_fleet_log(log)
-    fdlog = replay.to_device(flog, dev)
-    fb, nb = flog.radii.shape[1], flog.radii.shape[0]
-    lo, hi = shard_range(fb, m24, "search")
-    fl = {}
-    for mode, want in (("sub4_pallas_dense", ("match_batch", "fill_batch")),
-                       ("sub1", ("match_batch_f32", "line_batch"))):
-        c = replay.FLEET_MODES[mode]()
-        st = fleet.shard_fleet(m24, fleet.init_fleet(c, flog.traj[0], dev), c)
-        step = fleet.make_fleet_step(m24, c)
-        rep = fleet.make_fleet_replay(m24, c)
-        pts, val = fdlog.points[:, lo:hi], fdlog.valid[:, lo:hi]
-        truth = fdlog.traj[:, lo:hi]
-        zero_launch_counts()
-        for t in range(boot):
-            st = st._replace(match_pose=truth[t].clone())
-            st, _ = step(st, pts[t], val[t], True)
-        stf, poses = rep(st, pts[boot:], val[boot:])
-        sync()
-        counts = launch_counts()
-        expect = dict.fromkeys(counts, 0)
-        if dev.type == "cuda":      # the plain versions launch nothing
-            expect.update(dict.fromkeys(want, nb))
-        check(counts == expect, f"{mode} rank {m24.rank}: launches {counts}, "
-              f"want {expect}")
-        cells = c.total_cells
-        rposes = np.load(f"{ref}/fleet_{mode}_poses.npy")[:, lo:hi]
-        rmaps = np.load(f"{ref}/fleet_{mode}_maps.npy",
-                        mmap_mode="r")[lo * cells:hi * cells]
-        check(np.array_equal(poses.cpu().numpy(), rposes)
-              and np.array_equal(stf.maps.cpu().numpy(), rmaps),
-              f"{mode} rank {m24.rank}: robots {lo}-{hi} differ from the "
-              "single-process fleet's")
-        sync()
-        tt = time.perf_counter()
-        rep(st, pts[boot:], val[boot:])
-        sync()
-        rate = (hi - lo) * (nb - boot) / (time.perf_counter() - tt)
-        fl[mode] = {"launches": {k: v for k, v in counts.items() if v},
-                    "rank_launches": every_rank(counts[want[0]]),
-                    "rank_launches_update": every_rank(counts[want[1]]),
-                    "rank_instance_scans_per_s": every_rank(rate)}
-    res["fleet"] = fl
-    res["seconds_31"] = time.perf_counter() - t31
-
-    # ---- 32. the edge-sharded pose graph -----------------------------------
-    t32 = time.perf_counter()
-    g, nodes = circle_graph(dev), 24
-    dense_g = posegraph.optimize(g, 3, num_nodes=nodes)
-    sync()
-    tt = time.perf_counter()
-    shard_g = distributed.sharded_optimize(world, g, 3)
-    sync()
-    gwall = time.perf_counter() - tt
-    gerr = float((shard_g.poses - dense_g.poses).abs().max())
-    check(bool(((shard_g.poses - dense_g.poses).abs()
-                <= GRAPH_TOL + GRAPH_TOL * dense_g.poses.abs()).all()),
-          f"sharded_optimize {gerr} from posegraph.optimize (rtol/atol "
-          f"{GRAPH_TOL})")
-    res["posegraph"] = {"max_abs_err": gerr, "ms_per_step": gwall / 3 * 1e3,
-                        "edges": int(g.num_edges), "nodes": nodes}
-    res["seconds_32"] = time.perf_counter() - t32
-
-    # ---- 33. resume the checkpoint at 2x4 and at 4x2 -----------------------
-    t33 = time.perf_counter()
-    like = hector.init(cfg, (0.0, 0.0, 0.0), dev)
-    ck = {}
-    k = SHARDED_CUT - boot
-    for name, m in meshes.items():
-        st = checkpoint.restore_sharded(f"{work}/hector", m, cfg, like)
-        st, o = replay.sharded_replay(m, dlog, cfg, state=st,
-                                      start=SHARDED_CUT)
-        maps = hs.unshard_maps(m, st, cfg)
-        if name == "2x4":
-            check(torch.equal(maps, final["2x4"][0])
-                  and torch.equal(o.poses, final["2x4"][1][k:]),
-                  "the resume at 2x4 differs from the uninterrupted replay")
-        perr = float((o.poses - ref_poses[k:]).abs().max())
-        merr = float((maps - ref_maps).abs().max())
-        check(perr <= SHARDED_POSE_TOL and merr <= SHARDED_MAP_TOL,
-              f"the resume at {name}: poses {perr}, maps {merr} from the "
-              "dense replay's")
-        ck[name] = {"pose_err_m": perr, "map_err": merr,
-                    "bit_for_bit": name == "2x4"}
-    res["checkpoint"] = ck
-    res["seconds_33"] = time.perf_counter() - t33
-    res["counts"] = {name: dict(m.counts) for name, m in meshes.items()}
-    return res if m24.rank == 0 else {"rank": m24.rank}
-
-
-def sharded_smoke(torch, dev) -> dict:
-    """Phases 28-33: the dense references on this process's card, then ONE
-    launch of SHARDED_RANKS ranks sharing it over gloo (``sharded_phases``),
-    a line a phase, and the mesh fleet's kernels at a rank's shape (B =
-    SHARDED_FLEET_B) against their plain versions.  Returns rank 0's
-    numbers and the kernels' entries."""
-    import numpy as np
-    from slamnet_tpu_torch import replay
-    from slamnet_tpu_torch.models import fleet, hector
-    from slamnet_tpu_torch.ops import fill, match
-    from slamnet_tpu_torch.ops import line as line_ops
-    from slamnet_tpu_torch.parallel import launch
-
-    t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
-    try:
-        log = replay.make_log(0)
-        dlog = replay.to_device(log, dev)
-        n, boot = replay.SHARDED_N, log.bootstrap
-        cfg = replay.fixed_config()
-        h = replay.head(dlog, n)
-        R = {}
-        st = replay.bootstrap(hector.init(cfg, log.traj[0], dev), h, boot, cfg)
-        R["h_boot_maps"] = st.maps.cpu().numpy()
-        stf, out = replay.replay(st, h, boot, cfg)
-        R["h_poses"] = out.poses.cpu().numpy()
-        R["h_maps"] = stf.maps.cpu().numpy()
-        R["h_updates"] = int(out.map_updated.sum())
-        xcfg = cfg.overlay({"early_exit_tol": EXIT_TOL_FIRES})
-        hx = replay.head(dlog, boot + SHARDED_SHORT)
-        _, xo = replay.replay(replay.bootstrap(hector.init(
-            xcfg, log.traj[0], dev), hx, boot, xcfg), hx, boot, xcfg)
-        R["x_poses"] = xo.poses.cpu().numpy()
-        R["x_iters"] = int(xo.gn_iterations.sum())
-        for mode, c in (("production", replay.coreslam_production_config()),
-                        ("parity", replay.coreslam_parity_config())):
-            cst, co = replay.coreslam_replay(
-                replay.head(dlog, replay.SHARDED_CORESLAM_N), c, seed=1)
-            R[f"c_{mode}_poses"] = co.poses.cpu().numpy()
-            R[f"c_{mode}_sums"] = co.best_sum.cpu().numpy()
-            R[f"c_{mode}_hole"] = cst.hole_map.cpu().numpy()
-            R[f"c_{mode}_obst"] = cst.obstacle_map.cpu().numpy()
-        flog = replay.make_fleet_log(log)
-        fdlog = replay.to_device(flog, dev)
-        fleet_boot = {}
-        for mode in ("sub4_pallas_dense", "sub1"):
-            c = replay.FLEET_MODES[mode]()
-            fst = replay.fleet_bootstrap(fleet.init_fleet(c, flog.traj[0],
-                                                          dev), fdlog, boot, c)
-            fleet_boot[mode] = (c, fst)
-            fstf, fo = fleet.replay_fleet(fst, fdlog.points[boot:],
-                                          fdlog.valid[boot:], c)
-            np.save(f"{tmp}/fleet_{mode}_poses.npy", fo.cpu().numpy())
-            np.save(f"{tmp}/fleet_{mode}_maps.npy", fstf.maps.cpu().numpy())
-        np.savez(f"{tmp}/ref.npz", **R)
-        torch.cuda.synchronize()
-        ref_s = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        r = launch.launch("chip_smoke:sharded_phases", SHARDED_RANKS,
-                          {"ref": tmp, "work": tmp,
-                           "device": None if dev.type == "cuda" else str(dev)},
-                          backend="gloo", timeout_s=SHARDED_TIMEOUT_S)[0]
-        launch_s = time.perf_counter() - t1
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    where = (f"{SHARDED_RANKS} gloo ranks sharing one card ({r['device']}); "
-             "host-staged collectives")
-
-    # ---- 28 ----------------------------------------------------------------
-    us = r["collective_us"]
-    for name in replay.SHARDED_MESHES:
-        say(f"[mesh] {name} over {where}: every collective equals its "
-            f"definition on every rank; us a call (rank 0, {COLLECTIVE_REPS} "
-            "calls): " + ", ".join(f"{k[len(name) + 1:]} {v:.1f}"
-                                    for k, v in us.items()
-                                    if k.startswith(name)))
-    # ---- 29 ----------------------------------------------------------------
-    hec = r["hector"]
-    for name in replay.SHARDED_MESHES:
-        o = hec[name]
-        say(f"[hector sharded] {name}, fixed (gather + line), 400x400x3, 400 "
-            f"beams, {boot} forced + {n - boot} matched scans of make_log(0), "
-            f"{where}: forced maps = hector.update's bit for bit; ATE "
-            f"{o['ate_m']:.6f} m (JAX {name} ref {o['jax_ref_ate_m']:.6f}, "
-            f"gate +1e-4), max err {o['max_err_m']:.4f}; poses within "
-            f"{o['pose_err_m']:.3g} m of the dense fixed replay on the card at "
-            f"every scan (tol {SHARDED_POSE_TOL}), maps within "
-            f"{o['map_err']:.3g} (tol {SHARDED_MAP_TOL}), map updates "
-            f"{o['map_updates']} (dense {o['dense_map_updates']}); "
-            f"{o['scans_per_s']:.1f} scans/s (rank 0; ranks "
-            f"{min(o['rank_scans_per_s']):.1f}-{max(o['rank_scans_per_s']):.1f})"
-            f", {o['collectives_per_scan']:.0f} collectives and "
-            f"{o['host_copies_per_scan']:.0f} host copies a scan")
-    say(f"[hector sharded] 2x4 onehot_bf16: forced maps bit for bit, "
-        f"{SHARDED_SHORT} matched scans within {hec['onehot_bf16']['pose_err_m']:.3g}"
-        f" m of gather's; the exit at {EXIT_TOL_FIRES} px: within "
-        f"{hec['exit']['pose_err_m']:.3g} m of the dense exit replay, "
-        f"{hec['exit']['gn_iterations']} GN iterations (dense "
-        f"{hec['exit']['dense_gn_iterations']}, fixed "
-        f"{SHARDED_SHORT * sum(cfg.estimate_iterations)}); checkpoint at scan "
-        f"{SHARDED_CUT} written in {hec['2x4']['checkpoint_s']:.2f} s")
-    # ---- 30 ----------------------------------------------------------------
-    core = r["coreslam"]
-    say(f"[coreslam sharded] 2x4, {replay.SHARDED_CORESLAM_N} scans, {where}: "
-        f"production (correlative + dense fills) and parity (Monte-Carlo "
-        f"{replay.coreslam_parity_config().num_candidates}, line updates): "
-        "track, best sums, hole and obstacle maps = the dense pipeline's on "
-        f"the card bit for bit; ATE {core['production']['ate_m']:.6f} / "
-        f"{core['parity']['ate_m']:.6f} m (JAX production ref "
-        f"{replay.SHARDED_CORESLAM_JAX_REF_ATE_M}); "
-        f"{core['production']['scans_per_s']:.1f} / "
-        f"{core['parity']['scans_per_s']:.1f} scans/s")
-    # ---- 31 ----------------------------------------------------------------
-    fl = r["fleet"]
-    nb = flog.radii.shape[0]
-    for mode, o in fl.items():
-        rates = o["rank_instance_scans_per_s"]
-        say(f"[fleet mesh] {mode}, {flog.radii.shape[1]} robots over the 2x4 "
-            f"mesh's search axis ({SHARDED_FLEET_B} a rank, 2 tile replicas), "
-            f"{boot} + {nb - boot} batch-scans, {where}: every rank's robots "
-            f"= the single-process fleet's bit for bit; launches a rank "
-            f"{o['launches']} (each of the 8 ranks: {o['rank_launches']} / "
-            f"{o['rank_launches_update']}); {sum(rates):.1f} instance-scans/s "
-            f"summed over the 8 ranks ({min(rates):.1f}-{max(rates):.1f} a "
-            "rank)")
-    # ---- 32, 33 ------------------------------------------------------------
-    pg = r["posegraph"]
-    say(f"[posegraph sharded] sharded_optimize over {SHARDED_RANKS} ranks "
-        f"(edge axis; {pg['nodes']} nodes, {pg['edges']} of 64 edge slots "
-        f"valid) within {pg['max_abs_err']:.3g} of posegraph.optimize (rtol, "
-        f"atol {GRAPH_TOL}); {pg['ms_per_step']:.2f} ms a GN step")
-    ck = r["checkpoint"]
-    say(f"[sharded checkpoint] saved at 2x4 after scan {SHARDED_CUT}: the "
-        f"resume at 2x4 = the uninterrupted replay bit for bit (poses "
-        f"{ck['2x4']['pose_err_m']:.3g} m from the dense replay); at 4x2 "
-        f"poses within {ck['4x2']['pose_err_m']:.3g} m and maps "
-        f"{ck['4x2']['map_err']:.3g} of the dense replay (tol "
-        f"{SHARDED_POSE_TOL} / {SHARDED_MAP_TOL})")
-
-    # ---- the mesh fleet's kernels at a rank's shape vs plain --------------
-    b = SHARDED_FLEET_B
-    pts, val = fdlog.points[boot][:b].contiguous(), \
-        fdlog.valid[boot][:b].contiguous()
-    hints = (fdlog.traj[boot][:b]
-             + torch.tensor((0.05, -0.03, 0.02), device=dev)).contiguous()
-    zero = torch.zeros((b, 3), dtype=torch.float32, device=dev)
-    fire = torch.ones(b, dtype=torch.bool, device=dev)
-    entries = {}
-    for mode, (mname, uname, tol) in (
-            ("sub4_pallas_dense", ("match_batch", "fill_batch", 2e-3)),
-            ("sub1", ("match_batch_f32", "line_batch", K3_POSE_TOL))):
-        c, fst = fleet_boot[mode]
-        maps = fst.maps[:b * c.total_cells].clone()
-        ok_ = match.match_batch(maps, pts, val, hints, c)
-        op = match.match_batch_plain(maps, pts, val, hints, c)
-        merr = float((ok_[:, :3] - op[:, :3]).abs().max())
-        check(merr <= tol and torch.equal(ok_[:, 3], op[:, 3]),
-              f"{mname} at B={b}: pose {merr} from plain (tol {tol})")
-        m_ms = graph_ms(torch, lambda: match.match_batch(maps, pts, val,
-                                                         hints, c),
-                        REPS_KERNEL)
-        m_plain = graph_ms(torch, lambda: match.match_batch_plain(
-            maps, pts, val, hints, c), REPS_PLAIN)
-        m_bound = bound(*match_work(maps, pts, val, hints, c))
-        upd = fill if c.dense_free_fill else line_ops
-        ufn = upd.update_maps_batch if c.dense_free_fill \
-            else upd.update_maps_line_batch
-        pfn = upd.update_maps_batch_plain if c.dense_free_fill \
-            else upd.update_maps_line_batch_plain
-        mk = maps.clone()
-        ufn(mk, pts, val, hints, zero, fire, c)
-        mp = pfn(maps, pts, val, hints, zero, fire, c)
-        diff = mk != mp
-        uerr = float((mk - mp).abs().max())
-        if c.dense_free_fill:        # phase 8's bound: cells off by |lof|
-            gap = (mk[diff] - mp[diff]).abs()
-            check(float(diff.float().mean()) <= 1e-3 and bool(
-                ((gap - abs(c.log_odds_free)).abs() <= 1e-4).all()),
-                f"{uname} at B={b}: {int(diff.sum())} cells differ")
-        else:
-            check(not bool(diff.any()), f"{uname} at B={b}: {int(diff.sum())}"
-                  " cells differ from plain")
-        changed = int((mk != maps).sum())
-        mt = maps.clone()
-        u_ms = graph_ms(torch, lambda: ufn(mt, pts, val, hints, zero, fire, c),
-                        REPS_KERNEL)
-        u_plain = graph_ms(torch, lambda: pfn(mt, pts, val, hints, zero, fire,
-                                              c), REPS_PLAIN)
-        work = (fill_work(c, changed, pts.shape[1], b, b) if c.dense_free_fill
-                else line_work(changed, pts.shape[1], b, b))
-        entries[mname] = (sum(fl[mode]["rank_launches"]), merr, m_ms, m_plain,
-                          m_bound)
-        entries[uname] = (sum(fl[mode]["rank_launches_update"]), uerr, u_ms,
-                          u_plain, bound(*work))
-    say(f"[fleet mesh] the kernels at a rank's {b} robots vs plain: "
-        + ", ".join(f"{k} {v[2]:.4f} ms (plain {v[3]:.4f}, bound "
-                    f"{v[4][0]:.6f} by {v[4][1]}, err {v[1]:.3g}, "
-                    f"{v[0]:.0f} launches over the ranks)"
-                    for k, v in entries.items()))
-    say(f"[seconds] phases 28-33: references {ref_s:.1f}, the launch "
-        f"{launch_s:.1f} (28 {r['seconds_28']:.1f} / 29 {r['seconds_29']:.1f} "
-        f"/ 30 {r['seconds_30']:.1f} / 31 {r['seconds_31']:.1f} / 32 "
-        f"{r['seconds_32']:.1f} / 33 {r['seconds_33']:.1f}), all "
-        f"{time.perf_counter() - t0:.1f}")
-    return {"results": r, "entries": entries,
-            "seconds": time.perf_counter() - t0}
-
-
-# ---- phase 34: the sharded graph, 8 gloo ranks sharing the card ----------
-GRAPH_CUT = 36            # phase 34e's checkpoint: after this many scans
-SCHUR_NODES = 128         # phase 34a's circle graph (tests/test_posegraph.py)
-SCHUR_CAP = 8             # its separator slots a rank
-SCHUR_TOLS = (2e-4, 5e-4)  # after one and two steps (test_posegraph.py:113-122)
-SCHUR_REPS = 10
-GRAPH_TIMEOUT_S = 400
+MESH_RANKS = 8            # phases 28-34: gloo ranks sharing the card
 ONE_SCAN_TRACES = 8       # one-scan device traces late in the script
-
-
-def cluster_graph(torch, dev):
-    """tests/test_posegraph.py:125's graph: the 64-node circle with block 0
-    of 8 tied to block 4 by a loop edge a node (every node of block 0 a
-    separator)."""
-    import numpy as np
-    from slamnet_tpu_torch.core.geometry import pose_between
-    from slamnet_tpu_torch.graph import posegraph
-    from slamnet_tpu_torch.replay import circle_graph
-    g, n = circle_graph(dev, 64, 64, 256), 64
-    ths = np.linspace(0, 2 * math.pi, n, endpoint=False)
-    truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
-                                   ths + math.pi / 2], -1), dtype=torch.float32)
-    m = n // SHARDED_RANKS
-    for t in range(m):
-        g = posegraph.add_edge(g, t, t + 4 * m, pose_between(
-            truth[t], truth[t + 4 * m]).to(dev), (10.0, 10.0, 40.0))
-    return g
-
-
-def _cat_out(a, b):
-    """Two ``replay.ShardedGraphOut`` of consecutive scans as one."""
-    import numpy as np
-    import torch
-    return type(a)(*(np.concatenate([x, y]) if isinstance(x, np.ndarray)
-                     else torch.cat([x, y]) for x, y in zip(a, b)))
-
-
-def graph_phases(ref: str, work: str, device: str | None = None) -> dict:
-    """Phase 34 on one rank of the 8-rank gloo world ``graph_smoke``
-    launches (every rank on the card unless ``device`` names another): any
-    failed check raises, which fails the launch.  Rank 0's result carries
-    the numbers."""
-    import numpy as np
-    import torch
-    from slamnet_tpu_torch import replay
-    from slamnet_tpu_torch.graph import schur
-    from slamnet_tpu_torch.io import checkpoint
-    from slamnet_tpu_torch.models import graph_slam
-    from slamnet_tpu_torch.models import graph_slam_sharded as gss
-    from slamnet_tpu_torch.models import hector_sharded as hs
-    from slamnet_tpu_torch.replay import circle_graph
-    from slamnet_tpu_torch.parallel import make_mesh
-
-    R = dict(np.load(f"{ref}/ref.npz"))
-    node = make_mesh({"node": SHARDED_RANKS}, device)
-    meshes = {n: make_mesh(a, device)
-              for n, a in replay.SHARDED_MESHES.items()}
-    m24, m42 = meshes["2x4"], meshes["4x2"]
-    dev = node.device
-    check(device is not None or dev.type == "cuda",
-          f"rank {node.rank} on {dev}, not the card")
-    res = {}
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def every_rank(x: float) -> list:
-        return node.all_gather(torch.tensor([float(x)], device=dev), "node",
-                               tiled=True).tolist()
-
-    # ---- 34a. the node-sharded Schur GN step against the dense one -------
-    t34 = time.perf_counter()
-    g = circle_graph(dev, SCHUR_NODES, SCHUR_NODES, 256)
-    c0 = node.counts["collectives"]
-    g1, of1 = schur.schur_gn_step(node, g, sep_capacity=SCHUR_CAP)
-    g2, of2 = schur.schur_gn_step(node, g1, sep_capacity=SCHUR_CAP)
-    per_step = (node.counts["collectives"] - c0) / 2
-    errs = []
-    for got, key, tol in ((g1, "schur_dense1", SCHUR_TOLS[0]),
-                          (g2, "schur_dense2", SCHUR_TOLS[1])):
-        want = torch.from_numpy(R[key]).to(dev)
-        errs.append(float((got.poses - want).abs().max()))
-        check(bool(((got.poses - want).abs()
-                    <= tol + tol * want.abs()).all()),
-              f"schur_gn_step {errs[-1]} from posegraph.gn_step (rtol/atol "
-              f"{tol})")
-    check(int(of1) == int(of2) == 0, f"overflow {int(of1)}, {int(of2)} at "
-          f"{SCHUR_CAP} slots")
-    check(per_step == 3, f"{per_step} collectives a Schur step, want 3")
-    cg = cluster_graph(torch, dev)
-    fits = schur.check_separator_capacity(cg, SHARDED_RANKS, 2)
-    _, of_small = schur.schur_gn_step(node, cg, sep_capacity=2)
-    _, of_big = schur.schur_gn_step(node, cg, sep_capacity=16)
-    check(not fits and int(of_small) > 0 and int(of_big) == 0
-          and schur.check_separator_capacity(cg, SHARDED_RANKS, 16),
-          f"the overflow at 2 slots is {int(of_small)} (the host check: "
-          f"fits {fits}), at 16 {int(of_big)}")
-    sync()
-    tt = time.perf_counter()
-    for _ in range(SCHUR_REPS):
-        schur.schur_gn_step(node, g, sep_capacity=SCHUR_CAP)
-    sync()
-    res["schur"] = {"err_step1": errs[0], "err_step2": errs[1],
-                    "collectives_per_step": per_step,
-                    "overflow_cap2": int(of_small),
-                    "us_per_step": (time.perf_counter() - tt) / SCHUR_REPS
-                    * 1e6}
-    res["schur"]["rank_us_per_step"] = every_rank(res["schur"]["us_per_step"])
-    res["seconds_34a"] = time.perf_counter() - t34
-
-    # ---- 34b-c. section 3 on 2x4, in both frontends -----------------------
-    log = replay.make_sharded_graph_log()
-    dlog = replay.to_device(log, dev)
-    nb, n = dlog.points.shape[1], dlog.points.shape[0]
-    runs, final = {}, {}
-    for mode, kernels in (("onehot_bf16", ("match", "fill")),
-                          ("gather", ("match_f32", "line"))):
-        tm = time.perf_counter()
-        hcfg, gcfg, mcfg, cap = replay.sharded_graph_config(mode)
-        step = gss.make_step(m24, hcfg, gcfg, nb, mcfg, sep_capacity=cap)
-        zero_launch_counts()
-        c0 = dict(m24.counts)
-        saved = {"collectives": 0, "host_copies": 0}
-        save_s = 0.0
-        sync()
-        tt = time.perf_counter()
-        if mode == "onehot_bf16":     # 34e's checkpoint at GRAPH_CUT
-            st, o1 = replay.sharded_graph_replay(
-                m24, replay.head(dlog, GRAPH_CUT), hcfg, gcfg, mcfg, cap,
-                step=step)
-            sync()
-            t_cut, c_cut = time.perf_counter(), dict(m24.counts)
-            checkpoint.save_sharded(f"{work}/graph", st, hcfg, m24,
-                                    {"scan": GRAPH_CUT})
-            save_s = time.perf_counter() - t_cut
-            saved = {k: m24.counts[k] - c_cut[k] for k in c_cut}
-            st, o2 = replay.sharded_graph_replay(
-                m24, dlog, hcfg, gcfg, mcfg, cap, state=st, start=GRAPH_CUT,
-                step=step)
-            out = _cat_out(o1, o2)
-        else:
-            st, out = replay.sharded_graph_replay(m24, dlog, hcfg, gcfg, mcfg,
-                                                  cap, step=step)
-        sync()
-        wall = time.perf_counter() - tt - save_s
-        counts = launch_counts()
-        expect = dict.fromkeys(counts, 0)
-        if dev.type == "cuda":          # the plain versions launch nothing
-            expect.update(dict.fromkeys(kernels, step.searches))
-        check(counts == expect, f"{mode} frontend rank {m24.rank}: launches "
-              f"{counts}, want {expect} ({step.searches} searches)")
-        got = replay.sharded_graph_metrics(st, out, log.traj)
-        fails = replay.sharded_graph_gate(
-            got, replay.sharded_graph_reference(mode))
-        check(not fails, f"sharded graph ({mode} frontend): {fails}")
-        flags = torch.from_numpy(out.flags.astype(np.uint8)).reshape(-1)
-        every = node.all_gather(flags.to(dev), "node").cpu()
-        check(bool((every == every[:1]).all()), f"{mode}: the ranks read "
-              "different due / has_cand / looped flags")
-        events = int(out.flags[:, 0].sum())
-        coll = m24.counts["collectives"] - c0["collectives"] \
-            - saved["collectives"]
-        copies = m24.counts["host_copies"] - c0["host_copies"] \
-            - saved["host_copies"]
-        per_scan = sum(hcfg.estimate_iterations) + 2
-        per_event = (coll - n * per_scan) / max(events, 1)
-        check(per_event == 1 + 3 * 3, f"{mode}: {per_event} collectives a "
-              "keyframe event, want the cloud's psum + 3 Schur steps x 3")
-        runs[mode] = {**got, "scans_per_s": n / wall,
-                      "rank_scans_per_s": every_rank(n / wall),
-                      "keyframe_events": events,
-                      "searches": step.searches, "host_reads": step.syncs,
-                      "collectives_per_scan": coll / n,
-                      "collectives_per_keyframe_event": per_event,
-                      "host_copies_per_scan": copies / n,
-                      "launches": {k: v for k, v in counts.items() if v},
-                      "rank_launches": every_rank(counts[kernels[0]]),
-                      "rank_launches_update": every_rank(counts[kernels[1]]),
-                      "checkpoint_s": save_s,
-                      "seconds": time.perf_counter() - tm}
-        final[mode] = (st, out)
-    res["graph"] = runs
-
-    # ---- 34d. the sharded rebuild on 4x2 = the serial one on the card -----
-    td = time.perf_counter()
-    hcfg, gcfg, mcfg, cap = replay.sharded_graph_config()
-    st_b, out_b = final["onehot_bf16"]
-    dense_b = gss.to_dense(m24, st_b, hcfg)
-    zero_launch_counts()
-    loc = graph_slam.rebuild_maps_sharded(m42, gss.shard_dense(m42, dense_b,
-                                                               hcfg), hcfg)
-    tiles_ = m42.all_gather(loc, "tile")
-    serial = graph_slam.rebuild_maps(dense_b, hcfg)
-    sync()
-    rb_launch = launch_counts()
-    check(torch.equal(hs.unshard_tiles_host(tiles_, hcfg), serial)
-          and torch.equal(tiles_, hs.shard_tiles_host(serial, hcfg, 4)),
-          "rebuild_maps_sharded on 4x2 differs from rebuild_maps")
-    res["rebuild"] = {"nodes": dense_b.nodes,
-                      "serial_launches": {k: v for k, v in rb_launch.items()
-                                          if v},
-                      "seconds": time.perf_counter() - td}
-
-    # ---- 34e. the checkpoint: resumed on 2x4, restored on 4x2 -------------
-    te = time.perf_counter()
-    like = graph_slam.init(hcfg, gcfg, (0.0, 0.0, 0.0), nb, dev)
-    rst = checkpoint.restore_sharded(f"{work}/graph", m24, hcfg, like)
-    st_r, out_r = replay.sharded_graph_replay(m24, dlog, hcfg, gcfg, mcfg,
-                                              cap, state=rst,
-                                              start=GRAPH_CUT)
-    check(torch.equal(out_r.poses, out_b.poses[GRAPH_CUT:])
-          and torch.equal(st_r.local_maps, st_b.local_maps)
-          and torch.equal(st_r.graph.poses, st_b.graph.poses)
-          and torch.equal(st_r.kf_points, st_b.kf_points)
-          and st_r.nodes == st_b.nodes,
-          "the resume at 2x4 differs from the uninterrupted replay")
-    saved_st = checkpoint.restore(f"{work}/graph", like)
-    d42 = gss.to_dense(m42, checkpoint.restore_sharded(
-        f"{work}/graph", m42, hcfg, like), hcfg)
-    check(torch.equal(d42.hector.maps, saved_st.hector.maps)
-          and torch.equal(d42.kf_points, saved_st.kf_points)
-          and torch.equal(d42.kf_valid, saved_st.kf_valid)
-          and torch.equal(d42.graph.poses, saved_st.graph.poses)
-          and d42.nodes == saved_st.nodes,
-          "the checkpoint restored on 4x2 differs from the saved state")
-    res["checkpoint"] = {"cut": GRAPH_CUT, "nodes_at_cut": saved_st.nodes,
-                         "seconds": time.perf_counter() - te}
-    res["seconds_34"] = time.perf_counter() - t34
-    return res if node.rank == 0 else {"rank": node.rank}
-
-
-def graph_smoke(torch, dev) -> dict:
-    """Phase 34: the dense Schur references on this process's card, then
-    ONE launch of SHARDED_RANKS ranks sharing it over gloo
-    (``graph_phases``), a line a part.  Returns rank 0's numbers."""
-    import numpy as np
-    from slamnet_tpu_torch import replay
-    from slamnet_tpu_torch.graph import posegraph
-    from slamnet_tpu_torch.replay import circle_graph
-    from slamnet_tpu_torch.parallel import launch
-
-    t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
-    try:
-        g = circle_graph(dev, SCHUR_NODES, SCHUR_NODES, 256)
-        g1 = posegraph.gn_step(g, num_nodes=SCHUR_NODES)
-        g2 = posegraph.gn_step(g1, num_nodes=SCHUR_NODES)
-        np.savez(f"{tmp}/ref.npz", schur_dense1=g1.poses.cpu().numpy(),
-                 schur_dense2=g2.poses.cpu().numpy())
-        t1 = time.perf_counter()
-        r = launch.launch("chip_smoke:graph_phases", SHARDED_RANKS,
-                          {"ref": tmp, "work": tmp,
-                           "device": None if dev.type == "cuda" else str(dev)},
-                          backend="gloo", timeout_s=GRAPH_TIMEOUT_S)[0]
-        launch_s = time.perf_counter() - t1
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    where = f"{SHARDED_RANKS} gloo ranks sharing one card"
-    sc = r["schur"]
-    say(f"[schur] schur_gn_step over a node axis of {SHARDED_RANKS} ({where})"
-        f", the {SCHUR_NODES}-node circle, {SCHUR_CAP} separator slots a "
-        f"rank: within {sc['err_step1']:.3g} / {sc['err_step2']:.3g} of "
-        f"posegraph.gn_step on the card after 1 / 2 steps (rtol/atol "
-        f"{SCHUR_TOLS[0]} / {SCHUR_TOLS[1]}), no overflow; at 2 slots the "
-        f"cluster graph overflows by {sc['overflow_cap2']} "
-        "(check_separator_capacity: does not fit); "
-        f"{sc['collectives_per_step']:.0f} collectives a step; "
-        f"{sc['us_per_step']:.1f} us a step (rank 0; ranks "
-        f"{min(sc['rank_us_per_step']):.1f}-{max(sc['rank_us_per_step']):.1f}"
-        "; the edge-sharded step of phase 32 took 83.0 / 26.1 ms in earlier "
-        "runs)")
-    log = replay.make_sharded_graph_log()
-    for mode, o in r["graph"].items():
-        ref = replay.sharded_graph_reference(mode)
-        say(f"[graph sharded] section 3 on 2x4, {mode} frontend"
-            f"{' + dense fill' if mode != 'gather' else ''}, onehot_bf16 "
-            f"400x400x3, {log.traj.shape[0]} scans ({log.bootstrap} forced), "
-            f"{where}: {o['keyframes']} keyframes (JAX {ref['keyframes']}), "
-            f"{o['loop_closures']} closures (JAX {ref['loop_closures']}), "
-            f"final error {o['final_err_m']:.4f} m, ATE {o['ate_m']:.6f} "
-            f"(JAX {ref['ate_m']:.6f}), max {o['max_err_m']:.4f} (JAX "
-            f"{ref['max_err_m']:.4f}), overflow {o['max_overflow']}: "
-            f"sharded_graph_gate holds; launches a rank {o['launches']} = "
-            f"the {o['searches']} loop searches (every rank: "
-            f"{o['rank_launches']} / {o['rank_launches_update']}); every "
-            f"rank read the same flags at every scan; {o['scans_per_s']:.2f} "
-            f"scans/s (ranks {min(o['rank_scans_per_s']):.2f}-"
-            f"{max(o['rank_scans_per_s']):.2f}), "
-            f"{o['collectives_per_scan']:.2f} collectives and "
-            f"{o['host_copies_per_scan']:.2f} host copies a scan "
-            f"({o['collectives_per_keyframe_event']:.0f} a keyframe event); "
-            f"host reads {o['host_reads']}; {o['seconds']:.1f} s")
-    rb, ck = r["rebuild"], r["checkpoint"]
-    say(f"[graph sharded] rebuild_maps_sharded on 4x2 from the 2x4 state "
-        f"(to_dense / shard_dense), {rb['nodes']} nodes: = rebuild_maps on "
-        f"the card bit for bit (its launches {rb['serial_launches']}), "
-        f"halos included; checkpoint at scan {ck['cut']} ({ck['nodes_at_cut']}"
-        " nodes): the resume at 2x4 = the uninterrupted replay bit for bit, "
-        "restored at 4x2 its to_dense = the saved state")
-    say(f"[seconds] phase 34: the launch {launch_s:.1f} (34a "
-        f"{r['seconds_34a']:.1f}, in the ranks {r['seconds_34']:.1f}), all "
-        f"{time.perf_counter() - t0:.1f}")
-    return {"results": r, "seconds": time.perf_counter() - t0}
 
 
 # ---- phase 36: NCCL on the one card ---------------------------------------
@@ -1537,6 +674,7 @@ BENCH_KERNELS = {"hector_modes": {"fixed": ("K3", "K4"),
                  "fleet_modes": {"sub1": ("K3_batch", "K4_batch"),
                                  "sub4_onehot_dense": ("K5", "K2_batch")}}
 DEMO_SCANS = 60
+CORESLAM_LINE_KERNELS = ("K7_hole_walk", "K7_hole_blend", "K7_obstacle")
 
 
 def entry_point_smoke(torch, dev) -> dict:
@@ -1549,6 +687,7 @@ def entry_point_smoke(torch, dev) -> dict:
     import numpy as np
     from slamnet_tpu_torch import bench, replay
     from slamnet_tpu_torch.examples import replay_dataset, replay_demo
+    from slamnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     on_card = dev.type == "cuda"
@@ -1556,12 +695,12 @@ def entry_point_smoke(torch, dev) -> dict:
 
     def call(main, argv):
         buf = io.StringIO()
-        zero_launch_counts()
+        _build.reset_launches()
         with contextlib.redirect_stdout(buf):
             rc = main([*device, *argv])
         if on_card:
             torch.cuda.synchronize()
-        counts = {k: v for k, v in launch_counts().items() if v}
+        counts = {k: v for k, v in _build.kernel_launches().items() if v}
         return rc, buf.getvalue(), counts
 
     rc, out, _ = call(bench.main, ["--sections", ",".join(BENCH_SECTIONS),
@@ -1592,9 +731,11 @@ def entry_point_smoke(torch, dev) -> dict:
     check(rc == 0 and [n for n, _ in oks] == ["coreslam", "particle", "graph",
                                                "hector"],
           f"replay_demo exited {rc}: {demo_out[-2000:]}")
-    if on_card:          # Hector and graph-SLAM at HectorConfig(): K3 + K4
-        check(set(demo_counts) == {"match_f32", "line"}
-              and min(demo_counts.values()) >= 2 * (DEMO_SCANS - 10),
+    if on_card:   # Hector and graph-SLAM at HectorConfig(): K3 + K4;
+        # CoreSLAM and the particle layer's line updates: K7
+        check(set(demo_counts) == {"K3", "K4", *CORESLAM_LINE_KERNELS}
+              and min(demo_counts["K3"], demo_counts["K4"])
+              >= 2 * (DEMO_SCANS - 10),
               f"replay_demo's launches {demo_counts}")
     demo_s = time.perf_counter() - t1
 
@@ -1616,7 +757,7 @@ def entry_point_smoke(torch, dev) -> dict:
           f"replay_dataset exited {rc}, {n} track lines, PNGs {pngs}: "
           f"{ds_out[-2000:]}")
     if on_card:
-        check(ds_counts == {"match_f32": n, "line": n},
+        check(ds_counts == {"K3": n, "K4": n},
               f"replay_dataset's launches {ds_counts}, want one K3 and one "
               "K4 a scan")
     # the track is written to 4 decimals
@@ -1669,6 +810,7 @@ def graph_step_smoke(torch, dev) -> dict:
     from slamnet_tpu_torch.core.scan import Scan
     from slamnet_tpu_torch.io import metrics as io_metrics
     from slamnet_tpu_torch.models import hector
+    from slamnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     log = replay.make_log(seed=0)
@@ -1701,15 +843,15 @@ def graph_step_smoke(torch, dev) -> dict:
                       ("fixed", replay.fixed_config())):
         st0 = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog, b,
                                cfg)
-        zero_launch_counts()
+        _build.reset_launches()
         eager = run(hector._update_eager, clone(st0), cfg, b, b + n)
         torch.cuda.synchronize()
-        want = launch_counts()
-        zero_launch_counts()
+        want = _build.kernel_launches()
+        _build.reset_launches()
         g0 = (hector.update.graph_captures, hector.update.graph_replays)
         graph = run(hector.update, clone(st0), cfg, b, b + n)
         torch.cuda.synchronize()
-        got = launch_counts()
+        got = _build.kernel_launches()
         g1 = (hector.update.graph_captures - g0[0],
               hector.update.graph_replays - g0[1])
         check(same(graph, eager), f"{name}: the {n}-scan replay through "
@@ -1790,7 +932,7 @@ def coreslam_map_smoke(torch, dev) -> dict:
     Monte-Carlo candidates, line updates) through the kernels, under CUDA's
     sync debug mode "error", and again through ``update_hole_map_plain`` /
     ``update_obstacle_map_plain``: every pose, best sum, hole map and
-    obstacle map bit for bit, and one launch count of each wrapper a scan.
+    obstacle map bit for bit, and one launch of each K7 kernel a scan.
     Then, on the job's last maps: the robot near an edge (ClipRay) bit for
     bit, a robot pixel outside the maps leaves both (and the inputs) as
     they were, a scan with no valid beam equals the plain path and leaves
@@ -1803,7 +945,7 @@ def coreslam_map_smoke(torch, dev) -> dict:
     from slamnet_tpu_torch.core.config import CoreSlamConfig
     from slamnet_tpu_torch.core.scan import Scan
     from slamnet_tpu_torch.models import coreslam
-    from slamnet_tpu_torch.ops import holemap, obstacle
+    from slamnet_tpu_torch.ops import _build, holemap, obstacle
 
     t0 = time.perf_counter()
     cfg = CoreSlamConfig(num_candidates=4001)
@@ -1827,8 +969,8 @@ def coreslam_map_smoke(torch, dev) -> dict:
         return torch.stack(poses), torch.stack(sums), holes, obsts
 
     def counts():
-        return (holemap.update_hole_map.launches,
-                obstacle.update_obstacle_map.launches)
+        got = _build.kernel_launches()
+        return tuple(got[k] for k in CORESLAM_LINE_KERNELS)
 
     # one call of each before the timed jobs: the kernel library (phase 2
     # of a full run builds it), the scratch and the decay table
@@ -1851,8 +993,8 @@ def coreslam_map_smoke(torch, dev) -> dict:
     torch.cuda.synchronize()
     tk = time.perf_counter() - tk
     launches = tuple(b - a for a, b in zip(c0, counts()))
-    check(launches == (n_scans, n_scans), f"K7 launch counts {launches} over "
-          f"{n_scans} scans, want one of each wrapper a scan")
+    check(launches == (n_scans,) * 3, f"K7 launch counts {launches} over "
+          f"{n_scans} scans, want one of each kernel a scan")
     with mock.patch.object(holemap, "update_hole_map",
                            holemap.update_hole_map_plain), \
             mock.patch.object(obstacle, "update_obstacle_map",
@@ -1929,7 +1071,7 @@ def coreslam_map_smoke(torch, dev) -> dict:
             coreslam.init(cfg, pose, device=dev)._replace(
                 hole_map=hole, obstacle_map=obst),
             Scan(pts, val, zero), pose, cfg)
-    check(counts() == (c1[0] + 1, c1[1] + 1)
+    check(counts() == tuple(c + 1 for c in c1)
           and torch.equal(wrapped[0], holemap.update_hole_map_plain(
               hole, S, hs, pts, val, pose, cfg.hole_width, cfg.quality)),
           "a wrapped update_hole_map did not reach K7 or its count")
@@ -1999,7 +1141,7 @@ def main() -> int:
     from slamnet_tpu_torch import replay
     from slamnet_tpu_torch.core.scan import Scan
     from slamnet_tpu_torch.graph import frontend, posegraph
-    from slamnet_tpu_torch import convert
+    from slamnet_tpu_torch import convert, multichip
     from slamnet_tpu_torch.models import (coreslam, fleet, graph_slam, hector,
                                           particle)
     from slamnet_tpu_torch.ops import _build, correlate, fill, holemap, match
@@ -2030,6 +1172,11 @@ def main() -> int:
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             say(f"[build]   {line.strip()}")
 
+    def launched(*keys) -> int:
+        """The launches counted under the kernel ``keys``, summed."""
+        counts = _build.kernel_launches()
+        return sum(counts[k] for k in keys)
+
     cfg = replay.pallas_dense_config()
     zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
 
@@ -2051,7 +1198,7 @@ def main() -> int:
     maps = state.maps
 
     # ---- 3. K1 vs its plain version ------------------------------------------
-    k1_before = match.match.launches
+    k1_before = launched("K1")
     k1_calls = 0
     k1_err = 0.0
     k1_bits = []
@@ -2091,8 +1238,8 @@ def main() -> int:
                                       2e-3, 0.05)
     del deep
     torch.cuda.synchronize()
-    check(match.match.launches - k1_before == k1_calls,
-          f"K1 launch count rose by {match.match.launches - k1_before}, "
+    check(launched("K1") - k1_before == k1_calls,
+          f"K1 launch count rose by {launched('K1') - k1_before}, "
           f"expected {k1_calls}")
 
     def k1():
@@ -2134,7 +1281,7 @@ def main() -> int:
     no = torch.zeros((), dtype=torch.bool, device=dev)
     pose = truth + torch.tensor((0.37, -0.21, 0.3), device=dev)
     k2_scan = sim_scan(pose)
-    k2_before = fill.update_maps.launches
+    k2_before = launched("K2")
     for name, base in (("bootstrapped", maps), ("random", rand_maps)):
         mk = base.clone()
         fill.update_maps(mk, k2_scan.points, k2_scan.valid, pose, zero3, yes,
@@ -2169,7 +1316,7 @@ def main() -> int:
                          cfg)
         check(torch.equal(mz, base), f"K2 {name}: do_update=0 changed the maps")
     torch.cuda.synchronize()
-    check(fill.update_maps.launches - k2_before == 4, "K2 launch count")
+    check(launched("K2") - k2_before == 4, "K2 launch count")
     mt = maps.clone()
 
     def k2():
@@ -2208,12 +1355,11 @@ def main() -> int:
     say(f"[slice] log {log.radii.shape[0]} scans x {log.radii.shape[1]} beams "
         f"+ {log.bootstrap}-scan bootstrap in {time.perf_counter() - t0:.1f} s")
 
-    match.match.launches = 0
-    fill.update_maps.launches = 0
+    _build.reset_launches()
     stf, out = replay.replay(st0, dlog, log.bootstrap, cfg)
     torch.cuda.synchronize()
-    launches = {"match": match.match.launches, "fill": fill.update_maps.launches}
-    check(launches == {"match": n, "fill": n},
+    launches = {k: v for k, v in _build.kernel_launches().items() if v}
+    check(launches == {"K1": n, "K2": n},
           f"launches in the {n}-scan replay: {launches}")
 
     poses = out.poses.cpu().numpy()
@@ -2333,7 +1479,7 @@ def main() -> int:
     # ---- 7. K6 vs K5 -------------------------------------------------------
     k6_ms = {}
     k6_err = 0.0
-    k6_before = match.match_packed.launches
+    k6_before = launched("K6")
     for g in G_PACKS:
         for c, hints, ok_, op, tol in k5_outs:
             o6 = match.match_packed(fmaps, fpts, fval, hints, c, g)
@@ -2346,8 +1492,8 @@ def main() -> int:
                   f"K6 g_pack={g} solve failures differ from the plain version")
     torch.cuda.synchronize()
     k6_calls = len(G_PACKS) * len(k5_outs)
-    check(match.match_packed.launches - k6_before == k6_calls,
-          f"K6 launch count rose by {match.match_packed.launches - k6_before}, "
+    check(launched("K6") - k6_before == k6_calls,
+          f"K6 launch count rose by {launched('K6') - k6_before}, "
           f"expected {k6_calls}")
     for g in G_PACKS:
         k6_ms[g] = graph_ms(torch, lambda g=g: match.match_packed(
@@ -2419,7 +1565,7 @@ def main() -> int:
     kb_err = 0.0
     kb_worst = 0.0
     kb_cells = {}
-    kb_before = fill.update_maps_batch.launches
+    kb_before = launched("K2_batch")
     for name, base in (("fleet", fmaps), ("random", frand)):
         for mname, m in masks.items():
             worst, err, changed = fill_batch_case(
@@ -2453,7 +1599,7 @@ def main() -> int:
             fposes[hrep].contiguous(), m, hcfg)
         kb_worst, kb_err = max(kb_worst, worst), max(kb_err, err)
     torch.cuda.synchronize()
-    check(fill.update_maps_batch.launches - kb_before == 12,
+    check(launched("K2_batch") - kb_before == 12,
           "batched K2 launch count")
     fmt = fmaps.clone()
     kb_ms = {}
@@ -2492,21 +1638,16 @@ def main() -> int:
         f"{k2_ms:.4f} ms)")
 
     # ---- 9. the fleet end to end -------------------------------------------
-    counted = {"match": match.match, "fill": fill.update_maps,
-               "match_batch": match.match_batch,
-               "match_packed": match.match_packed,
-               "fill_batch": fill.update_maps_batch}
-    for f in counted.values():
-        f.launches = 0
+    _build.reset_launches()
     fst = replay.fleet_bootstrap(fleet.init_fleet(fcfg, flog.traj[0], dev),
                                  fdlog, boot, fcfg)
     fstf, fout = fleet.replay_fleet(fst, fdlog.points[boot:],
                                     fdlog.valid[boot:], fcfg)
     torch.cuda.synchronize()
-    flaunch = {k: f.launches for k, f in counted.items()}
+    flaunch = _build.kernel_launches()
     nb = fdlog.points.shape[0]
-    want = {"match": 0, "fill": 0, "match_batch": nb, "match_packed": 0,
-            "fill_batch": nb}
+    want = dict.fromkeys(flaunch, 0)
+    want.update(K5=nb, K2_batch=nb)
     check(flaunch == want, f"launches in the fleet flow: {flaunch}, want {want}")
     fposes_np = fout.cpu().numpy()
     nt = nb - boot
@@ -2558,7 +1699,7 @@ def main() -> int:
         xstate, _ = hector.update(xstate, sim_scan(truth), truth, xcfg, True)
     xscan = sim_scan(truth)
     xmaps = xstate.maps
-    k3_before = match.match.launches_f32
+    k3_before = launched("K3")
     k3_calls = 0
     k3_err = k3_res = k3_gap = k3_res_gap = 0.0
     k3_bits = []
@@ -2629,8 +1770,8 @@ def main() -> int:
         xscan.points, xscan.valid, hint, xcfg, K3_POSE_TOL, K3_RESID_RTOL)
     del deep
     torch.cuda.synchronize()
-    check(match.match.launches_f32 - k3_before == k3_calls,
-          f"K3 launch count rose by {match.match.launches_f32 - k3_before}, "
+    check(launched("K3") - k3_before == k3_calls,
+          f"K3 launch count rose by {launched('K3') - k3_before}, "
           f"expected {k3_calls}")
 
     def k3():
@@ -2654,7 +1795,7 @@ def main() -> int:
     boot_s = time.perf_counter() - t0
     smaps = sst0.maps
     k3b_err = k3b_res = 0.0
-    k3b_before = match.match_batch.launches_f32
+    k3b_before = launched("K3_batch")
     for c, off in ((scfg, (0.2, -0.15, 0.04)), (scfg, (-0.1, 0.12, -0.03)),
                    (scfg.overlay({"gn_damping": 0.1}), (0.15, 0.1, -0.03))):
         hints = (ftruth + torch.tensor(off, device=dev)).contiguous()
@@ -2699,7 +1840,7 @@ def main() -> int:
         shints, scfg, K3_POSE_TOL, K3_RESID_RTOL)
     del deep
     torch.cuda.synchronize()
-    check(match.match_batch.launches_f32 - k3b_before == 4,
+    check(launched("K3_batch") - k3b_before == 4,
           "batched K3 launch count")
 
     def k3b():
@@ -2745,8 +1886,7 @@ def main() -> int:
               f"{f.__name__} takes a marks scratch")
     check("marks" not in hector.HectorState._fields,
           "HectorState carries a marks scratch")
-    k4_before = (line_ops.update_maps_line.launches,
-                 line_ops.update_maps_line_batch.launches)
+    k4_before = (launched("K4"), launched("K4_batch"))
     k4_err = {"single": 0.0, "batch": 0.0}
 
     def line_case(what, base, pts, val, pose_, gate, c):
@@ -2884,8 +2024,8 @@ def main() -> int:
                         fposes[hrep].contiguous(), m, hscfg)
     del hs_maps
     torch.cuda.synchronize()
-    k4_calls = (line_ops.update_maps_line.launches - k4_before[0],
-                line_ops.update_maps_line_batch.launches - k4_before[1])
+    k4_calls = (launched("K4") - k4_before[0],
+                launched("K4_batch") - k4_before[1])
     check(k4_calls == (k4_single, 13),
           f"K4 launch counts {k4_calls}, want ({k4_single}, 13)")
     mt = xmaps.clone()
@@ -2941,35 +2081,14 @@ def main() -> int:
         f"none {k4b_ms['none']:.4f} vs plain {k4b_plain_ms['none']:.4f}")
 
     # ---- 12. the fixed replay end to end ------------------------------------
-    counted = {"match": match.match, "fill": fill.update_maps,
-               "line": line_ops.update_maps_line,
-               "match_batch": match.match_batch,
-               "match_packed": match.match_packed,
-               "fill_batch": fill.update_maps_batch,
-               "line_batch": line_ops.update_maps_line_batch}
-
-    def zero_counts():
-        for f in counted.values():
-            f.launches = 0
-        match.match.launches_f32 = 0
-        match.match_batch.launches_f32 = 0
-        match.match_batch.exit_launches = 0
-
-    def read_counts():
-        got = {k: f.launches for k, f in counted.items()}
-        got["match_f32"] = match.match.launches_f32
-        got["match_batch_f32"] = match.match_batch.launches_f32
-        got["match_batch_exit"] = match.match_batch.exit_launches
-        return got
-
     xst0 = replay.bootstrap(hector.init(xcfg, log.traj[0], dev), dlog,
                             log.bootstrap, xcfg)
-    zero_counts()
+    _build.reset_launches()
     xstf, xout = replay.replay(xst0, dlog, log.bootstrap, xcfg)
     torch.cuda.synchronize()
-    xlaunch = read_counts()
+    xlaunch = _build.kernel_launches()
     want = dict.fromkeys(xlaunch, 0)
-    want.update(match_f32=n, line=n)
+    want.update(K3=n, K4=n)
     check(xlaunch == want, f"launches in the fixed replay: {xlaunch}, want {want}")
     xposes = xout.poses.cpu().numpy()
     check(xposes.shape == (n, 3) and np.isfinite(xposes).all(),
@@ -3015,15 +2134,15 @@ def main() -> int:
     check(xmax <= 0.05, f"fixed max error {xmax} m above 0.05 m")
 
     # ---- 13. the sub1 fleet end to end -------------------------------------
-    zero_counts()
+    _build.reset_launches()
     sst = replay.fleet_bootstrap(fleet.init_fleet(scfg, flog.traj[0], dev),
                                  fdlog, boot, scfg)
     sstf, sout = fleet.replay_fleet(sst, fdlog.points[boot:],
                                     fdlog.valid[boot:], scfg)
     torch.cuda.synchronize()
-    slaunch = read_counts()
+    slaunch = _build.kernel_launches()
     want = dict.fromkeys(slaunch, 0)
-    want.update(match_batch_f32=nb, line_batch=nb)
+    want.update(K3_batch=nb, K4_batch=nb)
     check(slaunch == want, f"launches in the sub1 fleet flow: {slaunch}, want "
           f"{want}")
     sposes = sout.cpu().numpy()
@@ -3075,7 +2194,7 @@ def main() -> int:
     ecfg = replay.onehot_bf16_dense_config()
     x_exit = xcfg.overlay({"early_exit_tol": EXIT_TOL})
     k1_exit_err, exit_iters = 0.0, {}
-    exit_before = (match.match.launches, match.match.launches_f32)
+    exit_before = (launched("K1"), launched("K3"))
     for name, c0, m in (("K1", ecfg, maps), ("K3", x_exit, xmaps)):
         sc = scan if name == "K1" else xscan
         its = []
@@ -3108,8 +2227,7 @@ def main() -> int:
               f"{name}: the exit at {EXIT_TOL_FIRES} did not fire: {its}")
         exit_iters[name] = its
     torch.cuda.synchronize()
-    check((match.match.launches - exit_before[0],
-           match.match.launches_f32 - exit_before[1])
+    check((launched("K1") - exit_before[0], launched("K3") - exit_before[1])
           == (4 * len(EXIT_HINTS), 4 * len(EXIT_HINTS)),
           "exit-phase launch counts")
     h_exit = truth + torch.tensor(EXIT_HINTS[0], device=dev)
@@ -3129,12 +2247,12 @@ def main() -> int:
 
     est0 = replay.bootstrap(hector.init(ecfg, log.traj[0], dev), dlog,
                             log.bootstrap, ecfg)
-    zero_counts()
+    _build.reset_launches()
     estf, eout = replay.replay(est0, dlog, log.bootstrap, ecfg)
     torch.cuda.synchronize()
-    elaunch = read_counts()
+    elaunch = _build.kernel_launches()
     want = dict.fromkeys(elaunch, 0)
-    want.update(match=n, fill=n)
+    want.update(K1=n, K2=n)
     check(elaunch == want, f"launches in the onehot_bf16_dense replay: "
           f"{elaunch}, want {want}")
     eposes = eout.poses.cpu().numpy()
@@ -3188,7 +2306,7 @@ def main() -> int:
     h_l, h_d = frontend.grid_config(gcfg_l), frontend.grid_config(gcfg_d)
     center = frontend._center(gcfg_l, dev)
     ref_scan = sim_scan(truth)
-    fr_before = (line_ops.update_maps_line.launches, fill.update_maps.launches)
+    fr_before = (launched("K4"), launched("K2"))
     grid_l = frontend.rasterize_scan(ref_scan, gcfg_l)
     grid_lp = frontend.rasterize_scan(ref_scan, gcfg_l, plain=True)
     check(torch.equal(grid_l, grid_lp), f"K4 at 128 px: "
@@ -3225,8 +2343,8 @@ def main() -> int:
           "differ (limit 0.1%)")
     fr_fill_cells = int((grid_d != 0).sum())
     torch.cuda.synchronize()
-    check((line_ops.update_maps_line.launches - fr_before[0],
-           fill.update_maps.launches - fr_before[1]) == (2, 1),
+    check((launched("K4") - fr_before[0], launched("K2") - fr_before[1])
+          == (2, 1),
           "frontend map update launch counts")
     # the query: a scan 0.3 m and 0.05 rad on, matched from the odometry
     qpose = truth + torch.tensor((0.3, -0.2, 0.05), device=dev)
@@ -3297,17 +2415,16 @@ def main() -> int:
              replay.graph_reference()),
             ("pallas_full", replay.graph_pallas_full_config(),
              replay.graph_reference(onehot=True))):
-        zero_counts()
+        _build.reset_launches()
         syncs0 = graph_slam.update.syncs
         searches0 = graph_slam.update.searches
         gst, gout = replay.graph_replay(gdlog, hc, mc)
         torch.cuda.synchronize()
-        glaunch = read_counts()
+        glaunch = _build.kernel_launches()
         gsyncs = graph_slam.update.syncs - syncs0
         searches = graph_slam.update.searches - searches0
         events = int(gout.keyframe_added.sum())
-        mkey, ukey = (("match_f32", "line") if gmode == "gather"
-                      else ("match", "fill"))
+        mkey, ukey = ("K3", "K4") if gmode == "gather" else ("K1", "K2")
         want = dict.fromkeys(glaunch, 0)
         want.update({mkey: gn + searches, ukey: gn + searches})
         check(glaunch == want, f"launches in the {gmode} graph replay: "
@@ -3403,10 +2520,10 @@ def main() -> int:
     del h1, b1, h2, b2
     # map finalization after the gather replay: every keyframe slot through
     # K4, equal to the plain version bit for bit
-    zero_counts()
+    _build.reset_launches()
     rebuilt = graph_slam.rebuild_maps(gst, hc)
     torch.cuda.synchronize()
-    rl = read_counts()["line"]
+    rl = launched("K4")
     rebuilt_p = graph_slam.rebuild_maps(gst, hc, plain=True)
     check(torch.equal(rebuilt, rebuilt_p), f"rebuild_maps: "
           f"{int((rebuilt != rebuilt_p).sum())} cells differ from the plain "
@@ -3488,18 +2605,18 @@ def main() -> int:
                     f"{v[2][0]:.6f} by {v[2][1]})" for k, v in o_ms.items()))
     office_runs = {}
     for oname, g in (("hector", None), ("graph", ogc)):
-        zero_counts()
+        _build.reset_launches()
         syncs0 = graph_slam.update.syncs
         searches0 = graph_slam.update.searches
         ostf, oout = replay.office_replay(odl, oodo, odel, ohc, g,
                                           omc if g else None)
         torch.cuda.synchronize()
-        olaunch = read_counts()
+        olaunch = _build.kernel_launches()
         osyncs = graph_slam.update.syncs - syncs0
         searches = graph_slam.update.searches - searches0
         events = int(oout.keyframe_added.sum())
         want = dict.fromkeys(olaunch, 0)
-        want.update(match_f32=on, line=on, match=searches, fill=searches)
+        want.update(K3=on, K4=on, K1=searches, K2=searches)
         check(olaunch == want, f"launches in the office {oname} replay: "
               f"{olaunch}, want {want}")
         check(osyncs == (on + events + searches if g else 0),
@@ -3844,7 +2961,7 @@ def main() -> int:
                       "answers")
         return ok_, err
 
-    exit_before = match.match_batch.exit_launches
+    exit_before = launched("K5_exit", "K3_batch_exit")
     exit_calls = 0
     x_out = {}
     for name, maps_, c0 in (("K5", fmaps, x5cfg), ("K3", smaps, scfg)):
@@ -3909,19 +3026,19 @@ def main() -> int:
             check(torch.equal(o, o64[rep5k]),
                   f"{name} exit B={huge} tol {tol}: differs from B={fb}")
         h5k = h64[rep5k].contiguous()
-        timed0 = match.match_batch.exit_launches   # timing calls: not counted
+        timed0 = launched("K5_exit", "K3_batch_exit")   # timing: not counted
         exit_5k_ms[name] = {
             "exit": graph_ms(torch, lambda c=c64.overlay(
                 {"early_exit_tol": EXIT_TOL_FIRES}): match.match_batch(
                     m5k, pts5k, val5k, h5k, c), REPS_PLAIN),
             "tol0": graph_ms(torch, lambda: match.match_batch(
                 m5k, pts5k, val5k, h5k, c64), REPS_PLAIN)}
-        exit_before += match.match_batch.exit_launches - timed0
+        exit_before += launched("K5_exit", "K3_batch_exit") - timed0
         del m5k, st64
     torch.cuda.synchronize()
-    check(match.match_batch.exit_launches - exit_before == exit_calls,
-          f"exit launch count rose by "
-          f"{match.match_batch.exit_launches - exit_before}, want {exit_calls}")
+    exits = launched("K5_exit", "K3_batch_exit") - exit_before
+    check(exits == exit_calls, f"exit launch count rose by {exits}, want "
+          f"{exit_calls}")
     # device times at B = 64 (CUDA graph) beside the tol-0 launch
     exit_ms, exit_plain_ms, exit_bound = {}, {}, {}
     for name, maps_, c0 in (("K5", fmaps, x5cfg), ("K3", smaps, scfg)):
@@ -3971,7 +3088,7 @@ def main() -> int:
     rows = {}
     for rname in row_names:
         rc = replay.FLEET_MODES[rname]()
-        zero_counts()
+        _build.reset_launches()
         rst = replay.fleet_bootstrap(fleet.init_fleet(rc, flog.traj[0], dev),
                                      fdlog, boot, rc)
         st = rst._replace(maps=rst.maps.clone())
@@ -3983,12 +3100,12 @@ def main() -> int:
             riters.append(info.gn_iterations)
             rupd.append(info.map_updated)
         torch.cuda.synchronize()
-        rl = read_counts()
+        rl = _build.kernel_launches()
         want = dict.fromkeys(rl, 0)
-        mkey = "match_batch_f32" if match.table_f32(rc) else "match_batch"
-        want.update({mkey: nb, "line_batch": nb})
+        mkey = "K3_batch" if match.table_f32(rc) else "K5"
         if rc.early_exit_tol > 0.0:
-            want["match_batch_exit"] = nb
+            mkey += "_exit"
+        want.update({mkey: nb, "K4_batch": nb})
         check(rl == want, f"launches in the {rname} fleet flow: {rl}, want "
               f"{want}")
         rp = torch.stack(rposes).cpu().numpy()
@@ -4350,7 +3467,7 @@ def main() -> int:
                                       truth=replay.sim_loop_truth(120))
             hcd, ccd = replay.dataset_config(robust)
             tn = data.points.shape[0]
-            zero_counts()
+            _build.reset_launches()
             torch.cuda.synchronize()
             if dname == "sim_loop":   # no host read in a replay: syncs raise
                 torch.cuda.set_sync_debug_mode("error")
@@ -4361,9 +3478,9 @@ def main() -> int:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             both_s = time.perf_counter() - tt
-            dlaunch = read_counts()
+            dlaunch = _build.kernel_launches()
             want = dict.fromkeys(dlaunch, 0)
-            want.update(match_f32=tn, line=tn)
+            want.update(K3=tn, K4=tn)
             check(dlaunch == want, f"launches in the {dname} replay: "
                   f"{dlaunch}, want {want}")
             tt = time.perf_counter()
@@ -4460,7 +3577,7 @@ def main() -> int:
             "matcher_mode": mode, "min_distance_diff_for_map_update": 0.3,
             "min_angle_diff_for_map_update": 0.13}),
             f"the processor's config is not the simulator's: {proc.cfg}")
-        zero_counts()
+        _build.reset_launches()
         ptrack, pupd = [], 0
         tt = time.perf_counter()
         for t in range(dlog.points.shape[0]):
@@ -4472,10 +3589,10 @@ def main() -> int:
                 ptrack.append(proc.state.match_pose)
         torch.cuda.synchronize()
         secs = time.perf_counter() - tt
-        plaunch = read_counts()
+        plaunch = _build.kernel_launches()
         want = dict.fromkeys(plaunch, 0)
-        want.update({"match_f32" if mode == "gather" else "match":
-                     n + log.bootstrap, "line": n + log.bootstrap})
+        want.update({"K3" if mode == "gather" else "K1":
+                     n + log.bootstrap, "K4": n + log.bootstrap})
         check(plaunch == want, f"launches of the {mode} processor: "
               f"{plaunch}, want {want}")
         ptrack = torch.stack(ptrack)
@@ -4642,16 +3759,17 @@ def main() -> int:
     # ---- 27. the interactive simulator ------------------------------------
     t27 = time.perf_counter()
     sess = interactive.InteractiveSession()
-    zero_counts()
+    _build.reset_launches()
     steps = 40
     tt = time.perf_counter()
     for _ in range(steps):
         sess.step()
     torch.cuda.synchronize()
     sess_s = time.perf_counter() - tt
-    ilaunch = read_counts()
+    ilaunch = _build.kernel_launches()
     want = dict.fromkeys(ilaunch, 0)
-    want.update(match_f32=steps, line=steps)
+    # Hector's K3 + K4 and CoreSLAM's line updates (K7) a step
+    want.update(dict.fromkeys(("K3", "K4", *CORESLAM_LINE_KERNELS), steps))
     check(ilaunch == want, f"launches of {steps} session steps: {ilaunch}, "
           f"want {want}")
     check(sess.diverged_at is None and sess.loops == steps,
@@ -4684,8 +3802,8 @@ def main() -> int:
           f"HTTP round trip: {st_json.get('size')}, {posted}, "
           f"{sess.real_pose}")
     say(f"[interactive] InteractiveSession() on the card: {steps} steps "
-        f"(10 forced), Hector 4 levels (K3 + K4 a step: {ilaunch['match_f32']}"
-        f" + {ilaunch['line']}), CoreSLAM MC {sess.ccfg.num_candidates}; no "
+        f"(10 forced), Hector 4 levels (K3 + K4 a step: {ilaunch['K3']}"
+        f" + {ilaunch['K4']}), CoreSLAM MC {sess.ccfg.num_candidates}; no "
         f"divergence; {steps / sess_s:.1f} scans/s (rate EMA "
         f"{sess.scan_rate_ema:.1f}); frames of levels 0-3 and the hole map "
         f"decode at their sizes; GET /state and POST /pose answered on "
@@ -4693,11 +3811,19 @@ def main() -> int:
     say(f"[seconds] phases 24-27: {t25 - t24:.1f} / {t26 - t25:.1f} / "
         f"{t27 - t26:.1f} / {time.perf_counter() - t27:.1f}")
 
-    # ---- 28-33. the multi-device layer: 8 gloo ranks sharing the card -----
-    sharded = sharded_smoke(torch, dev)
-    # ---- 34. the sharded graph: 8 gloo ranks sharing the card -------------
-    graph_sh = graph_smoke(torch, dev)
-    gsh = graph_sh["results"]["graph"]
+    # ---- 28-34. the multi-device layer: 8 gloo ranks sharing the card -----
+    t28 = time.perf_counter()
+    mc = multichip.run(MESH_RANKS, "gloo", "cuda")
+    for text in multichip.report(mc, MESH_RANKS, "gloo"):
+        say(text)
+    say(f"[seconds] phases 28-34: {time.perf_counter() - t28:.1f}")
+
+    def rank_launches(section: str, kernel: str) -> int:
+        """``kernel``'s launches in a multichip section, over the ranks."""
+        return sum(r["launches"][section].get(kernel, 0) for r in mc["ranks"])
+
+    mesh_err = {k: max(r["kernel_errors"][k] for r in mc["ranks"])
+                for k in mc["ranks"][0]["kernel_errors"]}
 
     # ---- a one-scan device trace late in the process -----------------------
     # (such a window once held no kernel; the 266-scan trace of phase 26
@@ -4747,96 +3873,103 @@ def main() -> int:
                 "library_ms": None}
 
     print(json.dumps({"kernels": [
-        entry("match", "match.cu", "pallas_onehot.py:500", launches["match"],
+        entry("match", "match.cu", "pallas_onehot.py:500", launches["K1"],
               k1_err, k1_ms, k1_plain_ms, k1_bound),
-        entry("fill", "fill.cu", "pallas_fill.py:86", launches["fill"], k2_err,
+        entry("fill", "fill.cu", "pallas_fill.py:86", launches["K2"], k2_err,
               k2_ms, k2_plain_ms, k2_bound),
         entry("match_batch", "match.cu", "pallas_onehot.py:235",
-              flaunch["match_batch"], k5_err, k5_ms, k5_plain_ms, k5_bound),
+              flaunch["K5"], k5_err, k5_ms, k5_plain_ms, k5_bound),
         entry("match_packed", "match.cu", "pallas_onehot.py:460",
-              flaunch["match_packed"], k6_err, k6_ms[K6_G_REPORTED],
+              flaunch["K6"], k6_err, k6_ms[K6_G_REPORTED],
               k5_plain_ms, k5_bound),
         entry("fill_batch", "fill.cu", "pallas_fill.py:86",
-              flaunch["fill_batch"], kb_err, kb_ms["1-in-18"],
+              flaunch["K2_batch"], kb_err, kb_ms["1-in-18"],
               kb_plain_ms["1-in-18"], kb_bound["1-in-18"]),
-        entry("match_f32", "match.cu", "pallas_gn.py:133", xlaunch["match_f32"],
+        entry("match_f32", "match.cu", "pallas_gn.py:133", xlaunch["K3"],
               k3_err, k3_ms, k3_plain_ms, k3_bound),
         entry("match_f32_batch", "match.cu", "pallas_gn.py:133",
-              slaunch["match_batch_f32"], k3b_err, k3b_ms, k3b_plain_ms,
+              slaunch["K3_batch"], k3b_err, k3b_ms, k3b_plain_ms,
               k3b_bound),
-        entry("line", "line.cu", "pallas_scatter.py:71", xlaunch["line"],
+        entry("line", "line.cu", "pallas_scatter.py:71", xlaunch["K4"],
               k4_err["single"], k4_ms["fire"], k4_plain_ms["fire"], k4_bound),
         entry("line_batch", "line.cu", "pallas_scatter.py:71",
-              slaunch["line_batch"], k4_err["batch"], k4b_ms["1-in-18"],
+              slaunch["K4_batch"], k4_err["batch"], k4b_ms["1-in-18"],
               k4b_plain_ms["1-in-18"], k4b_bound["1-in-18"]),
         entry("match_exit", "match.cu", "pallas_onehot.py:500",
-              elaunch["match"], k1_exit_err, k1x_ms, k1x_plain_ms, k1x_bound),
+              elaunch["K1"], k1_exit_err, k1x_ms, k1x_plain_ms, k1x_bound),
         # the fleet's batch-wide exit: the exit rows' launches, timed at 64
         # robots and bench's 1e-3 (the bound counts the shared iterations)
         entry("match_batch_exit", "match.cu", "pallas_onehot.py:235",
-              rows["sub4_onehot_exit"]["launches"]["match_batch_exit"],
+              rows["sub4_onehot_exit"]["launches"]["K5_exit"],
               exit_err["K5"], exit_ms[("K5", EXIT_TOL)],
               exit_plain_ms[("K5", EXIT_TOL)], exit_bound[("K5", EXIT_TOL)]),
         entry("match_f32_batch_exit", "match.cu", "pallas_gn.py:133",
-              rows["sub1_exit"]["launches"]["match_batch_exit"],
+              rows["sub1_exit"]["launches"]["K3_batch_exit"],
               exit_err["K3"], exit_ms[("K3", EXIT_TOL)],
               exit_plain_ms[("K3", EXIT_TOL)], exit_bound[("K3", EXIT_TOL)]),
         # the frontend's launches: a graph replay's count less its n Hector
         # launches (one a scan)
         entry("match_frontend", "match.cu", "pallas_onehot.py:500",
-              graph_runs["pallas_full"]["launches"]["match"] - gn,
+              graph_runs["pallas_full"]["launches"]["K1"] - gn,
               fr_err["K1"], *fr["K1"]),
         entry("fill_frontend", "fill.cu", "pallas_fill.py:86",
-              graph_runs["pallas_full"]["launches"]["fill"] - gn, fr_fill_err,
+              graph_runs["pallas_full"]["launches"]["K2"] - gn, fr_fill_err,
               *fr["K2"]),
         entry("match_f32_frontend", "match.cu", "pallas_gn.py:133",
-              graph_runs["gather"]["launches"]["match_f32"] - gn,
+              graph_runs["gather"]["launches"]["K3"] - gn,
               fr_err["K3"], *fr["K3"]),
         entry("line_frontend", "line.cu", "pallas_scatter.py:71",
-              graph_runs["gather"]["launches"]["line"] - gn, 0.0,
+              graph_runs["gather"]["launches"]["K4"] - gn, 0.0,
               *fr["K4"]),
         # the office graph replay's Hector launches, timed at 200 px
         entry("match_f32_office", "match.cu", "pallas_gn.py:133",
-              office_runs["graph"]["launches"]["match_f32"], o_err["K3"],
+              office_runs["graph"]["launches"]["K3"], o_err["K3"],
               *o_ms["K3"]),
         entry("line_office", "line.cu", "pallas_scatter.py:71",
-              office_runs["graph"]["launches"]["line"], 0.0, *o_ms["K4"]),
+              office_runs["graph"]["launches"]["K4"], 0.0, *o_ms["K4"]),
         # the simulator's 4-level pyramid: the processors' replays' launches
         entry("match_f32_l4", "match.cu", "pallas_gn.py:133",
-              procs["gather"]["launches"]["match_f32"], l4_err["K3"],
+              procs["gather"]["launches"]["K3"], l4_err["K3"],
               *l4_ms["K3"]),
         entry("match_l4", "match.cu", "pallas_onehot.py:500",
-              procs["onehot_bf16"]["launches"]["match"], l4_err["K1"],
+              procs["onehot_bf16"]["launches"]["K1"], l4_err["K1"],
               *l4_ms["K1"]),
         entry("line_l4", "line.cu", "pallas_scatter.py:71",
-              procs["gather"]["launches"]["line"], 0.0, *l4_ms["K4"]),
+              procs["gather"]["launches"]["K4"], 0.0, *l4_ms["K4"]),
         # the 181-beam dataset pyramid: both dataset replays' launches
         entry("match_f32_181", "match.cu", "pallas_gn.py:133",
-              sum(r["launches"]["match_f32"] for r in ds_runs.values()),
+              sum(r["launches"]["K3"] for r in ds_runs.values()),
               d_err["K3"], *l4_ms["K3_181"]),
         entry("line_181", "line.cu", "pallas_scatter.py:71",
-              sum(r["launches"]["line"] for r in ds_runs.values()), 0.0,
+              sum(r["launches"]["K4"] for r in ds_runs.values()), 0.0,
               *l4_ms["K4_181"]),
-        # the fleet over the mesh (phase 31): every rank's launches summed,
-        # timed at a rank's 16 robots
-        *[entry(f"{name}_mesh", source, replaces, *sharded["entries"][name])
-          for name, source, replaces in (
-              ("match_batch", "match.cu", "pallas_onehot.py:235"),
-              ("fill_batch", "fill.cu", "pallas_fill.py:86"),
-              ("match_batch_f32", "match.cu", "pallas_gn.py:133"),
-              ("line_batch", "line.cu", "pallas_scatter.py:71"))],
-        # the sharded graph's frontend on every rank (phase 34b-c): every
+        # the fleet over the search axis (phases 28-34): every rank's
+        # launches summed, the largest error of a rank's robots against
+        # plain; not timed at a rank's shape (the 64-robot rows above are)
+        entry("match_batch_mesh", "match.cu", "pallas_onehot.py:235",
+              rank_launches("fleet_sub4_pallas_dense", "K5"), mesh_err["K5"],
+              None, None, (None, None)),
+        entry("fill_batch_mesh", "fill.cu", "pallas_fill.py:86",
+              rank_launches("fleet_sub4_pallas_dense", "K2_batch"),
+              mesh_err["K2 batched"], None, None, (None, None)),
+        entry("match_batch_f32_mesh", "match.cu", "pallas_gn.py:133",
+              rank_launches("fleet_sub1", "K3_batch"),
+              mesh_err["K3 batched"], None, None, (None, None)),
+        entry("line_batch_mesh", "line.cu", "pallas_scatter.py:71",
+              rank_launches("fleet_sub1", "K4_batch"),
+              mesh_err["K4 batched"], None, None, (None, None)),
+        # the sharded graph's frontend on every rank (phases 28-34): every
         # rank's launches summed, timed at the frontend's shape (phase 15)
         entry("match_graph_sharded", "match.cu", "pallas_onehot.py:500",
-              sum(gsh["onehot_bf16"]["rank_launches"]), fr_err["K1"],
+              rank_launches("graph_onehot_bf16", "K1"), fr_err["K1"],
               *fr["K1"]),
         entry("fill_graph_sharded", "fill.cu", "pallas_fill.py:86",
-              sum(gsh["onehot_bf16"]["rank_launches_update"]), fr_fill_err,
+              rank_launches("graph_onehot_bf16", "K2"), fr_fill_err,
               *fr["K2"]),
         entry("match_f32_graph_sharded", "match.cu", "pallas_gn.py:133",
-              sum(gsh["gather"]["rank_launches"]), fr_err["K3"], *fr["K3"]),
+              rank_launches("graph_gather", "K3"), fr_err["K3"], *fr["K3"]),
         entry("line_graph_sharded", "line.cu", "pallas_scatter.py:71",
-              sum(gsh["gather"]["rank_launches_update"]), 0.0, *fr["K4"])],
+              rank_launches("graph_gather", "K4"), 0.0, *fr["K4"])],
         "replay_scans_per_s": n / t_kernel,
         "replay_plain_scans_per_s": n / t_plain,
         "ate_m": ate, "max_err_m": max_err, "jax_ref_ate_m": replay.JAX_REF_ATE_M,
@@ -4917,8 +4050,7 @@ def main() -> int:
                         "launches": {k: v for k, v in ilaunch.items() if v},
                         "diverged_at": sess.diverged_at},
         "match_bits": {"K1": k1_bits, "K3": k3_bits},
-        "sharded": sharded["results"],
-        "graph_sharded": graph_sh["results"],
+        "multichip": multichip.strip_tracks(mc),
         "one_scan_trace": {"k3_events": one_k3, "k4_events": one_k4},
         "entry_points": entry_points,
         "nccl_one_rank": nccl_one,

@@ -11,14 +11,21 @@ or one block a robot) in ``ops.match``; the dense polar occupancy fill (K2)
 in ``ops.fill`` and the Bresenham line update (K4) in ``ops.line``, each
 single or batched with per-robot fire flags; built from ``csrc/`` with nvcc
 at first use.  Each kernel wrapper runs its plain
-PyTorch version for CPU tensors (tests) and the kernel for CUDA tensors.
+PyTorch version for CPU tensors (tests) and the kernel for CUDA tensors;
+``ops._build.launch`` counts every launch under its kernel's key.
 Graph-SLAM (``models.graph_slam``) runs the same kernels at its frontend's
-shape; CoreSLAM (``models.coreslam``) runs PyTorch operators, as the JAX
-package runs it in XLA.  The host surface: the reference's processor objects
-(``compat``), CARMEN logs (``io.datasets``, the native parser in ``hostio``)
-and their replay (``replay.carmen_replay``), checkpoints, metrics, export and
-the interactive simulator (``io``).  ``python3 chip_smoke.py`` drives every
-path on the card.
+shape.  CoreSLAM (``models.coreslam``) and the particle layer
+(``models.particle``) search with PyTorch operators, as the JAX package
+runs them in XLA; their line-mode map update is K7 (``ops.holemap``,
+``ops.obstacle``).  The multi-device layer (``parallel``: meshes over a
+``torch.distributed`` world, the sharded models) is checked end to end by
+``multichip`` (dryrun_multichip on N cards).  The host surface: the
+reference's processor objects (``compat``), CARMEN logs (``io.datasets``,
+the native parser in ``hostio``) and their replay
+(``replay.carmen_replay``), checkpoints, metrics, export and the
+interactive simulator (``io``).  ``bench`` is the port's bench (one JSON
+line), and ``examples`` the runnable demos.  ``python3 chip_smoke.py``
+drives every path on the card.
 """
 from . import core, io, models, ops, sim
 

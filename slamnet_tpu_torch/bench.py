@@ -26,8 +26,8 @@ particle ``:714-823``, office ``:303-432``) over the flows and the gates of
 
 Timing (``timed``), the same in every section: one warm-up replay, its
 seconds the mode's ``setup_s`` (the allocator's warm-up; the kernels are
-built before the first section, ``build_s``), with the launch counters
-zeroed around it; then R replays, each timed by the host clock from its
+built before the first section, ``build_s``), with the launch counts
+(``ops/_build``) zeroed before it; then R replays, each timed by the host clock from its
 first launch to a ``torch.cuda.synchronize()``.  No profiler runs, and no
 host read happens inside a timed replay but the graph's and the office's
 flag a scan (their keyframe branch, ``graph_slam.update``).  bench.py
@@ -38,7 +38,7 @@ layer's seeds) run after the timed ones, untimed; the timed key's replay
 
 The device is the card, with no fallback: without one the bench exits
 non-zero at once.  ``--device cpu`` runs the kernels' plain versions, for
-the tests, where no wrapper counts a launch; the section functions take
+the tests, where nothing counts a launch; the section functions take
 their depth (and the fleet's robots, the particle count and the gates'
 keys) as arguments for the same reason, and the CLI always runs the bench's
 sizes.
@@ -61,7 +61,7 @@ import torch
 from . import replay
 from .graph.frontend import ScanMatchConfig
 from .models import fleet, hector
-from .ops import fill, line, match
+from .ops import _build, match
 
 METRIC = "hector_3level_400x400_scans_per_sec_per_chip"
 BASELINE_SCANS_PER_S = 17.0       # the reference's real-time rate, bench.py:8
@@ -75,28 +75,6 @@ SECTION_MIN_S = {"hector": 60, "coreslam": 120, "graph": 60, "fleet": 30,
                  "particle": 150, "office": 60}
 MODE_MIN_S = 20
 
-# each kernel's launch counter: (wrapper, attribute), by its name in PERF.md
-COUNTERS = {"K1": (match.match, "launches"),
-            "K3": (match.match, "launches_f32"),
-            "K5": (match.match_batch, "launches"),
-            "K3_batch": (match.match_batch, "launches_f32"),
-            "batch_exit": (match.match_batch, "exit_launches"),
-            "K6": (match.match_packed, "launches"),
-            "K2": (fill.update_maps, "launches"),
-            "K2_batch": (fill.update_maps_batch, "launches"),
-            "K4": (line.update_maps_line, "launches"),
-            "K4_batch": (line.update_maps_line_batch, "launches")}
-
-
-def zero_launches() -> None:
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
-
-
-def read_launches() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
-
-
 def kernels_of(cfg, batched: bool = False) -> set:
     """The kernels a step in ``cfg`` launches (a HectorConfig, or the graph
     frontend's ScanMatchConfig): its match and its map update."""
@@ -105,10 +83,18 @@ def kernels_of(cfg, batched: bool = False) -> set:
              else cfg.dense_free_fill)
     if not batched:
         return {"K3" if f32 else "K1", "K2" if dense else "K4"}
-    out = {"K3_batch" if f32 else "K5", "K2_batch" if dense else "K4_batch"}
+    kernel = "K3_batch" if f32 else "K5"
     if cfg.early_exit_tol > 0.0:
-        out.add("batch_exit")
-    return out
+        kernel += "_exit"
+    return {kernel, "K2_batch" if dense else "K4_batch"}
+
+
+def coreslam_kernels(cfg) -> set:
+    """The kernels a CoreSLAM step in ``cfg`` launches: K7's line updates
+    (the search and the dense fills are PyTorch operators)."""
+    return ((set() if cfg.dense_hole_fill
+             else {"K7_hole_walk", "K7_hole_blend"})
+            | (set() if cfg.dense_obstacle_fill else {"K7_obstacle"}))
 
 
 class Run:
@@ -181,18 +167,19 @@ def say(msg: str) -> None:
 
 def timed(run: Run, replay_once, work: int, steps: int,
           key: str = "scans_per_sec"):
-    """One warm-up call of ``replay_once`` with the launch counters zeroed
-    around it, then ``run.repeats`` timed calls.  Returns the last call's
+    """One warm-up call of ``replay_once`` with the launch counts zeroed
+    before it, then ``run.repeats`` timed calls.  Returns the last call's
     result and the mode's row: the median of ``work`` / seconds under
     ``key``, its ``spread`` [min, max], ``n``, ``setup_s`` and each kernel's
     launches in the warm-up over its ``steps``."""
-    zero_launches()
+    _build.reset_launches()
     run.sync()
     t = time.perf_counter()
     out = replay_once()
     run.sync()
     setup_s = time.perf_counter() - t
-    launched = {k: v / steps for k, v in read_launches().items() if v}
+    launched = {k: v / steps for k, v in _build.kernel_launches().items()
+                if v}
     rates = []
     for _ in range(run.repeats):
         t = time.perf_counter()
@@ -206,7 +193,7 @@ def timed(run: Run, replay_once, work: int, steps: int,
 
 def launch_fails(run: Run, rows: dict, want: dict) -> list:
     """On the card: each mode's launched kernels must be ``want[mode]``
-    (on the CPU no wrapper counts a launch)."""
+    (on the CPU nothing counts a launch)."""
     if run.dev.type != "cuda":
         return []
     return [f"{m}: launched {sorted(rows[m]['launches_per_step'])}, want "
@@ -466,7 +453,7 @@ def coreslam_section(run: Run, n_scans: int | None = None,
     n = n_scans or log.traj.shape[0]
     dlog = replay.head(replay.to_device(log, run.dev), n)
     truth = log.traj[:n]
-    rows, ates, searched = {}, {}, {}
+    rows, ates, searched, want = {}, {}, {}, {}
     for name, cfg, kw, keys in (
             ("production", replay.coreslam_production_config(), "nudge",
              nudges),
@@ -485,11 +472,12 @@ def coreslam_section(run: Run, n_scans: int | None = None,
                    ates_m=ates[name], ate_median_m=float(np.median(ates[name])),
                    searched=searched[name])
         rows[name] = row
+        want[name] = coreslam_kernels(cfg)
     fails = replay.coreslam_gate(
         ates["production"], ates["parity"], searched["parity"],
         searched["production"], n,
         replay.coreslam_production_config().position_search_beginning)
-    fails += launch_fails(run, rows, {"production": set(), "parity": set()})
+    fails += launch_fails(run, rows, want)
     return {**spread_keys("coreslam_scans_per_sec", rows["production"],
                           "scans_per_sec"),
             "coreslam_ate_m": ates["production"][0],
@@ -525,7 +513,7 @@ def particle_section(run: Run, n_scans: int | None = None,
     truth = log.traj[:n]
     names = (("exact", "sub4", "grid", "grid_small", "grid_dense")
              if run.all_modes else ("exact", "grid_dense"))
-    rows, ates = {}, {}
+    rows, ates, want = {}, {}, {}
     for name in names:
         if name != "exact" and run.remaining() < MODE_MIN_S:
             run.skipped.append(f"particle:{name}")
@@ -544,9 +532,10 @@ def particle_section(run: Run, n_scans: int | None = None,
             row.update(seeds=list(seeds), ates_m=ates[name],
                        ate_median_m=float(np.median(ates[name])))
         rows[name] = row
+        want[name] = coreslam_kernels(ccfg)
     fails = (replay.particle_gate(ates["exact"], ates["grid_dense"])
              if len(ates) == 2 else [])
-    fails += launch_fails(run, rows, dict.fromkeys(rows, set()))
+    fails += launch_fails(run, rows, want)
     pick, bound = particle_pick(rows)
     best = rows[pick]
     return {"particle_count": (particles or
@@ -618,7 +607,6 @@ def main(argv=None) -> int:
     try:
         run.out["device"] = device_info(run.dev)
         if run.dev.type == "cuda":
-            from .ops import _build
             try:
                 run.out["build_s"] = _build.library()[1]
             except RuntimeError as e:     # nvcc failed: no section can run

@@ -53,7 +53,7 @@ from ..core.config import HectorConfig
 from ..core.geometry import deg_diff, rad_diff
 from ..core.scan import Scan
 from ..io import metrics
-from ..ops import fill, line, match as match_op
+from ..ops import _build, fill, line, match as match_op
 
 # float.MinValue (-3.4028235e38, the f32 lowest): the first squared distance
 # to it overflows to +inf in f32, so the first scan always updates the maps
@@ -288,11 +288,6 @@ def _update_eager(state: HectorState, scan: Scan,
 
 
 GRAPHS_PER_DEVICE = 4     # captured steps a card keeps, least recent out
-# the kernel wrappers' launch counters a single robot's step adds to
-LAUNCH_COUNTERS = ((match_op.match, "launches"),
-                   (match_op.match, "launches_f32"),
-                   (fill.update_maps, "launches"),
-                   (line.update_maps_line, "launches"))
 # a replayed step's results in one byte buffer: f32 match pose [0:12], f32
 # last-update pose [12:24], f32 residual [24:28], i32 GN iterations [28:32],
 # i32 solve failures [32:36], bool map_updated [36]
@@ -311,7 +306,7 @@ class CapturedStep(NamedTuple):
     graph: object             # .replay() runs the step, .reset() frees it
     inputs: tuple             # the static inputs the graph reads
     packed: torch.Tensor      # u8[PACKED_BYTES], the results it writes
-    launches: tuple           # its launches a counter of LAUNCH_COUNTERS
+    launched: tuple           # its (kernel key, launches) pairs
 
 
 def _inputs(scan: Scan, hint: torch.Tensor, last: torch.Tensor,
@@ -341,8 +336,8 @@ class StepGraphs:
 
     Each device keeps ``GRAPHS_PER_DEVICE`` graphs, the least recently used
     evicted first (and ``reset``).  A capture adds nothing to the launch
-    counters (``LAUNCH_COUNTERS``), as nothing ran; a replay adds what its
-    graph holds.  ``record(body, device)`` captures ``body`` and returns an
+    counts (``ops/_build``), as nothing ran; a replay adds what its graph
+    holds.  ``record(body, device)`` captures ``body`` and returns an
     object with ``replay()`` and ``reset()``; tests hand in a stand-in."""
 
     def __init__(self, record=None):
@@ -416,24 +411,22 @@ class StepGraphs:
                 info.gn_iterations, info.solve_failures, info.map_updated)],
                 out=packed)
 
-        before = [getattr(f, a) for f, a in LAUNCH_COUNTERS]
+        before = _build.kernel_launches()
         try:
             graph = self.record(body, dev)
         finally:
-            launched = []
-            for (f, a), n in zip(LAUNCH_COUNTERS, before):
-                launched.append(getattr(f, a) - n)
-                setattr(f, a, n)
-        return CapturedStep(graph, static, packed, tuple(launched))
+            after = _build.kernel_launches()
+            _build.reset_launches(before)
+        launched = tuple((k, n - before[k]) for k, n in after.items()
+                         if n != before[k])
+        return CapturedStep(graph, static, packed, launched)
 
     @staticmethod
     def _replay(g: CapturedStep, inputs: tuple) -> tuple:
         for dst, src in zip(g.inputs, inputs):
             dst.copy_(src)
         g.graph.replay()
-        for (f, a), n in zip(LAUNCH_COUNTERS, g.launches):
-            if n:
-                setattr(f, a, getattr(f, a) + n)
+        _build.add_launches(g.launched)
         return _unpack(g.packed.clone())
 
     def _record_cuda(self, body, device: torch.device):

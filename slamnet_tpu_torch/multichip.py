@@ -19,23 +19,35 @@ so that each brings its world up with ``initialize_multihost``, as under
    ``hector.update``'s bit for bit, the poses stay within 5e-3 m of the
    dense replay at every scan, the maps within 1e-2, the same map updates,
    ATE <= JAX's at N devices + 1e-4 (``SHARDED_JAX_REF_ATE_M``), 17
-   collectives a scan.  The first mesh saves a checkpoint at scan 40.
-2. ``coreslam``: the production CoreSLAM on the first mesh over
-   ``SHARDED_CORESLAM_N`` scans, bit for bit the dense pipeline's.
+   collectives a scan.  The first mesh saves a checkpoint at scan 40, and
+   replays ``SHORT_SCANS`` matched scans in ``onehot_bf16`` (within 5e-3 m
+   of its gather run) and with the exit at ``EXIT_TOL_FIRES`` px (within
+   5e-3 m of the dense exit replay, and the exit fires).  No K launch.
+2. ``coreslam``: the production CoreSLAM (dense fills, no K launch) and
+   the parity one (Monte-Carlo 4096, line updates: one K7 obstacle launch
+   a scan) on the first mesh over ``SHARDED_CORESLAM_N`` scans, each bit
+   for bit the dense pipeline's.
 3. ``graph``: section 3 on the first mesh (``sharded_graph_config`` with
    16 keyframe slots a search shard), with the ``onehot_bf16`` + dense-fill
    frontend (K1 + K2 on every rank) and the ``gather`` one (K3 + K4):
    ``sharded_graph_gate`` against JAX at N devices, one K launch of each
-   kind a loop search, every rank reading the same flags.
+   kind a loop search, every rank reading the same flags; the
+   ``onehot_bf16`` run's state rebuilt on the last mesh
+   (``rebuild_maps_sharded``) equals the serial ``rebuild_maps`` bit for
+   bit.
 4. ``fleet``: 64 robots over the search axis of ``{"search": N}``, rows
    ``sub4_pallas_dense`` (K5 + batched K2) and ``sub1`` (batched K3 + K4),
    every rank's robots bit for bit the single-process fleet's.
 5. ``collectives``: every ``Mesh`` collective of both meshes against its
    definition, and the barrier; ``posegraph``: the edge-sharded GN against
    ``posegraph.optimize`` and the node-sharded Schur step against
-   ``posegraph.gn_step``; ``checkpoint``: section 1's checkpoint resumed on
+   ``posegraph.gn_step``, and a loop-closure cluster's separator overflow
+   at ``SEP_SMALL`` slots reported by the step and the host check;
+   ``checkpoint``: section 1's checkpoint resumed on
    the first mesh bit for bit and on the second within section 1's
-   tolerances.
+   tolerances, and section 3's (the ``onehot_bf16`` run at scan
+   ``GRAPH_CUT``) resumed on the first mesh bit for bit and restored on the
+   last equal to the saved state.
 6. ``kernels``: K1-K5 on this rank's card against their plain versions at
    the graph frontend's 128-px grid and at a rank's 64/N fleet robots.
 
@@ -66,15 +78,14 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 
 from . import replay
-from .bench import read_launches, zero_launches
 from .core.geometry import pose_between
 from .core.scan import Scan
 from .graph import distributed, frontend, posegraph, schur
 from .io import checkpoint, metrics
-from .models import coreslam_sharded, fleet, hector
+from .models import coreslam_sharded, fleet, graph_slam, hector
 from .models import graph_slam_sharded as gss
 from .models import hector_sharded as hs
-from .ops import fill, line, match
+from .ops import _build, fill, line, match
 from .parallel import initialize_multihost, launch, make_mesh, mesh
 from .parallel import shard_range
 from .parallel.mesh import local_rank
@@ -88,8 +99,12 @@ GRAPH_TOL = 1e-4          # tests/test_posegraph.py:155's rtol and atol
 SCHUR_NODES = 128         # the circle graph of tests/test_posegraph.py
 SCHUR_CAP = 8             # separator slots a rank
 SCHUR_TOLS = (2e-4, 5e-4)  # after one and two steps (test_posegraph.py:113-122)
+SEP_SMALL = 2             # slots the loop-closure cluster overflows
 HECTOR_CUT = 40           # the checkpoint: after this many scans (half way
                           # through the matched scans of a shorter run)
+SHORT_SCANS = 10          # matched scans of the onehot_bf16 and exit runs
+EXIT_TOL_FIRES = 0.3      # px: a tolerance at which every match exits early
+GRAPH_CUT = 36            # section 3's checkpoint (half way, if shorter)
 K1_POSE_TOL = 2e-3        # K1's bf16 table against its plain version
 K3_POSE_TOL = 1e-5        # K3's f32 table: the order of the beam sums
 FILL_DIFF_SHARE = 1e-3    # K2: cells that may differ, each by |log_odds_free|
@@ -110,10 +125,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def check_launches(what: str, dev, want: dict) -> dict:
-    """Raise unless this process launched exactly ``want`` (kernel: count,
-    ``bench.COUNTERS``' names) on the card and nothing else; the plain
+    """Raise unless this process launched exactly ``want`` (kernel key:
+    count, ``ops/_build.KERNELS``) on the card and nothing else; the plain
     versions on the CPU launch nothing.  Returns the counts launched."""
-    got = read_launches()
+    got = _build.kernel_launches()
     expect = dict.fromkeys(got, 0)
     if dev.type == "cuda":
         expect.update(want)
@@ -266,7 +281,7 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
         ref_maps = torch.from_numpy(R["h_maps"]).to(dev)
         boot_maps = torch.from_numpy(R["h_boot_maps"]).to(dev)
         hec = {}
-        zero_launches()
+        _build.reset_launches()
         for name, m in meshes.items():
             st, _ = replay.sharded_replay(m, replay.head(dlog, boot), cfg)
             check(torch.equal(hs.unshard_maps(m, st, cfg), boot_maps),
@@ -328,57 +343,116 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
                          "host_copies_per_scan": per["host_copies"],
                          "checkpoint_s": save_s,
                          "poses": poses.cpu().tolist()}
+        # the first mesh in onehot_bf16 and with the exit at EXIT_TOL_FIRES
+        # px, each from its own forced scans
+        short = min(SHORT_SCANS, n - boot)
+        modes = {}
+        for mode, c, want in (
+                ("onehot_bf16", cfg.overlay({"matcher_mode": "onehot_bf16"}),
+                 final[names[0]][2][:short]),
+                ("exit", cfg.overlay({"early_exit_tol": EXIT_TOL_FIRES}),
+                 torch.from_numpy(R["x_poses"]).to(dev))):
+            st, _ = replay.sharded_replay(m1, replay.head(dlog, boot), c)
+            check(torch.equal(hs.unshard_maps(m1, st, c), boot_maps),
+                  f"{mode}: the forced updates' maps differ")
+            st, o = replay.sharded_replay(m1, replay.head(dlog, boot + short),
+                                          c, state=st, start=boot)
+            err = float((o.poses - want).abs().max())
+            check(err <= POSE_TOL, f"{mode}: poses {err} m off (tol "
+                  f"{POSE_TOL})")
+            its = int(o.gn_iterations.sum())
+            check(mode != "exit" or its < short * sum(cfg.estimate_iterations),
+                  f"the exit at {EXIT_TOL_FIRES} px never fired ({its})")
+            modes[mode] = {"scans": short, "pose_err_m": err,
+                           "gn_iterations": its}
+        modes["exit"]["dense_gn_iterations"] = int(R["x_iters"])
+        hec[names[0]]["modes"] = modes
         # the sharded step runs its own tile-local GN: no K kernel
         res["launches"]["hector"] = check_launches("sharded Hector", dev, {})
         num["hector"] = hec
 
-    # ---- 2. sharded CoreSLAM, production, = the dense pipeline -----------
+    # ---- 2. sharded CoreSLAM, production and parity, = the dense ---------
     if "coreslam" in sections:
-        c = replay.coreslam_production_config()
         s_ax = m1.shape["search"]
-        check(c.corr_num_theta % s_ax == 0, f"corr_num_theta "
-              f"{c.corr_num_theta} does not divide over {s_ax} search shards")
         cl = replay.head(dlog, coreslam_scans)
-        sync()
-        t0 = time.perf_counter()
-        st, o = replay.sharded_coreslam_replay(m1, cl, c, seed=1)
-        sync()
-        wall = time.perf_counter() - t0
-        dense = coreslam_sharded.to_dense(m1, st)
-        for key, got in (("poses", o.poses), ("sums", o.best_sum),
-                         ("hole", dense.hole_map),
-                         ("obst", dense.obstacle_map)):
-            check(torch.equal(got.cpu(), torch.from_numpy(R[f"c_{key}"])),
-                  f"CoreSLAM production: the {key} differ from the dense "
-                  "pipeline's")
-        ate = replay.ate_of(o.poses.cpu().numpy(),
-                            log.traj[:coreslam_scans])[0]
-        num["coreslam"] = {"ate_m": ate, "scans": coreslam_scans,
-                           "jax_ref_ate_m":
-                               replay.SHARDED_CORESLAM_JAX_REF_ATES_M.get(
-                                   names[0])
-                               if coreslam_scans == replay.SHARDED_CORESLAM_N
-                               else None,
-                           "scans_per_s": coreslam_scans / wall}
+        core = {}
+        for mode, c, kernels in (
+                ("production", replay.coreslam_production_config(), {}),
+                ("parity", replay.coreslam_parity_config(),
+                 {"K7_obstacle": coreslam_scans})):
+            check(c.search_mode != "correlative"
+                  or c.corr_num_theta % s_ax == 0, f"corr_num_theta "
+                  f"{c.corr_num_theta} does not divide over {s_ax} search "
+                  "shards")
+            _build.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            st, o = replay.sharded_coreslam_replay(m1, cl, c, seed=1)
+            sync()
+            wall = time.perf_counter() - t0
+            # the line hole update runs sharded in PyTorch; the obstacle
+            # map's line update is K7's obstacle launch, one a scan
+            res["launches"][f"coreslam_{mode}"] = check_launches(
+                f"CoreSLAM {mode} rank {rank}", dev, kernels)
+            dense = coreslam_sharded.to_dense(m1, st)
+            for key, got in (("poses", o.poses), ("sums", o.best_sum),
+                             ("hole", dense.hole_map),
+                             ("obst", dense.obstacle_map)):
+                check(torch.equal(got.cpu(),
+                                  torch.from_numpy(R[f"c_{mode}_{key}"])),
+                      f"CoreSLAM {mode}: the {key} differ from the dense "
+                      "pipeline's")
+            core[mode] = {"ate_m": replay.ate_of(o.poses.cpu().numpy(),
+                                                 log.traj[:coreslam_scans])[0],
+                          "scans": coreslam_scans,
+                          "scans_per_s": coreslam_scans / wall}
+        core["production"]["jax_ref_ate_m"] = (
+            replay.SHARDED_CORESLAM_JAX_REF_ATES_M.get(names[0])
+            if coreslam_scans == replay.SHARDED_CORESLAM_N else None)
+        num["coreslam"] = core
 
-    # ---- 3. the sharded graph on the first mesh, both frontends ---------
+    # ---- 3. the sharded graph on the first mesh, both frontends; the ----
+    # rebuild on the last mesh; the onehot_bf16 run's checkpoint
     glog = replay.make_sharded_graph_log()
     gdlog = replay.head(replay.to_device(glog, dev), graph_scans)
     nb = gdlog.points.shape[1]
+    gcut = GRAPH_CUT if graph_scans > GRAPH_CUT else graph_scans // 2
+    gsave = ("checkpoint" in sections
+             and replay.SHARDED_GRAPH_FORCED < gcut < graph_scans)
+    gfinal = {}
     if "graph" in sections:
         runs = {}
         for mode, kernels in FRONTEND_MODES.items():
             hcfg, gcfg, mcfg, cap = replay.sharded_graph_config(
                 mode, m1.shape["search"])
             step = gss.make_step(m1, hcfg, gcfg, nb, mcfg, sep_capacity=cap)
-            zero_launches()
+            _build.reset_launches()
             c0 = dict(m1.counts)
+            save_s, saved = 0.0, dict.fromkeys(c0, 0)
             sync()
             t0 = time.perf_counter()
-            st, out = replay.sharded_graph_replay(m1, gdlog, hcfg, gcfg, mcfg,
-                                                  cap, step=step)
+            if mode == "onehot_bf16" and gsave:
+                st, o1 = replay.sharded_graph_replay(
+                    m1, replay.head(gdlog, gcut), hcfg, gcfg, mcfg, cap,
+                    step=step)
+                sync()
+                t_cut, c_cut = time.perf_counter(), dict(m1.counts)
+                checkpoint.save_sharded(f"{work}/graph", st, hcfg, m1,
+                                        {"scan": gcut})
+                save_s = time.perf_counter() - t_cut
+                saved = {k: m1.counts[k] - c_cut[k] for k in c_cut}
+                st, o2 = replay.sharded_graph_replay(
+                    m1, gdlog, hcfg, gcfg, mcfg, cap, state=st, start=gcut,
+                    step=step)
+                out = type(o1)(*(np.concatenate([a, b])
+                                 if isinstance(a, np.ndarray)
+                                 else torch.cat([a, b])
+                                 for a, b in zip(o1, o2)))
+            else:
+                st, out = replay.sharded_graph_replay(
+                    m1, gdlog, hcfg, gcfg, mcfg, cap, step=step)
             sync()
-            wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0 - save_s
             res["launches"][f"graph_{mode}"] = check_launches(
                 f"{mode} frontend rank {rank}", dev,
                 dict.fromkeys(kernels, step.searches))
@@ -396,7 +470,8 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
                   "different due / has_cand / looped flags")
             events = int(out.flags[:, 0].sum())
             per_scan = sum(hcfg.estimate_iterations) + 2
-            coll = m1.counts["collectives"] - c0["collectives"]
+            coll = (m1.counts["collectives"] - c0["collectives"]
+                    - saved["collectives"])
             per_event = (coll - graph_scans * per_scan) / max(events, 1)
             # an event adds the cloud's psum and 3 Schur steps x 3; one that
             # finds every keyframe slot full only the Schur steps (node 0
@@ -416,10 +491,31 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
                           "host_reads": step.syncs,
                           "collectives_per_keyframe_event": per_event,
                           "host_copies_per_scan":
-                              (m1.counts["host_copies"]
-                               - c0["host_copies"]) / graph_scans,
+                              (m1.counts["host_copies"] - c0["host_copies"]
+                               - saved["host_copies"]) / graph_scans,
                           "flags": out.flags.tolist(),
                           "poses": out.poses.cpu().tolist()}
+            gfinal[mode] = (st, out)
+        # the onehot_bf16 run's state rebuilt on the last mesh = the serial
+        # rebuild_maps, halos included (one K4 a keyframe slot, each rank)
+        hcfg = replay.sharded_graph_config("onehot_bf16",
+                                           m1.shape["search"])[0]
+        mr = meshes[names[-1]]
+        dense = gss.to_dense(m1, gfinal["onehot_bf16"][0], hcfg)
+        _build.reset_launches()
+        tiles_ = mr.all_gather(graph_slam.rebuild_maps_sharded(
+            mr, gss.shard_dense(mr, dense, hcfg), hcfg), "tile")
+        serial = graph_slam.rebuild_maps(dense, hcfg)
+        sync()
+        res["launches"]["graph_rebuild"] = check_launches(
+            f"the serial rebuild rank {rank}", dev,
+            {"K4": dense.kf_points.shape[0]})
+        check(torch.equal(hs.unshard_tiles_host(tiles_, hcfg), serial)
+              and torch.equal(tiles_, hs.shard_tiles_host(
+                  serial, hcfg, mr.shape["tile"])),
+              f"rebuild_maps_sharded on {names[-1]} differs from rebuild_maps")
+        runs["onehot_bf16"]["rebuild"] = {"mesh": names[-1],
+                                          "nodes": dense.nodes}
         num["graph"] = runs
 
     # ---- 4. the fleet over the search axis: K5/K2, K3/K4 a rank ---------
@@ -437,7 +533,7 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
                                    fleet.init_fleet(c, flog.traj[0], dev), c)
             step = fleet.make_fleet_step(searchm, c)
             rep = fleet.make_fleet_replay(searchm, c)
-            zero_launches()
+            _build.reset_launches()
             sync()
             t0 = time.perf_counter()
             for t in range(boot):
@@ -493,6 +589,18 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
         check(int(of1) == int(of2) == 0, f"Schur overflow {int(of1)}, "
               f"{int(of2)} at {SCHUR_CAP} slots")
         check(per_step == 3, f"{per_step} collectives a Schur step, want 3")
+        # too many separators for SEP_SMALL slots: the step reports the
+        # overflow, as the host check says; with a rank's nodes as slots none
+        cg = cluster_graph(dev, n_ranks)
+        big = max(16, cg.poses.shape[0] // n_ranks)
+        fits = schur.check_separator_capacity(cg, n_ranks, SEP_SMALL)
+        _, of_small = schur.schur_gn_step(node, cg, sep_capacity=SEP_SMALL)
+        _, of_big = schur.schur_gn_step(node, cg, sep_capacity=big)
+        check(not fits and int(of_small) > 0 and int(of_big) == 0
+              and schur.check_separator_capacity(cg, n_ranks, big),
+              f"the cluster graph's overflow at {SEP_SMALL} slots is "
+              f"{int(of_small)} (the host check: fits {fits}), at {big} "
+              f"{int(of_big)}")
         step_s = timed(lambda: schur.schur_gn_step(node, gs,
                                                    sep_capacity=SCHUR_CAP),
                        10)
@@ -501,6 +609,8 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
                             "schur_err_step1": errs[0],
                             "schur_err_step2": errs[1],
                             "schur_collectives_per_step": per_step,
+                            "cluster_overflow_small": int(of_small),
+                            "cluster_slots_big": big,
                             "schur_ms_per_step": step_s * 1e3,
                             "rank_schur_ms_per_step": all_ranks(step_s * 1e3)}
 
@@ -528,6 +638,36 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
             ck[name] = {"pose_err_m": perr, "map_err": merr,
                         "bit_for_bit": same}
         num["checkpoint"] = {"cut": cut, "saved_on": names[0], **ck}
+
+    # ---- 5. section 3's checkpoint: resumed on the first mesh, restored --
+    # on the last
+    if "graph" in sections and gsave:
+        hcfg, gcfg, mcfg, cap = replay.sharded_graph_config(
+            "onehot_bf16", m1.shape["search"])
+        st_b, out_b = gfinal["onehot_bf16"]
+        like = graph_slam.init(hcfg, gcfg, (0.0, 0.0, 0.0), nb, dev)
+        st_r, out_r = replay.sharded_graph_replay(
+            m1, gdlog, hcfg, gcfg, mcfg, cap, state=checkpoint.restore_sharded(
+                f"{work}/graph", m1, hcfg, like), start=gcut)
+        check(torch.equal(out_r.poses, out_b.poses[gcut:])
+              and torch.equal(st_r.local_maps, st_b.local_maps)
+              and torch.equal(st_r.graph.poses, st_b.graph.poses)
+              and torch.equal(st_r.kf_points, st_b.kf_points)
+              and st_r.nodes == st_b.nodes, f"section 3's resume at "
+              f"{names[0]} differs from the uninterrupted replay")
+        saved_st = checkpoint.restore(f"{work}/graph", like)
+        mr = meshes[names[-1]]
+        back = gss.to_dense(mr, checkpoint.restore_sharded(
+            f"{work}/graph", mr, hcfg, like), hcfg)
+        check(torch.equal(back.hector.maps, saved_st.hector.maps)
+              and torch.equal(back.kf_points, saved_st.kf_points)
+              and torch.equal(back.kf_valid, saved_st.kf_valid)
+              and torch.equal(back.graph.poses, saved_st.graph.poses)
+              and back.nodes == saved_st.nodes, f"section 3's checkpoint "
+              f"restored on {names[-1]} differs from the saved state")
+        num.setdefault("checkpoint", {})["graph"] = {
+            "cut": gcut, "saved_on": names[0], "restored_on": names[-1],
+            "nodes_at_cut": saved_st.nodes}
 
     # ---- 4 (the trace). one scan of 1 and one keyframe event of 3 -------
     if dev.type == "cuda" and "hector" in sections and "graph" in sections:
@@ -568,16 +708,30 @@ def rank_main(ref: str, work: str, backend: str, device: str | None,
 
     # ---- 6. K1-K5 on this rank's card against their plain versions ------
     if "kernels" in sections and dev.type == "cuda":
-        zero_launches()
+        _build.reset_launches()
         res["kernel_errors"] = kernel_checks(dev, glog, flog, lo, hi, boot)
-        res["launches"]["kernels"] = {k: v for k, v in read_launches().items()
-                                      if v}
+        res["launches"]["kernels"] = {
+            k: v for k, v in _build.kernel_launches().items() if v}
 
     res["counts"] = {m_name: dict(m.counts) for m_name, m in
                      zip((*names, "search", "edge", "node"), every)}
     if rank == 0:
         res["numbers"] = num
     return res
+
+
+def cluster_graph(dev, n_ranks: int, n: int = 64):
+    """tests/test_posegraph.py's loop-closure cluster: the ``n``-node circle
+    with every node of the first rank's block tied to its twin half a turn
+    on (every node of the block a separator)."""
+    g = replay.circle_graph(dev, n, n, 256)
+    ths = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    truth = torch.tensor(np.stack([5.0 * np.cos(ths), 5.0 * np.sin(ths),
+                                   ths + np.pi / 2], -1), dtype=torch.float32)
+    for t in range(n // n_ranks):
+        g = posegraph.add_edge(g, t, t + n // 2, pose_between(
+            truth[t], truth[t + n // 2]).to(dev), (10.0, 10.0, 40.0))
+    return g
 
 
 def jax_fails_own_check(mode: str, mesh: str) -> bool:
@@ -712,7 +866,7 @@ def single_card_check(card: int) -> dict:
         got = {}
         for dev in (torch.device("cuda", card), torch.device("cuda", 0)):
             dlog = replay.head(replay.to_device(log, dev), SINGLE_SCANS)
-            zero_launches()
+            _build.reset_launches()
             st = replay.bootstrap(hector.init(cfg, log.traj[0], dev), dlog,
                                   boot, cfg)
             st, o = replay.replay(st, dlog, boot, cfg)
@@ -734,8 +888,9 @@ def single_card_check(card: int) -> dict:
 def references(tmp: str, dev, hector_scans: int, coreslam_scans: int,
                sections) -> None:
     """The dense references on this process's device, into ``tmp``: the
-    fixed replay (forced maps, poses, maps, map updates), the production
-    CoreSLAM, the single-process fleet of each row."""
+    fixed replay (forced maps, poses, maps, map updates) and its exit run,
+    the production and parity CoreSLAM, the single-process fleet of each
+    row."""
     log = replay.make_log(0)
     dlog = replay.to_device(log, dev)
     boot = log.bootstrap
@@ -750,14 +905,21 @@ def references(tmp: str, dev, hector_scans: int, coreslam_scans: int,
         R["h_poses"] = out.poses.cpu().numpy()
         R["h_maps"] = stf.maps.cpu().numpy()
         R["h_updates"] = int(out.map_updated.sum())
+        xcfg = cfg.overlay({"early_exit_tol": EXIT_TOL_FIRES})
+        hx = replay.head(dlog, boot + min(SHORT_SCANS, hector_scans - boot))
+        _, xo = replay.replay(replay.bootstrap(hector.init(
+            xcfg, log.traj[0], dev), hx, boot, xcfg), hx, boot, xcfg)
+        R["x_poses"] = xo.poses.cpu().numpy()
+        R["x_iters"] = int(xo.gn_iterations.sum())
     if "coreslam" in sections:
-        cst, co = replay.coreslam_replay(replay.head(dlog, coreslam_scans),
-                                         replay.coreslam_production_config(),
-                                         seed=1)
-        R["c_poses"] = co.poses.cpu().numpy()
-        R["c_sums"] = co.best_sum.cpu().numpy()
-        R["c_hole"] = cst.hole_map.cpu().numpy()
-        R["c_obst"] = cst.obstacle_map.cpu().numpy()
+        for mode, c in (("production", replay.coreslam_production_config()),
+                        ("parity", replay.coreslam_parity_config())):
+            cst, co = replay.coreslam_replay(
+                replay.head(dlog, coreslam_scans), c, seed=1)
+            R[f"c_{mode}_poses"] = co.poses.cpu().numpy()
+            R[f"c_{mode}_sums"] = co.best_sum.cpu().numpy()
+            R[f"c_{mode}_hole"] = cst.hole_map.cpu().numpy()
+            R[f"c_{mode}_obst"] = cst.obstacle_map.cpu().numpy()
     if "fleet" in sections:
         flog = replay.make_fleet_log(log)
         fdlog = replay.to_device(flog, dev)
@@ -863,12 +1025,21 @@ def report(out: dict, cards: int, backend: str) -> list:
             f"{max(o['rank_scans_per_s']):.2f} scans/s); "
             f"{o['collectives_per_scan']:.0f} collectives and "
             f"{o['host_copies_per_scan']:.0f} host copies a scan")
-    if "coreslam" in num:
-        o = num["coreslam"]
-        lines.append(f"[multichip] 2. sharded CoreSLAM production, "
-                     f"{o['scans']} scans: = the dense pipeline bit for bit; "
-                     f"ATE {o['ate_m']:.9f} m (JAX {o['jax_ref_ate_m']}); "
-                     f"{o['scans_per_s']:.2f} scans/s")
+        if "modes" in o:
+            b, x = o["modes"]["onehot_bf16"], o["modes"]["exit"]
+            lines.append(
+                f"[multichip] 1. sharded Hector {name}, {b['scans']} matched "
+                f"scans: onehot_bf16 within {b['pose_err_m']:.3g} m of "
+                f"gather's; the exit at {EXIT_TOL_FIRES} px within "
+                f"{x['pose_err_m']:.3g} m of the dense exit replay, "
+                f"{x['gn_iterations']} GN iterations (dense "
+                f"{x['dense_gn_iterations']}); forced maps bit for bit")
+    for mode, o in num.get("coreslam", {}).items():
+        lines.append(f"[multichip] 2. sharded CoreSLAM {mode}, {o['scans']} "
+                     "scans: = the dense pipeline bit for bit; ATE "
+                     f"{o['ate_m']:.9f} m"
+                     + (f" (JAX {o['jax_ref_ate_m']})" if mode == "production"
+                        else "") + f"; {o['scans_per_s']:.2f} scans/s")
     for mode, o in num.get("graph", {}).items():
         lines.append(
             f"[multichip] 3. sharded graph, {mode} frontend, {o['scans']} "
@@ -881,6 +1052,12 @@ def report(out: dict, cards: int, backend: str) -> list:
             f"{o['collectives_per_keyframe_event']:.0f} collectives a "
             f"keyframe event, {o['host_copies_per_scan']:.2f} host copies a "
             "scan")
+        if "rebuild" in o:
+            rb = o["rebuild"]
+            lines.append(
+                f"[multichip] 3. its state rebuilt on {rb['mesh']} "
+                f"(rebuild_maps_sharded, {rb['nodes']} nodes) = the serial "
+                "rebuild_maps bit for bit, halos included")
         if o["jax_fails_own_check"]:
             lines.append(
                 f"[multichip] 3. note: on {o['mesh']} JAX's own "
@@ -906,15 +1083,25 @@ def report(out: dict, cards: int, backend: str) -> list:
             f"{o['schur_collectives_per_step']:.0f} collectives, "
             f"{o['schur_ms_per_step']:.2f} ms a step (rank 0; ranks "
             f"{min(o['rank_schur_ms_per_step']):.2f}-"
-            f"{max(o['rank_schur_ms_per_step']):.2f})")
-    if "checkpoint" in num:
-        o = num["checkpoint"]
+            f"{max(o['rank_schur_ms_per_step']):.2f}); the loop-closure "
+            f"cluster overflows {SEP_SMALL} slots by "
+            f"{o['cluster_overflow_small']} (the host check agrees), none at "
+            f"{o['cluster_slots_big']}")
+    o = num.get("checkpoint", {})
+    if "cut" in o:
         lines.append("[multichip] 5. checkpoint saved on "
                      f"{o['saved_on']} at scan {o['cut']}: " + "; ".join(
                          f"{k} bit for bit {v['bit_for_bit']}, poses "
                          f"{v['pose_err_m']:.3g} m, maps {v['map_err']:.3g} "
                          "from the dense" for k, v in o.items()
-                         if isinstance(v, dict)))
+                         if isinstance(v, dict) and k != "graph"))
+    if "graph" in o:
+        g = o["graph"]
+        lines.append(f"[multichip] 5. section 3's checkpoint saved on "
+                     f"{g['saved_on']} at scan {g['cut']} "
+                     f"({g['nodes_at_cut']} nodes): resumed there = the "
+                     "uninterrupted replay bit for bit; restored on "
+                     f"{g['restored_on']} = the saved state")
     for key, o in num.get("trace", {}).items():
         lines.append(f"[multichip] trace of one {key} on rank 0: wall "
                      f"{o['wall_ms']:.2f} ms, {o['kernels']} kernels, busy "
@@ -939,13 +1126,13 @@ def report(out: dict, cards: int, backend: str) -> list:
     return lines
 
 
-def _strip(o):
+def strip_tracks(o):
     """``o`` without the per-scan tracks (for the JSON line)."""
     if isinstance(o, dict):
-        return {k: _strip(v) for k, v in o.items()
+        return {k: strip_tracks(v) for k, v in o.items()
                 if k not in ("poses", "flags")}
     if isinstance(o, list):
-        return [_strip(v) for v in o]
+        return [strip_tracks(v) for v in o]
     return o
 
 
@@ -974,7 +1161,7 @@ def main(argv=None) -> int:
                "count": args.cards}
     else:
         dev = {"platform": "cpu", "kind": "cpu", "count": args.cards}
-    print(json.dumps(_strip(out)), flush=True)
+    print(json.dumps(strip_tracks(out)), flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)
     return 0
 

@@ -13,7 +13,11 @@ takes seconds.  A rebuilt source gets a new hash and a new directory.
 Every launch goes through ``launch``, which makes the tensors' card the
 current device for the call: a ``<<<..., stream>>>`` launch goes to the
 calling thread's current device, whatever card the stream and the pointers
-belong to.
+belong to.  ``launch`` also counts the call under its kernel's key
+(``KERNELS``), the one count of launches in the package:
+``kernel_launches()`` reads it, ``reset_launches`` zeroes or restores it,
+and ``add_launches`` adds what a replayed CUDA graph launched without
+passing through here.
 """
 from __future__ import annotations
 
@@ -139,9 +143,38 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(what: str, fn, device: torch.device, *args) -> None:
+# every kernel's key, as PERF.md's kernel table names it: a launcher call
+# counts once (the fleet's batch-wide exit, a launch a level and a finishing
+# one, is one call under its own key; K7 is three launchers)
+KERNELS = ("K1", "K3", "K5", "K3_batch", "K5_exit", "K3_batch_exit", "K6",
+           "K2", "K2_batch", "K4", "K4_batch", "K7_hole_walk",
+           "K7_hole_blend", "K7_obstacle")
+_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def kernel_launches() -> dict:
+    """A snapshot of the launcher calls counted so far, by kernel key."""
+    return dict(_LAUNCHES)
+
+
+def reset_launches(counts: dict | None = None) -> None:
+    """Zero every count, or set them back to ``counts`` (a
+    ``kernel_launches()`` snapshot)."""
+    for k in KERNELS:
+        _LAUNCHES[k] = counts[k] if counts is not None else 0
+
+
+def add_launches(pairs) -> None:
+    """Count the (kernel key, calls) ``pairs``: the launches a replayed CUDA
+    graph holds, which ran without a call of ``launch``."""
+    for k, n in pairs:
+        _LAUNCHES[k] += n
+
+
+def launch(what: str, fn, device: torch.device, *args, kernel: str) -> None:
     """Call the C launcher ``fn(*args, stream)`` for tensors on ``device``
-    (PyTorch's current stream there) and raise on its error code.
+    (PyTorch's current stream there), raise on its error code and count the
+    call under ``kernel`` (a key of ``KERNELS``).
 
     The launcher's ``<<<..., stream>>>`` goes to the thread's current
     device, so ``device`` is made current for the call alone: otherwise a
@@ -155,6 +188,7 @@ def launch(what: str, fn, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         code = fn(*args, stream_handle(device))
     raise_on_error(code, what)
+    _LAUNCHES[kernel] += 1
 
 
 def check_tensors(kernel: str, device: torch.device, specs) -> None:

@@ -112,13 +112,15 @@ def _check_levels(cfg: HectorConfig, kernel: str = "K2") -> None:
                          f"{cfg.num_levels}")
 
 
-def _launch(what: str, maps, points, valid, poses, scan_poses, fire,
+def _launch(kernel: str, maps, points, valid, poses, scan_poses, fire,
             cfg: HectorConfig, batch: int) -> None:
+    """One launch of ``kernel`` (its ``_build.KERNELS`` key)."""
     dev = maps.device
-    _build.launch(what, _launcher(), dev, maps.data_ptr(), points.data_ptr(),
-                  valid.data_ptr(), poses.data_ptr(), scan_poses.data_ptr(),
-                  fire.data_ptr(),
-                  _params(cfg, points.shape[-2], batch, sm_count(dev.index)))
+    _build.launch(f"{kernel} fill", _launcher(), dev, maps.data_ptr(),
+                  points.data_ptr(), valid.data_ptr(), poses.data_ptr(),
+                  scan_poses.data_ptr(), fire.data_ptr(),
+                  _params(cfg, points.shape[-2], batch, sm_count(dev.index)),
+                  kernel=kernel)
 
 
 def update_maps(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
@@ -142,12 +144,8 @@ def update_maps(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
         ("do_update", do_update, torch.bool, ())))
     if n < 1:
         raise ValueError("K2 needs at least one beam")
-    _launch("K2 fill", maps, points, valid, pose, scan_pose, do_update, cfg, 1)
-    update_maps.launches += 1
+    _launch("K2", maps, points, valid, pose, scan_pose, do_update, cfg, 1)
     return maps
-
-
-update_maps.launches = 0
 
 
 def check_update_inputs(kernel: str, maps: torch.Tensor, points: torch.Tensor,
@@ -191,13 +189,8 @@ def update_maps_batch(maps: torch.Tensor, points: torch.Tensor,
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_batch_plain(maps, points, valid, poses,
                                                   scan_poses, fire, cfg))
-    _launch("K2 fill_batch", maps, points, valid, poses, scan_poses, fire,
-            cfg, b)
-    update_maps_batch.launches += 1
+    _launch("K2_batch", maps, points, valid, poses, scan_poses, fire, cfg, b)
     return maps
-
-
-update_maps_batch.launches = 0
 
 
 def update_maps_plain(maps: torch.Tensor, points: torch.Tensor,

@@ -170,19 +170,13 @@ def update_hole_map(hole_map_flat: torch.Tensor, size: int, scale: float,
     params = _HoleParams(size, n, scale, hole_width * scale / 2.0)
     walk, blend = _launchers()
     _build.launch("K7 hole walk", walk, dev, acc.data_ptr(),
-                  points.data_ptr(), valid.data_ptr(), pose.data_ptr(), params)
+                  points.data_ptr(), valid.data_ptr(), pose.data_ptr(), params,
+                  kernel="K7_hole_walk")
     _build.launch("K7 hole blend", blend, dev, hole_map_flat.data_ptr(),
                   out.data_ptr(), acc.data_ptr(),
                   decay_table(quality, n, dev).data_ptr(), pose.data_ptr(),
-                  params)
-    _HOLE_WRAPPER.launches += 1
+                  params, kernel="K7_hole_blend")
     return out
-
-
-update_hole_map.launches = 0      # calls that ran K7 (two launches each)
-# the counter's owner, also while a caller wraps the module's name (the
-# benchmark's planted faults do)
-_HOLE_WRAPPER = update_hole_map
 
 
 def update_hole_map_plain(hole_map_flat: torch.Tensor, size: int,

@@ -114,14 +114,15 @@ def _resident() -> int:
     return max(1, min(blocks.value, BLOCKS_PER_SM))
 
 
-def _launch(what: str, maps, points, valid, poses, scan_poses, fire,
+def _launch(kernel: str, maps, points, valid, poses, scan_poses, fire,
             cfg: HectorConfig, batch: int) -> None:
+    """One launch of ``kernel`` (its ``_build.KERNELS`` key)."""
     dev = maps.device
-    _build.launch(what, _launcher(), dev, maps.data_ptr(), points.data_ptr(),
-                  valid.data_ptr(), poses.data_ptr(), scan_poses.data_ptr(),
-                  fire.data_ptr(),
+    _build.launch(f"{kernel} line", _launcher(), dev, maps.data_ptr(),
+                  points.data_ptr(), valid.data_ptr(), poses.data_ptr(),
+                  scan_poses.data_ptr(), fire.data_ptr(),
                   _params(cfg, points.shape[-2], batch, sm_count(dev.index),
-                          _resident()))
+                          _resident()), kernel=kernel)
 
 
 def update_maps_line(maps: torch.Tensor, points: torch.Tensor,
@@ -137,12 +138,8 @@ def update_maps_line(maps: torch.Tensor, points: torch.Tensor,
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_line_plain(maps, points, valid, pose,
                                                  scan_pose, do_update, cfg))
-    _launch("K4 line", maps, points, valid, pose, scan_pose, do_update, cfg, 1)
-    update_maps_line.launches += 1
+    _launch("K4", maps, points, valid, pose, scan_pose, do_update, cfg, 1)
     return maps
-
-
-update_maps_line.launches = 0
 
 
 def update_maps_line_batch(maps: torch.Tensor, points: torch.Tensor,
@@ -159,13 +156,8 @@ def update_maps_line_batch(maps: torch.Tensor, points: torch.Tensor,
     if maps.device.type == "cpu":
         return maps.copy_(update_maps_line_batch_plain(
             maps, points, valid, poses, scan_poses, fire, cfg))
-    _launch("K4 line_batch", maps, points, valid, poses, scan_poses, fire,
-            cfg, b)
-    update_maps_line_batch.launches += 1
+    _launch("K4_batch", maps, points, valid, poses, scan_poses, fire, cfg, b)
     return maps
-
-
-update_maps_line_batch.launches = 0
 
 
 def update_maps_line_plain(maps: torch.Tensor, points: torch.Tensor,

@@ -44,11 +44,10 @@ ported ``ops/gn.py`` math), batched over the instance axis; it is the plain
 version of K5, K6 and the batched K3, and ``match_plain`` (K1's and K3's) is
 its one-robot case.  Each wrapper checks its inputs on any device, runs the
 plain version for CPU tensors only, and for CUDA tensors launches the kernel
-or raises.  Launch counts: ``match.launches`` (K1), ``match.launches_f32``
-(K3), ``match_batch.launches`` (K5), ``match_batch.launches_f32`` (the
-batched K3), ``match_packed.launches`` (K6); a fleet match with the exit
-(one launch a level and a finishing one, ``csrc/match.cu``) counts once
-there, and also in ``match_batch.exit_launches``.
+or raises.  ``_build.launch`` counts each launch under K1, K3, K5,
+K3_batch or K6; a fleet match with the exit (one launch a level and a
+finishing one, ``csrc/match.cu``) counts once, under K5_exit or
+K3_batch_exit by its table.
 """
 from __future__ import annotations
 
@@ -176,27 +175,30 @@ def _exit_launcher():
     return fn, work
 
 
-def _launch(what: str, maps, points, valid, hints, cfg: HectorConfig,
+def _launch(kernel: str, maps, points, valid, hints, cfg: HectorConfig,
             batch: int, g_pack: int, full_scan: bool = False) -> torch.Tensor:
+    """One launch of ``kernel`` (its ``_build.KERNELS`` key)."""
     out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
-    _build.launch(what, _launcher(), maps.device, maps.data_ptr(),
+    _build.launch(f"{kernel} match", _launcher(), maps.device, maps.data_ptr(),
                   points.data_ptr(), valid.data_ptr(), hints.data_ptr(),
                   out.data_ptr(),
-                  _params(cfg, points.shape[-2], batch, g_pack, full_scan))
+                  _params(cfg, points.shape[-2], batch, g_pack, full_scan),
+                  kernel=kernel)
     return out
 
 
-def _launch_exit(what: str, maps, points, valid, hints, cfg: HectorConfig,
+def _launch_exit(kernel: str, maps, points, valid, hints, cfg: HectorConfig,
                  batch: int) -> torch.Tensor:
-    """The fleet's batch-wide exit: one launch a level and a finishing one
-    over a workspace of the per-level, per-instance iteration states."""
+    """The fleet's batch-wide exit, counted under ``kernel``: one launch a
+    level and a finishing one over a workspace of the per-level,
+    per-instance iteration states."""
     fn, work_floats = _exit_launcher()
     p = _params(cfg, points.shape[-2], batch, 1, False)
     out = torch.empty((batch, OUT), dtype=torch.float32, device=maps.device)
     work = torch.empty(work_floats(p), dtype=torch.float32, device=maps.device)
-    _build.launch(what, fn, maps.device, maps.data_ptr(), points.data_ptr(),
-                  valid.data_ptr(), hints.data_ptr(), out.data_ptr(),
-                  work.data_ptr(), p)
+    _build.launch(f"{kernel} match", fn, maps.device, maps.data_ptr(),
+                  points.data_ptr(), valid.data_ptr(), hints.data_ptr(),
+                  out.data_ptr(), work.data_ptr(), p, kernel=kernel)
     return out
 
 
@@ -222,17 +224,9 @@ def match(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"{kernel} takes 1..{MAX_BEAMS} matcher beams, got {n}")
     if maps.device.type == "cpu":
         return match_plain(maps, points, valid, hint, cfg)
-    out = _launch(f"{kernel} match", maps, points, valid, hint, cfg, 1, 1,
+    out = _launch(kernel, maps, points, valid, hint, cfg, 1, 1,
                   full_scan_empty(cfg))
-    if kernel == "K3":
-        match.launches_f32 += 1
-    else:
-        match.launches += 1
     return out.view(OUT)
-
-
-match.launches = 0
-match.launches_f32 = 0
 
 
 def _check_batch(kernel: str, maps: torch.Tensor, points: torch.Tensor,
@@ -285,27 +279,15 @@ def match_batch(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     of ``maps``.  With ``early_exit_tol > 0``, the batch-wide exit: a launch
     a level and a finishing one, counted as one call."""
     f32 = table_f32(cfg)
-    kernel = "K3 batch" if f32 else "K5"
-    b = _check_batch(kernel, maps, points, valid, hints, cfg)
+    b = _check_batch("K3 batch" if f32 else "K5", maps, points, valid, hints,
+                     cfg)
     if maps.device.type == "cpu":
         return match_batch_plain(maps, points, valid, hints, cfg)
+    kernel = "K3_batch" if f32 else "K5"
     if cfg.early_exit_tol > 0.0:
-        out = _launch_exit(f"{kernel} match_batch (exit)", maps, points,
-                           valid, hints, cfg, b)
-        match_batch.exit_launches += 1
-    else:
-        out = _launch(f"{kernel} match_batch", maps, points, valid, hints,
-                      cfg, b, 1)
-    if f32:
-        match_batch.launches_f32 += 1
-    else:
-        match_batch.launches += 1
-    return out
-
-
-match_batch.launches = 0
-match_batch.launches_f32 = 0
-match_batch.exit_launches = 0
+        return _launch_exit(f"{kernel}_exit", maps, points, valid, hints, cfg,
+                            b)
+    return _launch(kernel, maps, points, valid, hints, cfg, b, 1)
 
 
 def match_packed(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
@@ -315,21 +297,14 @@ def match_packed(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
     its own warps.  Computes the same function as ``match_batch``, bit for
     bit, in either table precision; its plain version is
     ``match_batch_plain``.  The early exit takes ``g_pack`` 1 only (and then
-    runs K5's launches)."""
+    runs ``match_batch``'s exit, counted as its)."""
     b = _check_batch("K6", maps, points, valid, hints, cfg, g_pack)
     if maps.device.type == "cpu":
         return match_batch_plain(maps, points, valid, hints, cfg)
     if cfg.early_exit_tol > 0.0:
-        out = _launch_exit("K6 match_packed (exit)", maps, points, valid,
-                           hints, cfg, b)
-    else:
-        out = _launch("K6 match_packed", maps, points, valid, hints, cfg, b,
-                      g_pack)
-    match_packed.launches += 1
-    return out
-
-
-match_packed.launches = 0
+        return _launch_exit("K3_batch_exit" if table_f32(cfg) else "K5_exit",
+                            maps, points, valid, hints, cfg, b)
+    return _launch("K6", maps, points, valid, hints, cfg, b, g_pack)
 
 
 def match_plain(maps: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,

@@ -104,14 +104,9 @@ def update_obstacle_map(obstacle_map: torch.Tensor, size: int, scale: float,
     out = torch.empty((size, size), dtype=torch.int8, device=dev)
     _build.launch("K7 obstacle map", _launcher(), dev, obstacle_map.data_ptr(),
                   out.data_ptr(), points.data_ptr(), valid.data_ptr(),
-                  pose.data_ptr(), _ObstacleParams(size, n, max_hits, scale))
-    _OBSTACLE_WRAPPER.launches += 1
+                  pose.data_ptr(), _ObstacleParams(size, n, max_hits, scale),
+                  kernel="K7_obstacle")
     return out
-
-
-update_obstacle_map.launches = 0      # calls that ran K7's obstacle launch
-# the counter's owner, also while a caller wraps the module's name
-_OBSTACLE_WRAPPER = update_obstacle_map
 
 
 def update_obstacle_map_plain(obstacle_map: torch.Tensor, size: int,

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from slamnet_tpu_torch import replay
-from slamnet_tpu_torch.ops import holemap, obstacle
+from slamnet_tpu_torch.ops import _build, holemap, obstacle
 
 SIZE, OSIZE = 256, 64                    # coreslam_sim256
 SCALE, OSCALE = SIZE / 40.0, OSIZE / 40.0
@@ -218,8 +218,7 @@ def obstacle_twin(obst, size, scale, points, valid, pose, max_hits):
 # ---- the tests ----------------------------------------------------------
 def test_cpu_takes_the_plain_path_and_counts_no_launch(world):
     traj, pts, valid, hole, obst = world
-    h0 = holemap.update_hole_map.launches
-    o0 = obstacle.update_obstacle_map.launches
+    c0 = _build.kernel_launches()
     for t, p in POSES[:3]:
         pose = _pose(traj, t, p)
         assert torch.equal(
@@ -232,8 +231,10 @@ def test_cpu_takes_the_plain_path_and_counts_no_launch(world):
                                          pose, MAX_HITS),
             obstacle.update_obstacle_map_plain(obst, OSIZE, OSCALE, pts[t],
                                                valid[t], pose, MAX_HITS))
-    assert (holemap.update_hole_map.launches,
-            obstacle.update_obstacle_map.launches) == (h0, o0) == (0, 0)
+    assert _build.kernel_launches() == c0
+    # no CPU test counts a K7 launch: the stand-in replays set theirs back
+    assert all(c0[k] == 0 for k in ("K7_hole_walk", "K7_hole_blend",
+                                    "K7_obstacle"))
 
 
 def test_decay_table_is_blend_visits_pow():
@@ -332,8 +333,7 @@ def test_the_kernels_equal_the_plain_path_on_the_card(world):
         pytest.skip("needs a CUDA card")
     traj, pts, valid, hole, obst = world
     dev = torch.device("cuda")
-    h0 = holemap.update_hole_map.launches
-    o0 = obstacle.update_obstacle_map.launches
+    c0 = _build.kernel_launches()
     for t, p in POSES:
         args = (pts[t].to(dev), valid[t].to(dev), _pose(traj, t, p).to(dev))
         hk = holemap.update_hole_map(hole.to(dev), SIZE, SCALE, *args,
@@ -345,5 +345,7 @@ def test_the_kernels_equal_the_plain_path_on_the_card(world):
         op = obstacle.update_obstacle_map_plain(obst.to(dev), OSIZE, OSCALE,
                                                 *args, MAX_HITS)
         assert torch.equal(hk, hp) and torch.equal(ok, op)
-    assert holemap.update_hole_map.launches - h0 == len(POSES)
-    assert obstacle.update_obstacle_map.launches - o0 == len(POSES)
+    got = _build.kernel_launches()
+    rose = {k: got[k] - c0[k] for k in got if got[k] != c0[k]}
+    assert rose == dict.fromkeys(
+        ("K7_hole_walk", "K7_hole_blend", "K7_obstacle"), len(POSES))

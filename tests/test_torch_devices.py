@@ -91,17 +91,23 @@ def test_every_launch_runs_with_its_tensors_card_current(recorder, launcher):
     call = {"slamnet_match": lambda: match._launch(
                 "K3", maps, points, valid, poses, CFG, 2, 1),
             "slamnet_match_batch_exit": lambda: match._launch_exit(
-                "K3 exit", maps, points, valid, poses, CFG, 2),
+                "K3_batch_exit", maps, points, valid, poses, CFG, 2),
             "slamnet_fill": lambda: fill._launch(
                 "K2", maps, points, valid, poses, poses, fire, CFG, 2),
             "slamnet_line": lambda: line._launch(
                 "K4", maps, points, valid, poses, poses, fire, CFG, 2)}
+    key = {"slamnet_match": "K3", "slamnet_match_batch_exit": "K3_batch_exit",
+           "slamnet_fill": "K2", "slamnet_line": "K4"}[launcher]
+    before = _build.kernel_launches()
     call[launcher]()
     launches = [c for c in recorder if c[0] in LAUNCHERS]
     # one call of the launcher, inside the guard of the maps' device, on
-    # the stream of that device
+    # the stream of that device, counted once under its kernel's key
     assert [(name, devs, stream) for name, devs, stream in launches] == \
         [(launcher, [maps.device], 12345)]
+    after = _build.kernel_launches()
+    assert {k: n - before[k] for k, n in after.items() if n != before[k]} \
+        == {key: 1}
 
 
 def test_launch_raises_on_the_launchers_error_code(recorder, monkeypatch):
@@ -109,7 +115,8 @@ def test_launch_raises_on_the_launchers_error_code(recorder, monkeypatch):
         return 700
 
     with pytest.raises(RuntimeError, match="cudaError 700"):
-        _build.launch("K1 match", failing, torch.device("cpu"), 1, 2)
+        _build.launch("K1 match", failing, torch.device("cpu"), 1, 2,
+                      kernel="K1")
 
 
 @pytest.fixture

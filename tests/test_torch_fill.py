@@ -16,7 +16,7 @@ from slamnet_tpu.core import HectorConfig as JHectorConfig
 from slamnet_tpu.core.scan import Scan as JScan
 from slamnet_tpu.models import hector as jhector
 from slamnet_tpu.ops import logodds as jlogodds
-from slamnet_tpu_torch.ops import fill, logodds
+from slamnet_tpu_torch.ops import _build, fill, logodds
 from slamnet_tpu_torch.replay import pallas_dense_config
 
 LOF = float(np.log(0.4 / 0.6))
@@ -104,9 +104,9 @@ def test_update_maps_all_levels_matches_jax_update_maps():
     maps = torch.from_numpy(base.copy())
     args = (torch.from_numpy(pts), torch.from_numpy(valid),
             torch.from_numpy(pose), torch.zeros(3))
-    before = fill.update_maps.launches
+    before = _build.kernel_launches()
     out = fill.update_maps(maps, *args, torch.tensor(True), cfg)
-    assert out is maps and fill.update_maps.launches == before
+    assert out is maps and _build.kernel_launches() == before
     for off, w in zip(cfg.level_offsets, cfg.level_sizes):
         sl = slice(off, off + w * w)
         _assert_fill_agrees(maps.numpy()[sl], want[sl], base[sl])

@@ -36,7 +36,7 @@ from slamnet_tpu.models import hector as jhector
 from slamnet_tpu_torch import convert, replay
 from slamnet_tpu_torch.core.scan import Scan
 from slamnet_tpu_torch.models import fleet, hector
-from slamnet_tpu_torch.ops import fill, match
+from slamnet_tpu_torch.ops import _build, fill, match
 from slamnet_tpu_torch.sim import default_field, revolution_angles
 from slamnet_tpu_torch.sim.field import ray_cast
 
@@ -196,10 +196,10 @@ def test_match_batch_plain_matches_jax_k5(flog, jax_boot):
                                 args[2][i], cfg)
         assert torch.equal(one, out[i]), i
     # the K5 and K6 wrappers take the plain version on the CPU, uncounted
-    counts = (match.match_batch.launches, match.match_packed.launches)
+    counts = _build.kernel_launches()
     assert torch.equal(match.match_batch(maps, *args, cfg), out)
     assert torch.equal(match.match_packed(maps, *args, cfg, 2), out)
-    assert (match.match_batch.launches, match.match_packed.launches) == counts
+    assert _build.kernel_launches() == counts
 
 
 @pytest.mark.parametrize("capacity", [1 << 30, 1])
@@ -299,10 +299,10 @@ def test_update_maps_batch_plain_equals_per_instance(flog):
         assert fire[i] or torch.equal(one, base[i * c:(i + 1) * c])
     assert not torch.equal(got, base)
     maps = base.clone()
-    before = fill.update_maps_batch.launches
+    before = _build.kernel_launches()
     out = fill.update_maps_batch(maps, p, vv, poses, zero, fire, cfg)
     assert out is maps and torch.equal(maps, got)
-    assert fill.update_maps_batch.launches == before
+    assert _build.kernel_launches() == before
 
 
 def test_fleet_convert_round_trip(jax_boot):
@@ -531,6 +531,7 @@ def test_batch_exit_plain_matches_jax(flog, jax_boot, mode, tol):
     jst, _ = jax_boot
     cfg = sub1_cfg(matcher_mode=mode, early_exit_tol=tol)
     hints = (traj[6] + EXIT_OFFSETS).astype(np.float32)
+    counts = _build.kernel_launches()
     out, poses_j, stats_j = _batch_match(jst.maps, cfg, pts[6], v[6], hints)
     np.testing.assert_allclose(out[:, :3], poses_j,
                                atol=1e-5 if mode == "gather" else 2e-3)
@@ -542,10 +543,7 @@ def test_batch_exit_plain_matches_jax(flog, jax_boot, mode, tol):
     if tol == 0.3:
         assert iters[0] < sum(SMALL["estimate_iterations"])
     # the wrapper takes the plain version on the CPU, uncounted
-    counts = (match.match_batch.launches, match.match_batch.launches_f32,
-              match.match_batch.exit_launches)
-    assert (match.match_batch.launches, match.match_batch.launches_f32,
-            match.match_batch.exit_launches) == counts
+    assert _build.kernel_launches() == counts
 
 
 def test_batch_exit_is_not_the_per_robot_rule(flog, jax_boot):

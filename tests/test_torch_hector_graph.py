@@ -1,7 +1,7 @@
 """``hector.update``'s CUDA graph policy (``models/hector.StepGraphs``) on
 the CPU, with a stand-in for the capture: the stand-in records the step's
 body and runs it on each replay, so the cache, the key, the static buffers,
-the packed results and the launch counters are the real ones.  The CUDA
+the packed results and the launch counts are the real ones.  The CUDA
 capture itself runs only on the card (``chip_smoke.py``, phase 37).
 """
 from types import SimpleNamespace
@@ -12,7 +12,7 @@ import torch
 from slamnet_tpu_torch import replay
 from slamnet_tpu_torch.core.scan import Scan
 from slamnet_tpu_torch.models import hector
-from slamnet_tpu_torch.ops import fill, match
+from slamnet_tpu_torch.ops import _build
 from slamnet_tpu_torch.sim import default_field, revolution_angles
 from slamnet_tpu_torch.sim import scan_revolution
 from slamnet_tpu_torch.sim.trajectory import loop_trajectory
@@ -37,16 +37,15 @@ class Recorded:
 
 
 class Recorder:
-    """``StepGraphs``' ``record``: keeps every stand-in it made, and adds
-    ``launches`` to the match and fill counters as a capture's Python does
-    on the card."""
+    """``StepGraphs``' ``record``: keeps every stand-in it made, and counts
+    ``n`` launches under each of ``kernels`` (``ops/_build``'s keys) as a
+    capture's Python does on the card."""
 
-    def __init__(self, launches: int = 0):
-        self.made, self.launches = [], launches
+    def __init__(self, n: int = 0, kernels=("K1", "K2")):
+        self.made, self.counted = [], tuple((k, n) for k in kernels)
 
     def __call__(self, body, device):
-        match.match.launches += self.launches
-        fill.update_maps.launches += self.launches
+        _build.add_launches(self.counted)
         self.made.append(Recorded(body, device))
         return self.made[-1]
 
@@ -219,17 +218,31 @@ def test_replayed_results_share_no_storage(scans, cfg, boot):
     assert len(set(firsts)) == len(firsts)
 
 
+def _captured_launches_replayed(scans, cfg, boot, kernels):
+    """The counts restored after a stand-in capture and the captured ones
+    added on each replay; the process's counts are set back afterwards."""
+    before = _build.kernel_launches()
+    try:
+        graphs = hector.StepGraphs(record=Recorder(1, kernels))
+        st, scan = _clone(boot), _scan(scans, BOOT)
+        for _ in range(2):                  # eager (CPU: counts 0), capture
+            graphs.step(st, scan, st.match_pose, cfg, False)
+        assert _build.kernel_launches() == before
+        g, = graphs.graphs[torch.device("cpu")].values()
+        assert g.launched == tuple((k, 1) for k in kernels)
+        for n in range(1, 4):
+            graphs.step(st, scan, st.match_pose, cfg, False)
+            assert _build.kernel_launches() == {
+                k: v + n * (k in kernels) for k, v in before.items()}
+    finally:
+        _build.reset_launches(before)
+
+
 def test_a_replay_adds_the_captured_launches_and_a_capture_none(
         scans, cfg, boot):
-    graphs = hector.StepGraphs(record=Recorder(launches=1))
-    st, scan = _clone(boot), _scan(scans, BOOT)
-    before = (match.match.launches, fill.update_maps.launches)
-    for _ in range(2):                      # eager (CPU: counts 0), capture
-        graphs.step(st, scan, st.match_pose, cfg, False)
-    assert (match.match.launches, fill.update_maps.launches) == before
-    g, = graphs.graphs[torch.device("cpu")].values()
-    assert g.launches == (1, 0, 1, 0)
-    for k in range(1, 4):
-        graphs.step(st, scan, st.match_pose, cfg, False)
-        assert (match.match.launches, fill.update_maps.launches) == (
-            before[0] + k, before[1] + k)
+    _captured_launches_replayed(scans, cfg, boot, ("K1", "K2"))
+
+
+def test_a_capture_of_any_kernel_is_restored_and_replayed(scans, cfg, boot):
+    # a key no list of the step's kernels names: K7's obstacle launch
+    _captured_launches_replayed(scans, cfg, boot, ("K7_obstacle",))

@@ -33,7 +33,7 @@ from slamnet_tpu.ops import logodds as jlogodds
 from slamnet_tpu.ops import rasterize as jrasterize
 from slamnet_tpu.ops.pallas_scatter import occupancy_scatter_pallas
 from slamnet_tpu_torch.core.geometry import dotnet_round
-from slamnet_tpu_torch.ops import fill, line, logodds, rasterize
+from slamnet_tpu_torch.ops import _build, fill, line, logodds, rasterize
 from slamnet_tpu_torch.replay import fixed_config
 
 LOF = float(np.log(0.4 / 0.6))
@@ -216,9 +216,9 @@ def test_update_maps_line_all_levels_matches_jax_update_maps():
     maps = torch.from_numpy(base.copy())
     args = (torch.from_numpy(pts), torch.from_numpy(valid),
             torch.from_numpy(pose), torch.zeros(3))
-    before = line.update_maps_line.launches
+    before = _build.kernel_launches()
     out = line.update_maps_line(maps, *args, torch.tensor(True), cfg)
-    assert out is maps and line.update_maps_line.launches == before
+    assert out is maps and _build.kernel_launches() == before
     for off, w, res in zip(cfg.level_offsets, cfg.level_sizes,
                            cfg.level_resolutions):
         sl = slice(off, off + w * w)
@@ -253,10 +253,10 @@ def _batch_plain_case(b):
         assert fire[i] or torch.equal(one, base[i * c:(i + 1) * c])
     assert not torch.equal(got, base)
     maps = base.clone()
-    before = line.update_maps_line_batch.launches
+    before = _build.kernel_launches()
     out = line.update_maps_line_batch(maps, p, v, poses, zero, fire, cfg)
     assert out is maps and torch.equal(maps, got)
-    assert line.update_maps_line_batch.launches == before
+    assert _build.kernel_launches() == before
 
 
 def test_update_maps_line_batch_plain_equals_per_instance():

@@ -4,10 +4,13 @@
 One ``multichip.run`` (ONE launch of 4 ranks, the env rendezvous, the plain
 versions) at a cut depth and JAX's full widths: the sharded Hector over the
 first 16 scans of ``make_log(0)`` (10 forced, 6 matched) on the 2x2 and 4x1
-meshes with its checkpoint at scan 13 resumed on both, the production
-CoreSLAM over 16 scans on 2x2, section 3's first 30 scans on 2x2 in both
-frontends (the first loop closure is at scan 29), every collective of both
-meshes, the edge-sharded GN and the Schur step.  The ranks hold themselves
+meshes with its checkpoint at scan 13 resumed on both and the onehot_bf16
+and exit runs on 2x2, the production and parity CoreSLAM over 16 scans on
+2x2, section 3's first 30 scans on 2x2 in both
+frontends (the first loop closure is at scan 29) with the onehot_bf16
+run's rebuild on 4x1 and its checkpoint at scan 15 resumed on 2x2 and
+restored on 4x1, every collective of both meshes, the edge-sharded GN,
+the Schur step and the loop-closure cluster's separator overflow.  The ranks hold themselves
 to the dense pipeline (``multichip``'s own checks); this file holds them to
 JAX.  The mesh fleet's section runs in ``tests/test_torch_mesh_fleet.py``
 on 8 ranks and on the card; its single-process references take most of a
@@ -124,13 +127,24 @@ def test_sharded_hector_follows_jax_at_4_devices(num, jax_out, mesh):
     assert o["map_updates"] + HECTOR_SCANS - o["scans"] == j["map_updates"]
     assert o["collectives_per_scan"] == 17
     assert o["pose_err_m"] <= POSE_TOL and o["map_err"] <= 1e-2
+    if mesh == "2x2":             # onehot_bf16 and the exit on the first mesh
+        m = o["modes"]
+        assert m["onehot_bf16"]["scans"] == HECTOR_SCANS - 10
+        assert m["onehot_bf16"]["pose_err_m"] <= POSE_TOL
+        assert m["exit"]["pose_err_m"] <= POSE_TOL
+        assert m["exit"]["gn_iterations"] < (HECTOR_SCANS - 10) * 15
+    else:
+        assert "modes" not in o
 
 
 def test_sharded_coreslam_follows_jax(num, jax_out):
-    o = num["coreslam"]
+    o = num["coreslam"]["production"]
     assert o["scans"] == CORESLAM_SCANS
     j = jax_out["coreslam_production_2x2"]
     assert abs(o["ate_m"] - j["ate_m"]) <= CORESLAM_SLACK
+    # the parity mode (Monte-Carlo, line updates) ran too, bit for bit the
+    # dense pipeline's (the ranks' own check)
+    assert num["coreslam"]["parity"]["scans"] == CORESLAM_SCANS
 
 
 @pytest.mark.parametrize("mode", GRAPH_MODES)
@@ -146,6 +160,8 @@ def test_sharded_graph_follows_jax_at_4_devices(num, jax_out, mode):
     assert o["loop_closures"] == j["loop_closures"]
     assert o["max_overflow"] == 0 and o["searches"] >= 1
     assert o["collectives_per_keyframe_event"] == 10
+    if mode == "onehot_bf16":     # rebuilt on 4x1 = rebuild_maps
+        assert o["rebuild"] == {"mesh": "4x1", "nodes": o["keyframes"]}
 
 
 def test_collectives_posegraph_and_checkpoint(num):
@@ -153,11 +169,17 @@ def test_collectives_posegraph_and_checkpoint(num):
     pg = num["posegraph"]
     assert pg["schur_collectives_per_step"] == 3
     assert pg["schur_err_step1"] <= 2e-4 and pg["schur_err_step2"] <= 5e-4
+    assert pg["cluster_overflow_small"] > 0 and pg["cluster_slots_big"] == 16
     ck = num["checkpoint"]
     assert ck["saved_on"] == "2x2" and ck["cut"] == 13
     assert ck["2x2"]["bit_for_bit"]
     assert ck["4x1"]["pose_err_m"] <= POSE_TOL
     assert ck["4x1"]["map_err"] <= 1e-2
+    # section 3's: resumed on 2x2 bit for bit, restored on 4x1 as saved
+    g = ck["graph"]
+    assert (g["saved_on"], g["restored_on"], g["cut"]) == ("2x2", "4x1",
+                                                          GRAPH_SCANS // 2)
+    assert 1 <= g["nodes_at_cut"] < num["graph"]["onehot_bf16"]["keyframes"]
 
 
 def test_refuses_an_odd_count_and_nccl_without_cards(capsys):
