@@ -8,10 +8,9 @@ Run from the repository root, with no arguments:
 Phases, one line each; any failure raises and the exit code is not 0:
   1. device   — a CUDA device is required; its name and power limit;
   2. build    — nvcc builds csrc/*.cu (match.cu: K1/K3/K5/K6, fill.cu: K2,
-                line.cu: K4, coreslam_map.cu: K7), one nvcc a source
-                started together, into
-                build/; each kernel's registers, stack and spills as ptxas
-                reports them;
+                line.cu: K4, coreslam_map.cu: K7, mc_search.cu: K8), one
+                nvcc a source started together, into build/; each
+                kernel's registers, stack and spills as ptxas reports them;
   3. K1       — the match kernel against its plain version on a bootstrapped
                 400x400 pyramid: 3 hints (pose within 2e-3, equal solve
                 failures, residual within rtol 0.05), the guard config
@@ -290,7 +289,17 @@ K4 kernel.
                 launch of each of K7's three kernels a scan; edges, a robot
                 outside the maps, a scan with no valid beam, refused maps;
                 the kernels' times beside their bounds and the plain times.
-Phases 17-38 print their seconds.
+ 39. K8       — CoreSLAM's Monte-Carlo search (mc_search.cu): a 522-scan
+                coreslam_sim256 job whose every searched scan runs K8 and
+                best_of_plain on the same candidates (no host read): every
+                pose and sum bit for bit, one K8 launch a searched scan; the
+                job through K8 alone and through the plain search alone
+                gives the same track; a planted tie, every candidate out of
+                the map, no valid beam, B = 1 / 2,000 / 4,001; each of
+                4,001 candidates alone (B = 1) = score_candidates' sum, in
+                11 sets; K8's time beside its bound and the plain search's
+                time.
+Phases 17-39 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -732,8 +741,10 @@ def entry_point_smoke(torch, dev) -> dict:
                                                "hector"],
           f"replay_demo exited {rc}: {demo_out[-2000:]}")
     if on_card:   # Hector and graph-SLAM at HectorConfig(): K3 + K4;
-        # CoreSLAM and the particle layer's line updates: K7
-        check(set(demo_counts) == {"K3", "K4", *CORESLAM_LINE_KERNELS}
+        # CoreSLAM and the particle layer's line updates: K7; CoreSLAM's
+        # Monte-Carlo search: K8
+        check(set(demo_counts) == {"K3", "K4", *CORESLAM_LINE_KERNELS,
+                                   "K8_search"}
               and min(demo_counts["K3"], demo_counts["K4"])
               >= 2 * (DEMO_SCANS - 10),
               f"replay_demo's launches {demo_counts}")
@@ -1123,6 +1134,155 @@ def coreslam_map_smoke(torch, dev) -> dict:
         f"{timing['obstacle_plain_ms']:.3f} ms); the job "
         f"{n_scans / tk:.1f} scans/s through K7, {n_scans / tp:.1f} plain")
     say(f"[seconds] phase 38: {secs:.1f}")
+    return out
+
+
+# ---- phase 39: CoreSLAM's Monte-Carlo search, K8 ---------------------------
+# f32 operations of one candidate and point: the transform's 4 products and
+# 4 sums (the snaps, bounds and integer sum are not counted)
+MC_OPS_PER_POINT = 8
+MC_EACH_EVERY = 52        # every 52nd searched scan: each candidate alone
+
+
+def mc_search_smoke(torch, dev) -> dict:
+    """Phase 39: K8 (``csrc/mc_search.cu``) against ``best_of_plain`` on
+    the card.  One whole job of ``coreslam_sim256`` (phase 38's, 4,001
+    candidates, line updates) in which every searched scan's candidates go
+    through K8 and through ``best_of_plain``, under CUDA's sync debug mode
+    "error": every pose and sum bit for bit, and one K8 launch a searched
+    scan (``coreslam.update_cloud.searches``).  The same job through K8
+    alone and through the plain search alone: the same track, and each
+    one's scans/s.  The cases of ``ops.score_cases``.  Every
+    ``MC_EACH_EVERY``-th searched scan's candidates, and the cases' 4,001,
+    each alone through K8 (B = 1) against ``score_candidates``: every
+    candidate's effective sum.  K8's time at 4,001 x 400 (a CUDA graph of
+    REPS_KERNEL calls, and eager calls with the host's launch cost) beside
+    its bound and the plain search's time."""
+    from unittest import mock
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.core.config import CoreSlamConfig
+    from slamnet_tpu_torch.core.scan import Scan
+    from slamnet_tpu_torch.models import coreslam
+    from slamnet_tpu_torch.ops import _build, score, score_cases
+
+    t0 = time.perf_counter()
+    cfg = CoreSlamConfig(num_candidates=4001)
+    S, hs, B = cfg.hole_map_size, cfg.hole_scale, cfg.num_candidates
+    dlog = replay.to_device(replay.make_log(seed=0), dev)
+    n_scans, n = dlog.points.shape[:2]
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    def job():
+        st = coreslam.init(cfg, dlog.traj[0], seed=score_cases.SEED,
+                           device=dev)
+        poses, sums = [], []
+        for t in range(n_scans):
+            st, info = coreslam.update_cloud(
+                st, Scan(dlog.points[t], dlog.valid[t], zero), st.pose, cfg)
+            poses.append(st.pose)
+            sums.append(info.best_sum)
+        return torch.stack(poses), torch.stack(sums), st
+
+    def counts():
+        return (_build.kernel_launches()["K8_search"],
+                coreslam.update_cloud.searches)
+
+    real = score.best_of
+    pairs, sets = [], []
+
+    def both(cands, *args):
+        got = real(cands, *args)
+        if len(pairs) % MC_EACH_EVERY == 0:
+            sets.append((cands, args[0].clone(), *args[1:]))
+        pairs.append((got, score.best_of_plain(cands, *args)))
+        return got
+
+    job()                      # the library, K7's and K8's scratch, warm
+    torch.cuda.synchronize()
+    c0 = counts()
+    torch.cuda.set_sync_debug_mode("error")     # no host read in the job
+    try:
+        with mock.patch.object(score, "best_of", both):
+            kp, ks, _ = job()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches, searches = (b - a for a, b in zip(c0, counts()))
+    want = n_scans - cfg.position_search_beginning
+    check(launches == searches == len(pairs) == want,
+          f"{launches} K8 launches, {searches} searches and {len(pairs)} "
+          f"searched scans in a {n_scans}-scan job, want {want} of each")
+    pose_k, pose_p = (torch.stack([p[i][0] for p in pairs]).view(torch.int32)
+                      for i in (0, 1))
+    sum_k, sum_p = (torch.stack([p[i][1] for p in pairs]) for i in (0, 1))
+    diff = {"pose_scans": int((pose_k != pose_p).any(dim=1).sum()),
+            "sum_scans": int((sum_k != sum_p).sum())}
+    check(not any(diff.values()), f"K8 differs from best_of_plain over "
+          f"{want} searched scans: {diff}")
+    check(int((sum_k == score.INT32_MAX).sum()) == 0
+          and int(sum_k.min()) > 0, "the job's searches scored nothing")
+
+    torch.cuda.synchronize()
+    tk = time.perf_counter()
+    kp2, ks2, kst = job()
+    torch.cuda.synchronize()
+    tk = time.perf_counter() - tk
+    with mock.patch.object(score, "best_of", score.best_of_plain):
+        tp = time.perf_counter()
+        pp, ps, _ = job()
+        torch.cuda.synchronize()
+        tp = time.perf_counter() - tp
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in ((kp2, kp), (pp, kp), (ks2, ks), (ps, ks))),
+          "the job through K8 alone or through the plain search alone "
+          "differs from the job that ran both")
+
+    w = score_cases.world(dev)
+    cases = {name: score_cases.run(name, w) for name in score_cases.CASES}
+    sets.append(score_cases.CASES["b4001"](w)[0])
+    each = [score_cases.each_candidate(*a) for a in sets]
+    check(not any(each), f"K8 alone on each candidate differs from "
+          f"score_candidates in {each} of {B} over {len(sets)} sets")
+
+    gen = torch.Generator(device=dev).manual_seed(score_cases.SEED)
+    cands = score.sample_candidates(kst.pose, cfg.sigma_xy, cfg.sigma_theta,
+                                    B, gen)
+    args = (cands, kst.hole_map, S, hs, dlog.points[-1], dlog.valid[-1])
+
+    def plain_ms(fn) -> float:
+        try:
+            return graph_ms(torch, fn, REPS_PLAIN)
+        except RuntimeError:
+            torch.cuda.synchronize()
+            return eager_ms(torch, fn, REPS_PLAIN)
+    # each input read once, each output written once: the candidates, the
+    # map, the points and flags, the pose and sum
+    bnd = bound(12 * B + 4 * S * S + 9 * n + 16, MC_OPS_PER_POINT * B * n)
+    timing = {"k8_us": graph_ms(torch, lambda: score.best_of(*args),
+                                REPS_KERNEL) * 1e3,
+              "k8_eager_us": eager_ms(torch, lambda: score.best_of(*args),
+                                      REPS_KERNEL) * 1e3,
+              "plain_ms": plain_ms(lambda: score.best_of_plain(*args)),
+              "bound_us": bnd[0] * 1e3, "bound_by": bnd[1]}
+    secs = time.perf_counter() - t0
+    out = {"scans": n_scans, "searches": want, "launches": launches,
+           "differing": diff, "each_candidate_sets": len(sets),
+           "cases": cases, **timing,
+           "job_scans_per_s": {"kernel": n_scans / tk, "plain": n_scans / tp},
+           "seconds": secs}
+    say(f"[mc search] K8 over a {n_scans}-scan coreslam_sim256 job ({S}-px "
+        f"hole map, {n} beams, {B} candidates, seed {score_cases.SEED}): "
+        f"{want} searched scans' poses and sums = best_of_plain's bit for "
+        f"bit {diff}; {launches} K8 launches = the searches; no host read; "
+        f"the job through K8 alone and through the plain search alone give "
+        f"its track; each of {B} candidates alone = score_candidates' sum "
+        f"in {len(sets)} sets; cases (winner, sum) {cases}; K8 "
+        f"{timing['k8_us']:.2f} us (eager {timing['k8_eager_us']:.1f}, "
+        f"bound {timing['bound_us']:.3f} by {bnd[1]}, share "
+        f"{100 * timing['bound_us'] / timing['k8_us']:.1f}%, plain "
+        f"{timing['plain_ms']:.3f} ms); the job {n_scans / tk:.1f} scans/s "
+        f"through K8, {n_scans / tp:.1f} plain")
+    say(f"[seconds] phase 39: {secs:.1f}")
     return out
 
 
@@ -3760,6 +3920,7 @@ def main() -> int:
     t27 = time.perf_counter()
     sess = interactive.InteractiveSession()
     _build.reset_launches()
+    searches = coreslam.update_cloud.searches
     steps = 40
     tt = time.perf_counter()
     for _ in range(steps):
@@ -3768,8 +3929,10 @@ def main() -> int:
     sess_s = time.perf_counter() - tt
     ilaunch = _build.kernel_launches()
     want = dict.fromkeys(ilaunch, 0)
-    # Hector's K3 + K4 and CoreSLAM's line updates (K7) a step
+    # Hector's K3 + K4 and CoreSLAM's line updates (K7) a step, and K8 a
+    # searched CoreSLAM step
     want.update(dict.fromkeys(("K3", "K4", *CORESLAM_LINE_KERNELS), steps))
+    want["K8_search"] = coreslam.update_cloud.searches - searches
     check(ilaunch == want, f"launches of {steps} session steps: {ilaunch}, "
           f"want {want}")
     check(sess.diverged_at is None and sess.loops == steps,
@@ -3863,6 +4026,8 @@ def main() -> int:
     graph_step = graph_step_smoke(torch, dev)
     # ---- 38. CoreSLAM's map update, K7 --------------------------------------
     coreslam_map = coreslam_map_smoke(torch, dev)
+    # ---- 39. CoreSLAM's Monte-Carlo search, K8 ------------------------------
+    mc_search = mc_search_smoke(torch, dev)
 
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
@@ -4056,6 +4221,7 @@ def main() -> int:
         "nccl_one_rank": nccl_one,
         "graph_step": graph_step,
         "coreslam_map": coreslam_map,
+        "mc_search": mc_search,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -14,10 +14,11 @@ at first use.  Each kernel wrapper runs its plain
 PyTorch version for CPU tensors (tests) and the kernel for CUDA tensors;
 ``ops._build.launch`` counts every launch under its kernel's key.
 Graph-SLAM (``models.graph_slam``) runs the same kernels at its frontend's
-shape.  CoreSLAM (``models.coreslam``) and the particle layer
-(``models.particle``) search with PyTorch operators, as the JAX package
-runs them in XLA; their line-mode map update is K7 (``ops.holemap``,
-``ops.obstacle``).  The multi-device layer (``parallel``: meshes over a
+shape.  CoreSLAM's (``models.coreslam``) Monte-Carlo search scores its
+candidates and takes the first minimum in one kernel, K8 (``ops.score``);
+its correlative search and the particle layer's (``models.particle``)
+scorers are PyTorch operators, as the JAX package runs them in XLA; their
+line-mode map update is K7 (``ops.holemap``, ``ops.obstacle``).  The multi-device layer (``parallel``: meshes over a
 ``torch.distributed`` world, the sharded models) is checked end to end by
 ``multichip`` (dryrun_multichip on N cards).  The host surface: the
 reference's processor objects (``compat``), CARMEN logs (``io.datasets``,

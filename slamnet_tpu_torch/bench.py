@@ -89,12 +89,16 @@ def kernels_of(cfg, batched: bool = False) -> set:
     return {kernel, "K2_batch" if dense else "K4_batch"}
 
 
-def coreslam_kernels(cfg) -> set:
+def coreslam_kernels(cfg, search: bool = True) -> set:
     """The kernels a CoreSLAM step in ``cfg`` launches: K7's line updates
-    (the search and the dense fills are PyTorch operators)."""
+    and, where the step searches (``search``; the particle layer scores its
+    own) by Monte Carlo, K8 (the correlative search and the dense fills are
+    PyTorch operators)."""
     return ((set() if cfg.dense_hole_fill
              else {"K7_hole_walk", "K7_hole_blend"})
-            | (set() if cfg.dense_obstacle_fill else {"K7_obstacle"}))
+            | (set() if cfg.dense_obstacle_fill else {"K7_obstacle"})
+            | ({"K8_search"} if search and cfg.search_mode == "mc"
+               else set()))
 
 
 class Run:
@@ -532,7 +536,7 @@ def particle_section(run: Run, n_scans: int | None = None,
             row.update(seeds=list(seeds), ates_m=ates[name],
                        ate_median_m=float(np.median(ates[name])))
         rows[name] = row
-        want[name] = coreslam_kernels(ccfg)
+        want[name] = coreslam_kernels(ccfg, search=False)
     fails = (replay.particle_gate(ates["exact"], ates["grid_dense"])
              if len(ates) == 2 else [])
     fails += launch_fails(run, rows, want)

@@ -20,9 +20,12 @@ Two of JAX's constructs change form:
 
 ``searched`` and ``best_sum`` stay device tensors.  On the card the line
 mode's map update is K7 (``csrc/coreslam_map.cu``: three launches a scan,
-through ``holemap.update_hole_map`` and ``obstacle.update_obstacle_map``);
-the search and the dense fills are PyTorch operators (the JAX package
-computes CoreSLAM in XLA, so no TPU kernel stands behind either).  The
+through ``holemap.update_hole_map`` and ``obstacle.update_obstacle_map``)
+and the Monte-Carlo search's scores and first minimum are K8
+(``csrc/mc_search.cu``, one launch a searched scan, through
+``score.best_of``); the candidates' draws, the correlative search and the
+dense fills are PyTorch operators (the JAX package computes CoreSLAM in
+XLA, so no TPU kernel stands behind any of them).  The
 entry point (``init``) puts the state on the card unless the caller names
 another device.
 

@@ -148,7 +148,7 @@ def stream_handle(device: torch.device) -> int:
 # one, is one call under its own key; K7 is three launchers)
 KERNELS = ("K1", "K3", "K5", "K3_batch", "K5_exit", "K3_batch_exit", "K6",
            "K2", "K2_batch", "K4", "K4_batch", "K7_hole_walk",
-           "K7_hole_blend", "K7_obstacle")
+           "K7_hole_blend", "K7_obstacle", "K8_search")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

@@ -17,16 +17,22 @@ in-bounds pixel sum's: the reference's ``sum * 1024 / count`` has the same
 denominator for every candidate.  An out-of-bounds point is skipped and a
 candidate with no point in bounds scores int-max (:251-258).
 
-Torch operators in direct form on the tensors' device; no hand kernel (the
-JAX package runs this in XLA, not in a Pallas kernel).
+On the card ``best_of`` is K8 (``csrc/mc_search.cu``): the scores and the
+first minimum in one launch, bit for bit ``best_of_plain``; CPU tensors
+take ``best_of_plain``.  The rest are torch operators in direct form on the
+tensors' device (the JAX package runs the search in XLA, not in a Pallas
+kernel).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from ..core.geometry import cos_rn, csharp_trunc, sin_rn
+from . import _build
 
 INT32_MAX = 2**31 - 1
 
@@ -88,12 +94,73 @@ def sample_candidates(search_pose: torch.Tensor, sigma_xy: float,
     return search_pose[None, :] + deltas
 
 
+class _SearchParams(ctypes.Structure):
+    """``struct SearchParams`` of csrc/mc_search.cu, passed by value."""
+
+    _fields_ = [("b", ctypes.c_int), ("n", ctypes.c_int),
+                ("size", ctypes.c_int), ("scale", ctypes.c_float)]
+
+
+@functools.cache
+def _launcher():
+    fn = _build.library()[0].slamnet_mc_search
+    fn.argtypes = [ctypes.c_void_p] * 6 + [_SearchParams, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _slot(device: torch.device) -> torch.Tensor:
+    """K8's reduction slot and block ticket on ``device`` (u64 ~0 and 0
+    between launches; the last block re-arms them).  One a device: two
+    searches on one device launched from two streams at once would share
+    it."""
+    return torch.tensor([-1, 0], dtype=torch.int64, device=device)
+
+
+def check_search_inputs(cands: torch.Tensor, hole_map_flat: torch.Tensor,
+                        size: int, points: torch.Tensor,
+                        valid: torch.Tensor) -> Tuple[int, int]:
+    """Raise ValueError unless K8 takes the inputs: contiguous f32[B, 3]
+    candidates (B >= 1), i32[size^2] map, f32[N, 2] points and bool[N]
+    valid on one device.  Reads only the tensors' metadata.  Returns
+    (B, N)."""
+    b = cands.shape[0] if cands.dim() == 2 and cands.shape[0] >= 1 else -1
+    n = points.shape[0] if points.dim() == 2 else -1
+    _build.check_tensors("K8 search", cands.device, (
+        ("cands", cands, torch.float32, (b, 3)),
+        ("hole_map", hole_map_flat, torch.int32, (size * size,)),
+        ("points", points, torch.float32, (n, 2)),
+        ("valid", valid, torch.bool, (n,))))
+    return b, n
+
+
 def best_of(cands: torch.Tensor, hole_map_flat: torch.Tensor, size: int,
             scale: float, points: torch.Tensor, valid: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(best pose f32[3], its sum i32[]) over the candidate set f32[B, 3]:
     the first minimum of the effective sums (int-max where nothing is in
-    bounds).  Both stay on the device."""
+    bounds).  CPU tensors take ``best_of_plain``; CUDA tensors K8's one
+    launch on the current stream (both results in one i32[4] buffer, the
+    pose viewed as f32; no host read), or a ValueError for inputs it does
+    not take."""
+    if cands.device.type == "cpu":
+        return best_of_plain(cands, hole_map_flat, size, scale, points, valid)
+    b, n = check_search_inputs(cands, hole_map_flat, size, points, valid)
+    dev = cands.device
+    out = torch.empty(4, dtype=torch.int32, device=dev)
+    _build.launch("K8 search", _launcher(), dev, cands.data_ptr(),
+                  hole_map_flat.data_ptr(), points.data_ptr(),
+                  valid.data_ptr(), _slot(dev).data_ptr(), out.data_ptr(),
+                  _SearchParams(b, n, size, scale), kernel="K8_search")
+    return out[:3].view(torch.float32), out[3]
+
+
+def best_of_plain(cands: torch.Tensor, hole_map_flat: torch.Tensor,
+                  size: int, scale: float, points: torch.Tensor,
+                  valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's plain version: ``score_candidates``, the effective sums and
+    ``torch.argmin``'s first minimum; any device, no host read."""
     sums, nb = score_candidates(hole_map_flat, size, scale, points, valid,
                                 cands)
     eff = torch.where(nb > 0, sums, torch.full_like(sums, INT32_MAX))
@@ -110,7 +177,9 @@ def monte_carlo_search(hole_map_flat: torch.Tensor, size: int, scale: float,
                        generator: torch.Generator
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``best_of`` over ``sample_candidates``: (best pose f32[3], best sum
-    i32[])."""
+    i32[]).  ``best_of`` is looked up by its module name at each call, so a
+    caller that wraps it (the benchmark's ``half_search`` plant) is
+    obeyed."""
     cands = sample_candidates(search_pose, sigma_xy, sigma_theta,
                               num_candidates, generator)
     return best_of(cands, hole_map_flat, size, scale, points, valid)

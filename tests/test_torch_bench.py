@@ -19,6 +19,7 @@ import torch
 
 from slamnet_tpu_torch import bench, replay
 from slamnet_tpu_torch.models import fleet, hector
+from slamnet_tpu_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -130,6 +131,19 @@ def test_sub4_onehot_dense_is_sub4_pallas_dense():
         {"K5", "K2_batch"}
     assert replay.FLEET_ROW_JAX_REFS["sub4_onehot_dense"] == \
         replay.FLEET_ROW_JAX_REFS["sub4_pallas_dense"]
+
+
+def test_coreslam_kernels_expect_k8_where_the_step_searches_by_monte_carlo():
+    # the parity mode's Monte-Carlo search launches K8, the production
+    # mode's correlative search none; the particle layer scores its own
+    line = {"K7_hole_walk", "K7_hole_blend", "K7_obstacle"}
+    assert bench.coreslam_kernels(replay.coreslam_parity_config()) == \
+        line | {"K8_search"}
+    assert bench.coreslam_kernels(replay.coreslam_production_config()) == \
+        set()
+    for ccfg, _ in replay.PARTICLE_MODES.values():
+        assert "K8_search" not in bench.coreslam_kernels(ccfg, search=False)
+    assert line | {"K8_search"} <= set(_build.KERNELS)
 
 
 def test_coreslam_section_is_the_replay_flow():
