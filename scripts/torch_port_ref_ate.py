@@ -564,8 +564,12 @@ def run_sharded_graph(log, frontend_mode, n_devices=8, with_poses=False):
 
 
 def _jax_cfg(cls, cfg):
-    """The JAX config with the port config's fields."""
-    return cls(**dataclasses.asdict(cfg))
+    """The JAX config with the port config's fields.  The port's
+    ``loop_min_index_gap`` has no JAX field: JAX's graph fixes it at 5."""
+    d = dataclasses.asdict(cfg)
+    if d.pop("loop_min_index_gap", 5) != 5:
+        raise ValueError("the JAX package's loop-candidate gap is 5")
+    return cls(**d)
 
 
 def main():

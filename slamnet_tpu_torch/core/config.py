@@ -287,6 +287,9 @@ class PoseGraphConfig(_Overlayable):
     keyframe_dist: float = 0.5          # meters between keyframes
     keyframe_angle: float = 0.35        # radians between keyframes
     loop_closure_radius: float = 2.0    # candidate search radius, meters
+    # a loop candidate's index is below the new node's less this gap, so it
+    # is at least gap + 1 keyframes older (5: the JAX package's constant)
+    loop_min_index_gap: int = 5
     gn_iterations: int = 10
     # per-KEYFRAME-event GN iterations of the incremental pose-graph
     # optimizer (models/graph_slam._spawn_keyframe): each iteration is one

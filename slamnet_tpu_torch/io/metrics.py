@@ -31,7 +31,15 @@ run's, then the capture's.  ``slamnet.coreslam.update`` is one CoreSLAM
 scan (one ``coreslam.update`` or ``coreslam.update_cloud`` call), holding
 in order ``slamnet.coreslam.search`` (the Monte-Carlo or correlative
 search, on a searched scan only) and ``slamnet.coreslam.map_update`` (the
-hole and obstacle maps' update).  They are recorded with
+hole and obstacle maps' update).  ``slamnet.graph.update`` is one
+graph-SLAM scan (one ``graph_slam.update`` call, never nested in another),
+holding ``slamnet.hector.update`` and, on a keyframe scan,
+``slamnet.graph.keyframe``, which holds in order ``slamnet.graph.loop_match``
+(the frontend's match and its acceptance read, on a searched event only)
+and ``slamnet.graph.optimize`` (the pose graph's GN steps); the host
+counters beside them are ``graph_slam.update``'s ``syncs``, ``searches``,
+``keyframes``, ``closures``, ``solves`` and ``solve_unknowns``.  They are
+recorded with
 ``torch._C._profiler._RecordFunctionFast``, not ``record_function``: a
 ``record_function`` range is a user annotation, which the profiler mirrors
 onto the card's timeline as a ``gpu_user_annotation`` event that a reader
@@ -126,8 +134,10 @@ class device_trace:
     The trace holds the program's spans (``span``) on the host's rows:
     each ``slamnet.hector.update`` with its ``slamnet.hector.match``,
     ``slamnet.hector.guards`` and ``slamnet.hector.map_update``, or its
-    ``slamnet.hector.graph_replay``, and each ``slamnet.coreslam.update``
-    with its ``.search`` and ``.map_update``, beside the kernels each
+    ``slamnet.hector.graph_replay``, each ``slamnet.coreslam.update``
+    with its ``.search`` and ``.map_update``, and each
+    ``slamnet.graph.update`` with its ``.keyframe``, ``.loop_match`` and
+    ``.optimize``, beside the kernels each
     launched.  The kernels of a replayed graph are recorded one by one,
     whether the graph was captured before the session or inside it (an
     H100, CUDA 12.8).

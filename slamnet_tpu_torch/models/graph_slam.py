@@ -25,9 +25,24 @@ The keyframe branch.  JAX branches with ``lax.cond`` on ``due``
 * ``looped``, once a search: the loop edge is written and the optimizer's
   extra steps run only when the match was accepted.
 
+Loop candidates are at least ``gcfg.loop_min_index_gap`` + 1 keyframes
+older than the new node (5 by default, JAX's constant).
+
 Everything is fixed-shape: K keyframe slots with stored clouds.  ``update``
 changes the Hector maps and the graph's tensors in place.  The entry points
 (``init``) put the state on the card unless the caller names another device.
+
+Spans and counters.  Under a profiler a scan is the span
+``slamnet.graph.update`` (never nested in another), holding
+``slamnet.hector.update`` and, on a keyframe scan, ``slamnet.graph.keyframe``
+(the node, its edges, the search, the optimize and the re-anchor), which
+holds in order ``slamnet.graph.loop_match`` (``frontend.match_scans`` and
+the acceptance read, on a searched event only) and ``slamnet.graph.optimize``
+(``posegraph.optimize``).  Host counters on ``update``: ``syncs`` (flag
+reads), ``searches`` (keyframe events that ran the frontend), ``keyframes``
+(nodes added), ``closures`` (loop edges accepted), ``solves`` (GN steps
+solved) and ``solve_unknowns`` (the largest solve's unknowns, 3 x
+``posegraph.bucket``).
 """
 from __future__ import annotations
 
@@ -40,10 +55,10 @@ from ..core.config import HectorConfig, PoseGraphConfig
 from ..core.geometry import normalize_angle, pose_between
 from ..core.scan import Scan
 from ..graph import frontend, posegraph
+from ..io import metrics
 from . import hector
 
 ANCHOR_WEIGHT = 1e6    # the node-0 prior of every optimize (graph_slam.py:123)
-MIN_INDEX_GAP = 5      # loop candidates at least this many keyframes older
 
 
 class GraphSlamState(NamedTuple):
@@ -111,13 +126,14 @@ def _spawn_keyframe(state: GraphSlamState, scan: Scan, pose: torch.Tensor,
         rel = pose_between(g.poses[prev_idx], pose)
         g, _ = posegraph.add_node(g, pose)
         g = posegraph.add_edge(g, prev_idx, n, rel, odom_w)
+        update.keyframes += 1
         kf_points[n] = scan.points
         kf_valid[n] = scan.valid
 
         # loop closure: the nearest valid candidate by proximity
         cand_mask = frontend.loop_candidates(g.poses, g.node_valid, n,
                                              gcfg.loop_closure_radius,
-                                             MIN_INDEX_GAP)
+                                             gcfg.loop_min_index_gap)
         d = torch.linalg.vector_norm(g.poses[:, :2] - pose[None, :2], dim=1)
         d = torch.where(cand_mask, d, torch.inf)
         update.syncs += 1
@@ -128,24 +144,31 @@ def _spawn_keyframe(state: GraphSlamState, scan: Scan, pose: torch.Tensor,
                              kf_valid.index_select(0, cand)[0],
                              torch.zeros(3, dtype=torch.float32, device=dev))
             init_rel = pose_between(g.poses.index_select(0, cand)[0], pose)
-            rel, q = frontend.match_scans(cand_scan, scan, init_rel, mcfg,
-                                          plain)
-            # accept when the matcher stayed near its start (no divergence)
-            # AND the query points land on the candidate's occupied cells
-            ok = (torch.linalg.vector_norm(rel[:2] - init_rel[:2])
-                  < gcfg.loop_max_translation) \
-                & (q.inlier_frac > gcfg.loop_min_inlier_frac)
-            update.syncs += 1
-            looped = bool(ok)
+            with metrics.span("graph.loop_match"):
+                rel, q = frontend.match_scans(cand_scan, scan, init_rel, mcfg,
+                                              plain)
+                # accept when the matcher stayed near its start (no
+                # divergence) AND the query points land on the candidate's
+                # occupied cells
+                ok = (torch.linalg.vector_norm(rel[:2] - init_rel[:2])
+                      < gcfg.loop_max_translation) \
+                    & (q.inlier_frac > gcfg.loop_min_inlier_frac)
+                update.syncs += 1
+                looped = bool(ok)
             if looped:
                 g = posegraph.add_edge(g, cand[0], n, rel, loop_w)
+                update.closures += 1
         n += 1
 
     # optimize after every keyframe: 1 step, or 3 after a closure
     iters = (gcfg.optimize_iterations_loop if looped
              else gcfg.optimize_iterations)
-    g = posegraph.optimize(g, iters, ANCHOR_WEIGHT,
-                           huber_delta=gcfg.huber_delta, num_nodes=n)
+    with metrics.span("graph.optimize"):
+        g = posegraph.optimize(g, iters, ANCHOR_WEIGHT,
+                               huber_delta=gcfg.huber_delta, num_nodes=n)
+    update.solves += iters
+    update.solve_unknowns = max(update.solve_unknowns,
+                                3 * posegraph.bucket(k, n))
 
     return state._replace(graph=g, kf_points=kf_points, kf_valid=kf_valid,
                           last_kf_pose=pose,
@@ -162,7 +185,26 @@ def update(state: GraphSlamState, scan: Scan, hcfg: HectorConfig,
     robot moved a keyframe's distance or angle, a keyframe event.  Reads
     ``due`` a scan, and ``has_cand`` and ``looped`` in a keyframe event (see
     the module's note).  ``plain=True`` runs the kernels' plain versions
-    whatever the device."""
+    whatever the device.  Under a profiler the call is the span
+    ``slamnet.graph.update`` (the module's note)."""
+    with metrics.span("graph.update"):
+        return _update(state, scan, hcfg, gcfg, mcfg, map_without_matching,
+                       plain)
+
+
+update.syncs = 0           # host reads of a device flag
+update.searches = 0        # keyframe events that ran the frontend
+update.keyframes = 0       # keyframe nodes added
+update.closures = 0        # loop-closure edges accepted
+update.solves = 0          # pose-graph GN steps solved
+update.solve_unknowns = 0  # the largest of those solves' unknowns
+
+
+def _update(state: GraphSlamState, scan: Scan, hcfg: HectorConfig,
+            gcfg: PoseGraphConfig, mcfg: frontend.ScanMatchConfig | None,
+            map_without_matching: bool | torch.Tensor, plain: bool
+            ) -> Tuple[GraphSlamState, GraphSlamInfo]:
+    """``update`` without its span."""
     if mcfg is None:
         mcfg = frontend.ScanMatchConfig()
     hstate, hinfo = hector.update(state.hector, scan, state.hector.match_pose,
@@ -174,18 +216,15 @@ def update(state: GraphSlamState, scan: Scan, hcfg: HectorConfig,
     if not bool(due):                 # the scan's read of the device
         return state._replace(hector=hstate), GraphSlamInfo(
             due, torch.zeros_like(due), hinfo.map_updated)
-    st2, looped = _spawn_keyframe(state._replace(hector=hstate), scan, pose,
-                                  gcfg, mcfg, plain)
-    # re-anchor the live matcher to the optimized current keyframe
-    opt = st2.graph.poses[st2.nodes - 1]
-    h = st2.hector._replace(match_pose=torch.stack(
-        [opt[0], opt[1], normalize_angle(opt[2])]))
+    with metrics.span("graph.keyframe"):
+        st2, looped = _spawn_keyframe(state._replace(hector=hstate), scan,
+                                      pose, gcfg, mcfg, plain)
+        # re-anchor the live matcher to the optimized current keyframe
+        opt = st2.graph.poses[st2.nodes - 1]
+        h = st2.hector._replace(match_pose=torch.stack(
+            [opt[0], opt[1], normalize_angle(opt[2])]))
     return st2._replace(hector=h), GraphSlamInfo(
         due, torch.full_like(due, looped), hinfo.map_updated)
-
-
-update.syncs = 0      # host reads of a device flag
-update.searches = 0   # keyframe events that ran the frontend
 
 
 def rebuild_maps(state: GraphSlamState, hcfg: HectorConfig,

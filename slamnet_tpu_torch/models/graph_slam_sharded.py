@@ -229,7 +229,7 @@ class Step:
             # loop closure: the nearest valid candidate by proximity
             cand_mask = frontend.loop_candidates(
                 g.poses, g.node_valid, n, gcfg.loop_closure_radius,
-                graph_slam.MIN_INDEX_GAP)
+                gcfg.loop_min_index_gap)
             d = torch.linalg.vector_norm(g.poses[:, :2] - pose[None, :2],
                                          dim=1)
             d = torch.where(cand_mask, d, torch.inf)
