@@ -299,7 +299,14 @@ K4 kernel.
                 4,001 candidates alone (B = 1) = score_candidates' sum, in
                 11 sets; K8's time beside its bound and the plain search's
                 time.
-Phases 17-39 print their seconds.
+ 40. graph    — coreslam.update's CUDA graph: a 522-scan coreslam_sim256
+                job as the benchmark's program runs it, through the graph
+                (no host read, captures included) = the eager step bit for
+                bit (poses, best sums, searched, both maps, the generator's
+                state), 2 captures and 518 replays, then a job of 522
+                replays; the eager launch counts; scans/s both ways and the
+                host's time for each piece of a replay.
+Phases 17-40 print their seconds.
 Then one JSON line of kernel measurements, and last the result line.  Each
 kernel's entry carries its bound: the larger of the bytes it must move on
 this run's inputs (each input read once, each output written once; a match
@@ -1283,6 +1290,186 @@ def mc_search_smoke(torch, dev) -> dict:
         f"{timing['plain_ms']:.3f} ms); the job {n_scans / tk:.1f} scans/s "
         f"through K8, {n_scans / tp:.1f} plain")
     say(f"[seconds] phase 39: {secs:.1f}")
+    return out
+
+
+# ---- phase 40: CoreSLAM's step as a CUDA graph ----------------------------
+CORESLAM_GRAPH_SEED = 2 ** 31 + 11    # the generator seed of phase 40's jobs
+PIECE_REPS = 50           # calls of each piece of a replay, timed on the host
+
+
+def coreslam_graph_smoke(torch, dev) -> dict:
+    """Phase 40: ``coreslam.update`` replays its step as a CUDA graph.  One
+    whole job of ``coreslam_sim256`` as the benchmark's program runs it
+    (the loop log's rays as one segment a scan, tagged with CoreSLAM's own
+    pose; 4,001 candidates, line updates) through ``coreslam.update`` on a
+    fresh graph cache, under CUDA's sync debug mode "error" (no host read,
+    captures included), and through the eager step ``coreslam._step``:
+    every pose, best sum and ``searched``, both maps at the end and the
+    generator's state bit for bit; 2 captures (the trusted and the searched
+    step) and the scans less 4 replays; the eager job's K7 and K8 launch
+    counts.  A second job replays every scan and gives the same.  Then the
+    untraced scans/s of a job both ways, and the host's time for each
+    piece of a replay (the input copies, the generator's hand-over, the
+    graph's launch, the clones) and for a whole replayed ``update``."""
+    from unittest import mock
+    from slamnet_tpu_torch import replay
+    from slamnet_tpu_torch.core.config import CoreSlamConfig
+    from slamnet_tpu_torch.core.scan import SegmentScan
+    from slamnet_tpu_torch.models import coreslam
+    from slamnet_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cfg = CoreSlamConfig(num_candidates=4001)
+    log = replay.make_log(seed=0)
+    dlog = replay.to_device(log, dev)
+    n_scans, n = dlog.points.shape[:2]
+    angles, radii = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in (log.angles, log.radii))
+    kernels = CORESLAM_LINE_KERNELS + ("K8_search",)
+
+    def seg(st, t):
+        return SegmentScan(angles[None], radii[t][None], dlog.valid[t][None],
+                           st.pose[None])
+
+    def eager(st, segments, cfg):
+        return coreslam._step("update", st, segments, cfg)
+
+    def job(step):
+        st = coreslam.init(cfg, dlog.traj[0], seed=CORESLAM_GRAPH_SEED,
+                           device=dev)
+        poses, sums, searched = [], [], []
+        for t in range(n_scans):
+            st, info = step(st, seg(st, t), cfg)
+            poses.append(st.pose)
+            sums.append(info.best_sum)
+            searched.append(info.searched)
+        return (torch.stack(poses), torch.stack(sums), torch.stack(searched),
+                st)
+
+    def counts():
+        got = _build.kernel_launches()
+        return (tuple(got[k] for k in kernels), coreslam.update.graph_captures,
+                coreslam.update.graph_replays)
+
+    def same(a, b):
+        return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+                and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+                and torch.equal(a[3].hole_map, b[3].hole_map)
+                and torch.equal(a[3].obstacle_map, b[3].obstacle_map)
+                and torch.equal(a[3].scan_count, b[3].scan_count)
+                and a[3].scans == b[3].scans
+                and torch.equal(a[3].generator.get_state(),
+                                b[3].generator.get_state()))
+
+    job(eager)                 # the library, K7's and K8's scratch, warm
+    torch.cuda.synchronize()
+    c0 = counts()
+    want = job(eager)
+    torch.cuda.synchronize()
+    c1 = counts()
+    graphs = coreslam.StepGraphs()
+    with mock.patch.object(coreslam, "STEP_GRAPHS", graphs):
+        torch.cuda.set_sync_debug_mode("error")   # no host read, captures in
+        try:
+            first = job(coreslam.update)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        c2 = counts()
+        second = job(coreslam.update)
+        torch.cuda.synchronize()
+        c3 = counts()
+        eager_l = tuple(b - a for a, b in zip(c0[0], c1[0]))
+        graph_l = [tuple(b - a for a, b in zip(x[0], y[0]))
+                   for x, y in ((c1, c2), (c2, c3))]
+        gr = [(y[1] - x[1], y[2] - x[2]) for x, y in ((c1, c2), (c2, c3))]
+        warm = cfg.position_search_beginning
+        check(eager_l == (n_scans,) * 3 + (n_scans - warm,),
+              f"the eager job's launches {eager_l}")
+        check(graph_l == [eager_l, eager_l], f"launches through the graph "
+              f"{graph_l}, eager {eager_l}")
+        check(gr == [(2, n_scans - 4), (0, n_scans)], f"(captures, replays) "
+              f"of two jobs {gr}, want (2, {n_scans - 4}) and (0, {n_scans})")
+        check(same(first, want) and same(second, want),
+              f"the {n_scans}-scan job through coreslam.update's graph "
+              "differs from the eager step's (poses, best sums, searched, "
+              "maps, count, generator)")
+        check(bool(first[2][warm:].all()) and not bool(first[2][:warm].any()),
+              "searched flags")
+
+        secs = {}
+        for label, step in (("eager", eager), ("graph", coreslam.update)):
+            best = math.inf
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                job(step)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t)
+            secs[label] = best
+
+        # the host's time for each piece of a replay, on the searched graph
+        g = next(c for cache in graphs.graphs.values()
+                 for c in cache.values() if c.generator is not None)
+        st = second[3]._replace(generator=torch.Generator(device=dev))
+        st.generator.set_state(second[3].generator.get_state())
+        ins = tuple(seg(st, n_scans - 1))
+        srcs = (*st[:5], *ins)
+
+        def host_us(fn, reps=PIECE_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            t = time.perf_counter() - t
+            torch.cuda.synchronize()
+            return t / reps * 1e6
+
+        def copies():
+            for dst, src in zip(g.inputs, srcs):
+                dst.copy_(src)
+
+        def hand_over():
+            g.generator.set_state(st.generator.get_state())
+            st.generator.set_state(g.generator.get_state())
+
+        def clones():
+            for m in g.outputs["maps"]:
+                m.clone()
+            g.outputs["packed"].clone()
+
+        saved = (_build.kernel_launches(), coreslam.update.graph_replays,
+                 coreslam.update_cloud.searches,
+                 coreslam.update_cloud.candidates)
+        try:
+            pieces = {"copies": host_us(copies), "generator": host_us(
+                hand_over), "replay": host_us(g.graph.replay),
+                "clones": host_us(clones),
+                "update": host_us(lambda: coreslam.update(
+                    st, SegmentScan(*ins), cfg))}
+        finally:
+            _build.reset_launches(saved[0])
+            (coreslam.update.graph_replays, coreslam.update_cloud.searches,
+             coreslam.update_cloud.candidates) = saved[1:]
+    secs_all = time.perf_counter() - t0
+    rate = {k: n_scans / v for k, v in secs.items()}
+    out = {"scans": n_scans, "launches": eager_l, "captures_replays": gr,
+           "scans_per_s": rate, "copies": len(g.inputs),
+           "replay_host_us": pieces, "seconds": secs_all}
+    say(f"[coreslam graph] {n_scans}-scan coreslam_sim256 jobs ({n} beams, "
+        f"{cfg.num_candidates} candidates, seed {CORESLAM_GRAPH_SEED}) "
+        f"through coreslam.update = the eager step bit for bit (poses, best "
+        f"sums, searched, both maps, count, generator state); captures and "
+        f"replays {gr}; launches {eager_l} both ways; no host read (sync "
+        f"debug mode 'error', captures included); {rate['graph']:.1f} "
+        f"scans/s replayed vs {rate['eager']:.1f} eager (best of 3 jobs); "
+        f"a replay's host us: {len(g.inputs)} input copies "
+        f"{pieces['copies']:.1f}, generator hand-over "
+        f"{pieces['generator']:.1f}, graph launch {pieces['replay']:.1f}, 3 "
+        f"clones {pieces['clones']:.1f}; a whole replayed update "
+        f"{pieces['update']:.1f}")
+    say(f"[seconds] phase 40: {secs_all:.1f}")
     return out
 
 
@@ -4028,6 +4215,8 @@ def main() -> int:
     coreslam_map = coreslam_map_smoke(torch, dev)
     # ---- 39. CoreSLAM's Monte-Carlo search, K8 ------------------------------
     mc_search = mc_search_smoke(torch, dev)
+    # ---- 40. CoreSLAM's step as a CUDA graph --------------------------------
+    coreslam_graph = coreslam_graph_smoke(torch, dev)
 
     def entry(name, source, replaces, launches, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
@@ -4222,6 +4411,7 @@ def main() -> int:
         "graph_step": graph_step,
         "coreslam_map": coreslam_map,
         "mc_search": mc_search,
+        "coreslam_graph": coreslam_graph,
         "nvidia_smi": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

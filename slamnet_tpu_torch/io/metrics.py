@@ -28,11 +28,15 @@ last-update pose); where the step is replayed as a CUDA graph
 input copies, the graph's launch and the copy of its results) and no
 phase.  The step that captures a graph holds the phases twice: its eager
 run's, then the capture's.  ``slamnet.coreslam.update`` is one CoreSLAM
-scan (one ``coreslam.update`` or ``coreslam.update_cloud`` call), holding
-in order ``slamnet.coreslam.search`` (the Monte-Carlo or correlative
-search, on a searched scan only) and ``slamnet.coreslam.map_update`` (the
-hole and obstacle maps' update).  ``slamnet.graph.update`` is one
-graph-SLAM scan (one ``graph_slam.update`` call, never nested in another),
+scan (one ``coreslam.update`` or ``coreslam.update_cloud`` call), holding,
+where the step runs eagerly, in order ``slamnet.coreslam.search`` (the
+Monte-Carlo or correlative search, on a searched scan only) and
+``slamnet.coreslam.map_update`` (the hole and obstacle maps' update), and
+where it is replayed as a CUDA graph (``models/coreslam.StepGraphs``) one
+``slamnet.coreslam.graph_replay`` (the input copies, the generator's
+hand-over, the graph's launch and the clones of its results).
+``slamnet.graph.update`` is one graph-SLAM scan (one ``graph_slam.update``
+call, never nested in another),
 holding ``slamnet.hector.update`` and, on a keyframe scan,
 ``slamnet.graph.keyframe``, which holds in order ``slamnet.graph.loop_match``
 (the frontend's match and its acceptance read, on a searched event only)
@@ -135,7 +139,8 @@ class device_trace:
     each ``slamnet.hector.update`` with its ``slamnet.hector.match``,
     ``slamnet.hector.guards`` and ``slamnet.hector.map_update``, or its
     ``slamnet.hector.graph_replay``, each ``slamnet.coreslam.update``
-    with its ``.search`` and ``.map_update``, and each
+    with its ``.search`` and ``.map_update``, or its ``.graph_replay``,
+    and each
     ``slamnet.graph.update`` with its ``.keyframe``, ``.loop_match`` and
     ``.optimize``, beside the kernels each
     launched.  The kernels of a replayed graph are recorded one by one,

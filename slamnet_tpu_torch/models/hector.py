@@ -54,6 +54,7 @@ from ..core.geometry import deg_diff, rad_diff
 from ..core.scan import Scan
 from ..io import metrics
 from ..ops import _build, fill, line, match as match_op
+from . import capture
 
 # float.MinValue (-3.4028235e38, the f32 lowest): the first squared distance
 # to it overflows to +inf in f32, so the first scan always updates the maps
@@ -341,11 +342,9 @@ class StepGraphs:
     object with ``replay()`` and ``reset()``; tests hand in a stand-in."""
 
     def __init__(self, record=None):
-        self.record = record if record is not None else self._record_cuda
+        self.record = record if record is not None else capture.CudaRecorder()
         self.graphs: dict = {}    # device -> OrderedDict(key -> step)
         self.last_key = None
-        self._pools: dict = {}    # device -> the memory pool its graphs share
-        self._streams: dict = {}  # device -> the side stream it captures on
 
     @staticmethod
     def key(maps: torch.Tensor, scan: Scan, cfg: HectorConfig,
@@ -411,14 +410,7 @@ class StepGraphs:
                 info.gn_iterations, info.solve_failures, info.map_updated)],
                 out=packed)
 
-        before = _build.kernel_launches()
-        try:
-            graph = self.record(body, dev)
-        finally:
-            after = _build.kernel_launches()
-            _build.reset_launches(before)
-        launched = tuple((k, n - before[k]) for k, n in after.items()
-                         if n != before[k])
+        graph, launched = capture.recorded(self.record, body, dev)
         return CapturedStep(graph, static, packed, launched)
 
     @staticmethod
@@ -428,28 +420,6 @@ class StepGraphs:
         g.graph.replay()
         _build.add_launches(g.launched)
         return _unpack(g.packed.clone())
-
-    def _record_cuda(self, body, device: torch.device):
-        """``body``'s launches captured into a CUDA graph on a side stream
-        of ``device`` that waits for the current one; every graph of a
-        device shares one memory pool (their replays never overlap).  Not
-        ``torch.cuda.graph``: its entry collects garbage and empties the
-        allocator's cache, milliseconds on every capture."""
-        if device not in self._pools:
-            self._pools[device] = torch.cuda.graph_pool_handle()
-            self._streams[device] = torch.cuda.Stream(device)
-        side = self._streams[device]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device):
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=self._pools[device],
-                                    capture_error_mode="thread_local")
-                try:
-                    body()
-                finally:
-                    graph.capture_end()
-        return graph
 
 
 STEP_GRAPHS = StepGraphs()

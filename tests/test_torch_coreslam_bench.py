@@ -270,3 +270,32 @@ def test_readers_return_none_without_a_span(metric):
     summary = _summary(prof)
     assert summary["host_ops"]
     assert H.reader(metric)({"summary": summary}) is None
+
+
+REPLAY_SHARE = "coreslam_graph_replay_pct"
+
+
+def _ops(*spans):
+    """A summary's host operations: (name, start, end) a span."""
+    return {"summary": {"host_ops": list(spans)}}
+
+
+def test_the_replay_share_counts_the_update_spans_holding_a_replay():
+    up, rp = "slamnet.coreslam.update", "slamnet.coreslam.graph_replay"
+    ctx = _ops((up, 0, 10), (rp, 2, 9), (up, 10, 20),
+               ("slamnet.coreslam.map_update", 12, 18), (up, 20, 30),
+               (rp, 21, 29), (up, 30, 40), (rp, 41, 45), (up, 50, 60),
+               (rp, 51, 59), ("aten::copy_", 52, 53))
+    assert H.reader(REPLAY_SHARE)(ctx) == pytest.approx(60.0)
+    assert H.reader(REPLAY_SHARE)(_ops((up, 0, 10))) == 0.0
+
+
+def test_the_replay_share_is_none_without_an_update_span_or_a_graph(
+        monkeypatch):
+    rp = "slamnet.coreslam.graph_replay"
+    assert H.reader(REPLAY_SHARE)(_ops()) is None
+    assert H.reader(REPLAY_SHARE)(_ops((rp, 0, 5),
+                                       ("aten::add_", 1, 2))) is None
+    monkeypatch.delattr(coreslam.update, "graph_replays")
+    assert H.reader(REPLAY_SHARE)(_ops(("slamnet.coreslam.update", 0, 9),
+                                       (rp, 1, 8))) is None
