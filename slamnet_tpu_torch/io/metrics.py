@@ -42,8 +42,13 @@ holding ``slamnet.hector.update`` and, on a keyframe scan,
 (the frontend's match and its acceptance read, on a searched event only)
 and ``slamnet.graph.optimize`` (the pose graph's GN steps); the host
 counters beside them are ``graph_slam.update``'s ``syncs``, ``searches``,
-``keyframes``, ``closures``, ``solves`` and ``solve_unknowns``.  They are
-recorded with
+``keyframes``, ``closures``, ``solves`` and ``solve_unknowns``.
+``slamnet.particle.update`` is one particle-layer scan (one
+``particle.update`` call, never nested in another), holding in order
+``slamnet.particle.score`` (propagate and the population's score),
+``.refine`` (top-k, refine, the estimate), ``.resample`` and
+``.map_update``; the host counters beside them are ``particle.update``'s
+``steps``, ``warm_steps`` and ``poses_scored``.  They are recorded with
 ``torch._C._profiler._RecordFunctionFast``, not ``record_function``: a
 ``record_function`` range is a user annotation, which the profiler mirrors
 onto the card's timeline as a ``gpu_user_annotation`` event that a reader

@@ -46,6 +46,16 @@ No hand kernel runs here: the JAX package computes the particle layer in
 XLA, and no function it calls reaches ``pl.pallas_call``.  The entry point
 (``init``) puts the state on the card unless the caller names another
 device.
+
+Under a profiler a scan is the span ``slamnet.particle.update`` (one
+``update`` call: the draws and the step, never nested in another), holding
+in order ``slamnet.particle.score`` (propagate and the population's score),
+``.refine`` (top-k, refine, the estimate), ``.resample`` and
+``.map_update`` (``coreslam.update_maps``; K7 on the card) on every scan:
+the warm-up scans run the whole step too and keep its scores (``io/
+metrics``).  ``update.steps``, ``update.warm_steps`` and
+``update.poses_scored`` count the scans, those past the warm-up and the
+poses scored (``poses_scored``) on the host; none reads the card.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ import torch
 from ..core.config import CoreSlamConfig, ParticleConfig
 from ..core.geometry import normalize_angle, true_div
 from ..core.scan import Scan
+from ..io import metrics
 from ..ops import correlate, score
 from . import coreslam
 
@@ -212,65 +223,72 @@ def step(state: ParticleState, cloud: Scan, odometry_pose,
     if pcfg.scorer not in ("exact", "grid"):
         raise ValueError(f"unknown particle scorer {pcfg.scorer!r}")
 
-    # 1. propagate with the odometry delta prior (CoreSLAMProcessor.cs:728)
-    delta = odo - state.last_odometry
-    jitter = torch.cat([noise.prop_xy * ccfg.sigma_xy,
-                        noise.prop_th * ccfg.sigma_theta], dim=1)
-    prop = state.particles + delta[None, :] + jitter
-    prop[0] = state.pose + delta
+    with metrics.span("particle.score"):
+        # 1. propagate with the odometry delta prior (CoreSLAMProcessor.cs:728)
+        delta = odo - state.last_odometry
+        jitter = torch.cat([noise.prop_xy * ccfg.sigma_xy,
+                            noise.prop_th * ccfg.sigma_theta], dim=1)
+        prop = state.particles + delta[None, :] + jitter
+        prop[0] = state.pose + delta
 
-    # 2. score the whole population in one batch
-    ss = max(1, pcfg.score_subsample)
-    if pcfg.scorer == "grid":
-        eff, grid_pose, _ = _grid_score(state, ccfg, cloud, state.pose + delta,
-                                        prop)
-    else:
-        eff = _score(state, ccfg, cloud.points[::ss], cloud.valid[::ss], prop)
+        # 2. score the whole population in one batch
+        ss = max(1, pcfg.score_subsample)
+        if pcfg.scorer == "grid":
+            eff, grid_pose, _ = _grid_score(state, ccfg, cloud,
+                                            state.pose + delta, prop)
+        else:
+            eff = _score(state, ccfg, cloud.points[::ss], cloud.valid[::ss],
+                         prop)
 
-    # 3. top-k refine: k survivors x r local perturbations
-    top_idx = top_k_indices(eff, k)
-    survivors = prop.index_select(0, top_idx)
-    if pcfg.scorer == "grid":
-        survivors[k - 1] = grid_pose
-    local = torch.cat([noise.refine_xy * (ccfg.sigma_xy * 0.3),
-                       noise.refine_th * (ccfg.sigma_theta * 0.3)], dim=-1)
-    local[:, 0] = 0.0
-    refine_poses = (survivors[:, None, :] + local).reshape(k * r, 3)
-    rs = max(1, pcfg.refine_subsample)
-    ref_eff = _score(state, ccfg, cloud.points[::rs], cloud.valid[::rs],
-                     refine_poses).reshape(k, r)
-    best_r = torch.argmin(ref_eff, dim=1)
-    pick = torch.arange(k, device=dev) * r + best_r
-    refined = refine_poses.index_select(0, pick)                 # [k, 3]
-    refined_eff = ref_eff.reshape(-1).index_select(0, pick)
+    with metrics.span("particle.refine"):
+        # 3. top-k refine: k survivors x r local perturbations
+        top_idx = top_k_indices(eff, k)
+        survivors = prop.index_select(0, top_idx)
+        if pcfg.scorer == "grid":
+            survivors[k - 1] = grid_pose
+        local = torch.cat([noise.refine_xy * (ccfg.sigma_xy * 0.3),
+                           noise.refine_th * (ccfg.sigma_theta * 0.3)], dim=-1)
+        local[:, 0] = 0.0
+        refine_poses = (survivors[:, None, :] + local).reshape(k * r, 3)
+        rs = max(1, pcfg.refine_subsample)
+        ref_eff = _score(state, ccfg, cloud.points[::rs], cloud.valid[::rs],
+                         refine_poses).reshape(k, r)
+        best_r = torch.argmin(ref_eff, dim=1)
+        pick = torch.arange(k, device=dev) * r + best_r
+        refined = refine_poses.index_select(0, pick)                 # [k, 3]
+        refined_eff = ref_eff.reshape(-1).index_select(0, pick)
 
-    # 4. estimate = the best refined survivor (the first minimum)
-    b = torch.argmin(refined_eff).reshape(1)
-    best = refined.index_select(0, b)[0]
-    best_pose = torch.cat([best[:2], normalize_angle(best[2:])])
-    best_sum = refined_eff.index_select(0, b)[0]
+        # 4. estimate = the best refined survivor (the first minimum)
+        b = torch.argmin(refined_eff).reshape(1)
+        best = refined.index_select(0, b)[0]
+        best_pose = torch.cat([best[:2], normalize_angle(best[2:])])
+        best_sum = refined_eff.index_select(0, b)[0]
 
-    # refined survivors back into the population; sums scored on another
-    # beam subset than the population's are rescaled by the valid-beam ratio
-    particles = prop.index_copy(0, top_idx, refined)
-    pop_full_beams = pcfg.scorer != "exact"
-    if (rs != 1) if pop_full_beams else (ss != rs):
-        nb_pop = (cloud.valid if pop_full_beams else cloud.valid[::ss]).sum(
-            dtype=torch.int32).clamp(min=1)
-        nb_ref = cloud.valid[::rs].sum(dtype=torch.int32).clamp(min=1)
-        ratio = nb_pop.to(torch.float32) / nb_ref.to(torch.float32)
-        # a finite sum is at most nb_ref x 65535, so scaled stays at most
-        # nb_pop x 65535 < 2^31: JAX's clamp to int-max (:189) never binds
-        scaled = torch.round(refined_eff.to(torch.float32) * ratio).to(
-            torch.int32)
-        eff = eff.index_copy(0, top_idx, torch.where(
-            refined_eff == INT32_MAX, refined_eff, scaled))
-    else:
-        eff = eff.index_copy(0, top_idx, refined_eff)
+        # refined survivors back into the population; sums scored on
+        # another beam subset than the population's are rescaled by the
+        # valid-beam ratio
+        particles = prop.index_copy(0, top_idx, refined)
+        pop_full_beams = pcfg.scorer != "exact"
+        if (rs != 1) if pop_full_beams else (ss != rs):
+            nb_pop = (cloud.valid if pop_full_beams else cloud.valid[::ss]
+                      ).sum(dtype=torch.int32).clamp(min=1)
+            nb_ref = cloud.valid[::rs].sum(dtype=torch.int32).clamp(min=1)
+            ratio = nb_pop.to(torch.float32) / nb_ref.to(torch.float32)
+            # a finite sum is at most nb_ref x 65535, so scaled stays at
+            # most nb_pop x 65535 < 2^31: JAX's clamp to int-max (:189)
+            # never binds
+            scaled = torch.round(refined_eff.to(torch.float32) * ratio).to(
+                torch.int32)
+            eff = eff.index_copy(0, top_idx, torch.where(
+                refined_eff == INT32_MAX, refined_eff, scaled))
+        else:
+            eff = eff.index_copy(0, top_idx, refined_eff)
 
-    # 5. resample when the effective sample size collapses
-    particles, eff, ess, do_resample = resample(
-        particles, eff, cloud.valid, noise.resample_u, pcfg.resample_ess_frac)
+    with metrics.span("particle.resample"):
+        # 5. resample when the effective sample size collapses
+        particles, eff, ess, do_resample = resample(
+            particles, eff, cloud.valid, noise.resample_u,
+            pcfg.resample_ess_frac)
 
     # 6. map updates at the estimate; during the warm-up trust the odometry
     #    (the coreslam PositionSearchBeginning contract) and collapse the
@@ -279,7 +297,8 @@ def step(state: ParticleState, cloud: Scan, odometry_pose,
     est = best_pose if warm else odo
     if not warm:
         particles = est[None].expand(p, 3).clone()
-    hole, obst = coreslam.update_maps(state, cloud, est, ccfg)
+    with metrics.span("particle.map_update"):
+        hole, obst = coreslam.update_maps(state, cloud, est, ccfg)
     new_state = state._replace(
         particles=particles, scores=eff, hole_map=hole, obstacle_map=obst,
         pose=est, last_odometry=odo,
@@ -292,6 +311,26 @@ def step(state: ParticleState, cloud: Scan, odometry_pose,
 def update(state: ParticleState, cloud: Scan, odometry_pose,
            ccfg: CoreSlamConfig, pcfg: ParticleConfig
            ) -> Tuple[ParticleState, ParticleInfo]:
-    """One scan: ``step`` with the draws of ``draw``."""
-    return step(state, cloud, odometry_pose, draw(state, ccfg, pcfg), ccfg,
-                pcfg)
+    """One scan: ``step`` with the draws of ``draw``, counted on the host
+    (the module's note)."""
+    with metrics.span("particle.update"):
+        out = step(state, cloud, odometry_pose, draw(state, ccfg, pcfg),
+                   ccfg, pcfg)
+    update.steps += 1
+    update.warm_steps += state.scans >= ccfg.position_search_beginning
+    update.poses_scored += poses_scored(ccfg, pcfg)
+    return out
+
+
+update.steps = 0
+update.warm_steps = 0
+update.poses_scored = 0
+
+
+def poses_scored(ccfg: CoreSlamConfig, pcfg: ParticleConfig) -> int:
+    """The poses one step scores against the hole map: the population (or,
+    with the ``grid`` scorer, the correlative grid's headings x window x
+    window) and the k x r refinements."""
+    pop = pcfg.num_particles if pcfg.scorer == "exact" else \
+        ccfg.corr_num_theta * ccfg.corr_window * ccfg.corr_window
+    return pop + pcfg.top_k * pcfg.refine_candidates
